@@ -18,3 +18,10 @@ def pytest_addoption(parser):
         "--update-goldens", action="store_true", default=False,
         help="rewrite tests/goldens/*.json from this run's chains "
              "(commit the diff deliberately — it means chains changed)")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the port's hand-written kernels); "
+        "skipped where none is available")
