@@ -2,19 +2,30 @@
 
     python3 chip_smoke.py [--profile TRACE.json]
 
-Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
-kernel against its plain PyTorch version on the card, runs ``DPMM.fit``
-on a 1,000,000 x 32 Gaussian mixture with 16 clusters (k_max = 64, 40
-iterations) and checks the clustering (NMI >= 0.9) and that every kernel
-of the path was launched, holds the fit's model-side draws (Dirichlet,
-Beta and NIW posterior, on the card and on the CPU) against their
-analytic moments, then times each kernel and its plain version. Each
-phase prints one JSON line; any failed check raises, so the script exits
-non-zero. The last line is ``{"ok": true, "device": {...}}``.
+Builds the port's four CUDA kernels from ``src/repro_torch/csrc`` and
+holds each against its plain PyTorch version on the card (phases
+``kernel_check``: sweep_gauss, suffstats_labels; ``kernel_check_linear``:
+sweep_linear, moments_labels, at the multinomial fit's width, the diagonal
+Gaussian pack and the 20newsgroups width d' = 20,000). Then it runs
+``DPMM.fit`` (k_max = 64, 40 iterations, 16 true clusters) on a
+1,000,000 x 32 Gaussian mixture (``fit``), on a 1,000,000 x 128
+multinomial mixture — the top of the paper's DPMNMM grid —
+(``fit_multinomial``) and at 200,000 x 32 for the Poisson and diagonal
+Gaussian families (``fit_poisson``, ``fit_diag_gaussian``). Each fit must
+reach NMI >= 0.9 and launch every kernel of its path. The fits' model-side
+draws (Dirichlet, Beta and NIW posterior for the Gaussian fit; Dirichlet,
+Gamma and NIG posterior for the linear ones; on the card and on the CPU)
+are held against their analytic moments (``model_draws``,
+``model_draws_linear``), and each kernel and its plain version are timed
+at the fits' final states (``kernel_times``, which also holds the linear
+kernels against their plain versions at every linear fit's final state).
+Each phase prints one JSON line; any failed check raises, so the script
+exits non-zero. The last line is ``{"ok": true, "device": {...}}``.
 
-``--profile TRACE.json`` adds a phase after the fit: the same fit again
-under ``torch.profiler``, reported as device-busy time, idle share and the
-heaviest device-side events, with the Chrome trace written to TRACE.json.
+``--profile TRACE.json`` adds two phases: after the Gaussian fit and after
+the multinomial fit, the same fit again under ``torch.profiler``, reported
+as device-busy time, idle share and the heaviest device-side events, with
+the Chrome traces written to TRACE.json and TRACE_multinomial.json.
 
 Needs a CUDA device and the repository's ``src/`` beside this file; it
 exits non-zero without either. It imports nothing of the JAX package.
@@ -41,6 +52,13 @@ PEAK_FP32_FLOP_S = 67e12
 
 FIT_N, FIT_D, FIT_K = 1_000_000, 32, 16
 FIT_CFG = dict(k_max=64, iters=40, burnout=10, log_every=10)
+# the linear families' fits: (component, generator, N, d), 16 clusters
+LINEAR_FITS = (("multinomial", "generate_mnmm", 1_000_000, 128),
+               ("poisson", "generate_pmm", 200_000, 32),
+               ("diag_gaussian", "generate_gmm", 200_000, 32))
+# the 20newsgroups width (README, benchmarks/bench_real_data.py): N
+# documents over a vocabulary of d' words, 20 topics, a 32-row slab
+NEWS_N, NEWS_D, NEWS_K, NEWS_KC = 11_314, 20_000, 20, 32
 CHECK_N = 131_072
 # Labels of kernel and plain version may differ only where the two best
 # logits are this close (relative): sums taken in another order.
@@ -104,11 +122,13 @@ def stats_err(got, want) -> float:
     return worst
 
 
-def near_ties(sweep, args, out_k, out_p) -> int:
-    """Count label mismatches; raise unless each is a near-tie of the two
-    logits involved and there are at most MAX_TIE_SHARE of the points."""
-    bad, not_ties = sweep.label_mismatches(args, out_k[0], out_k[1],
-                                           out_p[0], out_p[1], TIE_RTOL)
+def near_ties(mismatches, args, out_k, out_p) -> int:
+    """Count label mismatches (``mismatches``: the sweep's
+    ``label_mismatches`` function); raise unless each is a near-tie of the
+    two logits involved and there are at most MAX_TIE_SHARE of the
+    points."""
+    bad, not_ties = mismatches(args, out_k[0], out_k[1], out_p[0],
+                               out_p[1], TIE_RTOL)
     if not_ties:
         fail(f"{not_ties} label mismatches are not near-ties")
     if bad > MAX_TIE_SHARE * args[0].shape[0]:
@@ -234,6 +254,257 @@ def check_model_draws(active, stats, substats, prior, alpha: float,
     return z
 
 
+def linear_sweep_args(family, x, y, k_c: int, dev, seed: int = 0):
+    """``sweep_linear`` operands at points ``x`` with generator labels
+    ``y``: a ``k_c``-row compact slab whose live rows are the posterior
+    means of the true clusters and of a random split of each into two
+    sub-clusters, the other rows inactive at the prior mean, with
+    dense-slot Gumbel counters from a slab twice as wide — what a fit's
+    sweep sees once it has found the clusters."""
+    from repro_torch.configs import DPMMConfig
+    from repro_torch.core.state import tree_map
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = x.shape[0]
+    valid = torch.ones(n, device=dev)
+    lab = torch.as_tensor(y, device=dev)
+    sub = torch.randint(0, 2, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    prior = family.build_prior(DPMMConfig(), x.mean(dim=0, keepdim=True))
+    stats2 = family.stats_from_labels(x, valid, lab, sub, k_c)
+    stats = tree_map(lambda a: a.sum(dim=1), stats2)
+    pack = family.module.sweep_pack(x, family.expected_params(prior, stats),
+                          family.expected_params(prior, stats2))
+    live = stats.n > 0
+    logw = torch.where(live, torch.log(stats.n.clamp(min=1) / n), -1e30)
+    words = lambda: torch.randint(0, 1 << 32, (2,), generator=g, device=dev)
+    feats, w, const, subw, subconst = (t.contiguous() for t in pack)
+    return (feats, w, const, logw, live.to(torch.int32), subw, subconst,
+            torch.full((k_c, 2), math.log(0.5), device=dev), valid,
+            torch.arange(n, device=dev), words(), words(),
+            torch.randperm(2 * k_c, generator=g, device=dev)[:k_c]
+            .to(torch.int32))
+
+
+def fit_linear_args(family, model, x, gibbs, sampler, generator):
+    """The operands the linear fit's next sweep would give the kernel: the
+    final state's compact slab, packed as ``family.sweep`` packs it."""
+    k_max = model.active.shape[0]
+    k_c = sampler._k_compact(int(model.k_hat), 2, k_max, 8) or k_max
+    plan = gibbs.compaction_plan(model.active, k_c)
+    take = lambda t: gibbs.compact_gather(plan, t)
+    feats, w, const, subw, subconst = family.module.sweep_pack(
+        x, take(model.params), take(model.subparams))
+    n, dev = x.shape[0], x.device
+    words = lambda: torch.randint(0, 1 << 32, (2,), generator=generator,
+                                  device=dev)
+    args = (feats, w, const, take(model.logweights),
+            take(model.active).to(torch.int32), subw, subconst,
+            take(model.sub_logweights), torch.ones(n, device=dev),
+            torch.arange(n, device=dev), words(), words(),
+            plan.slot_of_compact.to(torch.int32))
+    return tuple(a.contiguous() for a in args), k_c
+
+
+def check_linear_kernels(args, k_sm: int, sweep, suffstats, gen) -> dict:
+    """``sweep_linear`` and ``moments_labels`` on ``args`` against their
+    plain versions: repeat launches bitwise equal, labels exact except
+    near-ties, partials within STATS_RTOL; moments on random labels over
+    ``k_sm`` clusters (the split/merge fold's width)."""
+    feats, valid = args[0], args[8]
+    out_k = sweep.sweep_linear_cuda(*args)
+    out_k2 = sweep.sweep_linear_cuda(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(out_k, out_k2)):
+        fail("sweep_linear: two launches on the same inputs differ")
+    out_p = sweep.sweep_linear_plain(*args)
+    ties = near_ties(sweep.label_mismatches_linear, args, out_k, out_p)
+    err_sweep = stats_err(out_k[2:], suffstats.moments_labels_plain(
+        feats, out_k[0], out_k[1], valid, args[1].shape[0]))
+    n = feats.shape[0]
+    lab = torch.randint(0, k_sm, (n,), generator=gen, device=feats.device,
+                        dtype=torch.int32)
+    sub = torch.randint(0, 2, (n,), generator=gen, device=feats.device,
+                        dtype=torch.int32)
+    m_k = suffstats.moments_labels_cuda(feats, lab, sub, valid, k_sm)
+    m_k2 = suffstats.moments_labels_cuda(feats, lab, sub, valid, k_sm)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(m_k, m_k2)):
+        fail("moments_labels: two launches on the same inputs differ")
+    err_m = stats_err(m_k, suffstats.moments_labels_plain(feats, lab, sub,
+                                                          valid, k_sm))
+    return {"n": n, "d_feat": feats.shape[1],
+            "sweep_linear": {"k": args[1].shape[0],
+                             "k_live": int(args[4].sum()),
+                             "near_tie_mismatches": ties,
+                             "max_abs_err": err_sweep,
+                             "repeat_bitwise": True},
+            "moments_labels": {"k": k_sm, "max_abs_err": err_m,
+                               "repeat_bitwise": True}}
+
+
+def check_fit_state(family, res, x, gibbs, sampler, gen, sweep,
+                    suffstats):
+    """``sweep_linear`` and ``moments_labels`` at a linear fit's final
+    state against their plain versions: the operands its next sweep would
+    pack (labels exact except near-ties, partials within STATS_RTOL), and
+    the split/merge fold of its final labels over the packed features.
+    Returns the report, the sweep's operands and the fold's labels,
+    sub-labels and width."""
+    largs, k_c = fit_linear_args(family, res.state, x, gibbs, sampler, gen)
+    feats, valid = largs[0], largs[8]
+    out_k = sweep.sweep_linear_cuda(*largs)
+    out_p = sweep.sweep_linear_plain(*largs)
+    ties = near_ties(sweep.label_mismatches_linear, largs, out_k, out_p)
+    err_sweep = stats_err(out_k[2:], suffstats.moments_labels_plain(
+        feats, out_k[0], out_k[1], valid, k_c))
+    k_sm = min(64, 2 * k_c)
+    plan = gibbs.compaction_plan(res.state.active, k_sm)
+    lab = plan.compact_of_slot[torch.as_tensor(
+        res.labels, device=x.device).long()].to(torch.int32)
+    sub = out_k[1]
+    err_mom = stats_err(
+        suffstats.moments_labels_cuda(feats, lab, sub, valid, k_sm),
+        suffstats.moments_labels_plain(feats, lab, sub, valid, k_sm))
+    report = {"n": feats.shape[0], "d_feat": feats.shape[1], "k_sweep": k_c,
+              "k_live": int(largs[4].sum()), "k_stats": k_sm,
+              "near_tie_mismatches": ties,
+              "sweep_linear_max_abs_err": err_sweep,
+              "moments_labels_max_abs_err": err_mom}
+    return report, largs, lab, sub, k_sm
+
+
+def run_fit(DPMM, cfg, x_np, y_np, kernels, gpu, phase: str):
+    """``DPMM(cfg).fit`` on the card with every launch count set to 0 just
+    before and read just after; emits ``phase`` and raises unless the
+    output is well formed, NMI >= 0.9 and each of ``kernels`` launched.
+    Returns the fit's result and its launch counts."""
+    from repro_torch.kernels import ops
+    model = DPMM(cfg)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = model.fit(x_np)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    nmi = res.nmi(y_np)
+    hist_ok = all(np.isfinite(v).all() for v in res.history.values())
+    steady = res.iter_times_s[cfg.log_every:]
+    # points left in an inactive slot: the Threefry top bin's +inf Gumbel
+    # (ROADMAP.md, faults), shown rather than gated
+    in_inactive = int((~res.state.active.cpu()[
+        torch.as_tensor(res.labels).long()]).sum())
+    n, d = x_np.shape
+    emit(phase, component=cfg.component, n=n, d=d,
+         k_true=int(y_np.max()) + 1, k_found=res.k, nmi=nmi,
+         ari=res.ari(y_np), iters=cfg.iters, wall_s=wall,
+         steady_ms_per_iter=1e3 * float(np.mean(steady)),
+         first_chunk_ms_per_iter=1e3 * float(np.mean(
+             res.iter_times_s[:cfg.log_every])),
+         peak_bytes=res.peak_bytes, launches=launches,
+         launches_per_iter={k: v / cfg.iters for k, v in launches.items()},
+         labels_in_inactive_slots=in_inactive,
+         k_history=res.history["k"].tolist(), nvidia_smi=gpu)
+    if res.labels.shape != (n,) or not hist_ok:
+        fail(f"{phase}: output has the wrong shape or non-finite history")
+    if nmi < 0.9:
+        fail(f"{phase}: NMI {nmi:.4f} < 0.9")
+    for name in kernels:
+        if launches[name] == 0:
+            fail(f"{phase}: kernel {name} was never launched by the fit")
+    return res, launches
+
+
+def check_linear_draws(family, active, stats, substats, prior,
+                       where: str) -> dict:
+    """The linear families' posterior draws (step (c)/(d)), DRAWS times on
+    ``where`` for every cluster and sub-cluster of one state, held against
+    their analytic moments: Dirichlet E theta = c / sum c (multinomial),
+    Gamma E lambda = a_n / b_n (poisson), NIG E tau = a_n / b_n and
+    E mu = m_n where a_n > 5, so the t tails of mu are light
+    (diag_gaussian). Raises if any |z| exceeds Z_MAX."""
+    import dataclasses
+    dev = torch.device(where)
+    g = torch.Generator(device=dev).manual_seed(2)
+    mod = family.module
+    prior = dataclasses.replace(prior, **{
+        f.name: getattr(prior, f.name).to(dev)
+        for f in dataclasses.fields(prior)
+        if isinstance(getattr(prior, f.name), torch.Tensor)})
+    both = family.stats_cls(**{
+        f.name: torch.cat([getattr(stats, f.name).to(dev),
+                           getattr(substats, f.name).to(dev).flatten(0, 1)])
+        for f in dataclasses.fields(family.stats_cls)})
+    reps = family.stats_cls(**{
+        f.name: getattr(both, f.name).expand(
+            (DRAWS,) + getattr(both, f.name).shape).contiguous()
+        for f in dataclasses.fields(family.stats_cls)})
+    p = family.sample_posterior(prior, reps, g)
+    if family.name == "multinomial":
+        c = mod.posterior(prior, both).double()
+        tot = c.sum(-1, keepdim=True)
+        z = {"theta": max_z(p.logtheta.double().exp(), c / tot,
+                            c * (tot - c) / (tot ** 2 * (tot + 1)))}
+    elif family.name == "poisson":
+        a_n, b_n = (t.double() for t in mod.posterior(prior, both))
+        b_n = b_n.expand_as(a_n)
+        z = {"rate": max_z(p.log_rate.double().exp(), a_n / b_n,
+                           a_n / b_n ** 2)}
+    else:
+        m_n, kappa_n, a_n, b_n = (t.double() for t in
+                                  mod.posterior(prior, both))
+        a = a_n[:, None].expand_as(b_n)
+        z = {"precision": max_z(p.log_prec.double().exp(), a / b_n,
+                                a / b_n ** 2),
+             "mu": max_z(p.mu.double(), m_n,
+                         b_n / (kappa_n[:, None] * (a - 1)).clamp(min=1e-9),
+                         a > 5)}
+    worst = max(z.values())
+    if not math.isfinite(worst) or worst > Z_MAX:
+        fail(f"{family.name} posterior draws on {where} off their analytic "
+             f"moments: max |z| {z}")
+    return z
+
+
+def time_linear(args, lab, sub, k_sm: int, sweep, suffstats) -> dict:
+    """Kernel and plain times of ``sweep_linear`` on ``args`` and of
+    ``moments_labels`` on labels ``lab``/``sub`` over ``k_sm`` clusters,
+    their bounds from these inputs, and ``library_ms``: one
+    ``index_add_`` of valid * feats into the (nsb * 2 k_sm, d') partials,
+    which computes the same sums in another order, with atomics."""
+    feats, valid = args[0], args[8]
+    n, dp = feats.shape
+    k = args[1].shape[0]
+    nsb = -(-n // suffstats.STATS_BLOCK)
+    live = int(args[4].sum())
+    out = {"n": n, "d_feat": dp, "k_sweep": k, "k_live": live, "k_stats": k_sm}
+    out["sweep_linear"] = {
+        "ms": cuda_ms(lambda: sweep.sweep_linear_cuda(*args), 20),
+        "plain_ms": cuda_ms(lambda: sweep.sweep_linear_plain(*args), 3),
+        # step (e) over the live slots, step (f) over two rows, the fold
+        "flop": 2 * n * dp * (live + 3),
+        "bytes": (n * dp * 4 + n * (4 + 8) + 8 * n + k * (3 * dp + 6) * 4
+                  + nsb * 2 * k * (1 + dp) * 4),
+        "library_ms": None}
+    idx = ((torch.arange(n, device=feats.device) // suffstats.STATS_BLOCK)
+           * (2 * k_sm) + 2 * lab.long() + sub.long())
+    src = feats * valid[:, None]
+    buf = torch.zeros(nsb * 2 * k_sm, dp, device=feats.device)
+    out["moments_labels"] = {
+        "ms": cuda_ms(lambda: suffstats.moments_labels_cuda(
+            feats, lab, sub, valid, k_sm), 20),
+        "plain_ms": cuda_ms(lambda: suffstats.moments_labels_plain(
+            feats, lab, sub, valid, k_sm), 3),
+        "flop": 2 * n * dp,
+        "bytes": n * (4 * dp + 12) + nsb * 2 * k_sm * (1 + dp) * 4,
+        "library_ms": cuda_ms(lambda: buf.index_add_(0, idx, src), 20)}
+    for name in ("sweep_linear", "moments_labels"):
+        r = out[name]
+        t_ops = r["flop"] / PEAK_FP32_FLOP_S * 1e3
+        t_bytes = r["bytes"] / PEAK_BYTES_S * 1e3
+        r["bound_ms"] = max(t_ops, t_bytes)
+        r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    return out
+
+
 def _device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
@@ -284,7 +555,9 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
     from repro_torch.configs import DPMMConfig
     from repro_torch.core import gibbs, niw, sampler
+    from repro_torch.core.family import get_family
     from repro_torch.core.sampler import DPMM
+    from repro_torch.data import synthetic
     from repro_torch.data.synthetic import generate_gmm
     from repro_torch.kernels import build, ops, suffstats, sweep
 
@@ -315,7 +588,7 @@ def main() -> None:
     if not all(torch.equal(a, b) for a, b in zip(out_k, out_k2)):
         fail("sweep_gauss: two launches on the same inputs differ")
     out_p = sweep.sweep_gauss_plain(*args)
-    ties = near_ties(sweep, args, out_k, out_p)
+    ties = near_ties(sweep.label_mismatches, args, out_k, out_p)
     x, valid = args[0], args[10]
     want = suffstats.suffstats_labels_plain(x, out_k[0], out_k[1], valid,
                                             k_c)
@@ -336,38 +609,31 @@ def main() -> None:
          suffstats_labels={"k": 2 * k_c, "max_abs_err": err_stats,
                            "repeat_bitwise": True})
 
+    # the linear families' kernels at the multinomial fit's width, the
+    # diagonal Gaussian pack (d = 32, d' = 64) and the 20newsgroups width
+    gen = torch.Generator(device=dev).manual_seed(3)
+    lin_k_c = sampler._k_compact(FIT_K, 2, 64, 8)
+    news_np = synthetic.generate_mnmm(NEWS_N, NEWS_D, NEWS_K, seed=0)
+    checks = {}
+    for name, fam, (xc, yc), k_c in (
+            ("multinomial", "multinomial",
+             synthetic.generate_mnmm(CHECK_N, 128, FIT_K, seed=1), lin_k_c),
+            ("diag_gaussian", "diag_gaussian",
+             synthetic.generate_gmm(CHECK_N, FIT_D, FIT_K, seed=1), lin_k_c),
+            ("news20", "multinomial", news_np, NEWS_KC)):
+        cargs = linear_sweep_args(get_family(fam),
+                                  torch.as_tensor(xc, device=dev), yc, k_c,
+                                  dev)
+        checks[name] = check_linear_kernels(cargs, 2 * k_c, sweep, suffstats,
+                                            gen)
+    del cargs          # the fits' peak memory is their own
+    emit("kernel_check_linear", **checks)
+
     # (5) the main path: DPMM.fit on the card through the kernels
     x_np, y_np = generate_gmm(FIT_N, FIT_D, FIT_K, seed=0)
     cfg = DPMMConfig(**FIT_CFG)
-    model = DPMM(cfg)
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = model.fit(x_np)
-    wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    nmi = res.nmi(y_np)
-    hist_ok = all(np.isfinite(v).all() for v in res.history.values())
-    steady = res.iter_times_s[cfg.log_every:]
-    # points left in an inactive slot: the Threefry top bin's +inf Gumbel
-    # (ROADMAP.md, faults), shown rather than gated
-    in_inactive = int((~res.state.active.cpu()[
-        torch.as_tensor(res.labels).long()]).sum())
-    emit("fit", n=FIT_N, d=FIT_D, k_true=FIT_K, k_found=res.k, nmi=nmi,
-         ari=res.ari(y_np), iters=cfg.iters, wall_s=wall,
-         steady_ms_per_iter=1e3 * float(np.mean(steady)),
-         first_chunk_ms_per_iter=1e3 * float(np.mean(
-             res.iter_times_s[:cfg.log_every])),
-         peak_bytes=res.peak_bytes, launches=launches,
-         launches_per_iter={k: v / cfg.iters for k, v in launches.items()},
-         labels_in_inactive_slots=in_inactive,
-         k_history=res.history["k"].tolist(), nvidia_smi=gpu)
-    if res.labels.shape != (FIT_N,) or not hist_ok:
-        fail("fit output has the wrong shape or non-finite history")
-    if nmi < 0.9:
-        fail(f"fit NMI {nmi:.4f} < 0.9")
-    for name, count in launches.items():
-        if count == 0:
-            fail(f"kernel {name} was never launched by the fit")
+    res, launches = run_fit(DPMM, cfg, x_np, y_np,
+                            ("sweep_gauss", "suffstats_labels"), gpu, "fit")
 
     if opts.profile:
         emit("profile", nvidia_smi=gpu, **profile_fit(x_np, cfg,
@@ -382,14 +648,44 @@ def main() -> None:
          d=FIT_D, max_abs_z={where: check_model_draws(
              st.active, st.stats, st.substats, prior, cfg.alpha, where)
              for where in ("cuda", "cpu")})
+    del x
+
+    # the linear families' paths: each fit with the counts set to 0 just
+    # before it and read just after
+    lin = {}
+    for comp, gen_name, n_fit, d_fit in LINEAR_FITS:
+        xl_np, yl_np = getattr(synthetic, gen_name)(n_fit, d_fit, FIT_K,
+                                                    seed=0)
+        lcfg = DPMMConfig(component=comp, **FIT_CFG)
+        lres, llaunch = run_fit(DPMM, lcfg, xl_np, yl_np,
+                                ("sweep_linear", "moments_labels"), gpu,
+                                f"fit_{comp}")
+        lin[comp] = (lres, llaunch, lcfg, xl_np)
+        if opts.profile and comp == "multinomial":
+            trace = Path(opts.profile)
+            emit("profile_multinomial", nvidia_smi=gpu, **profile_fit(
+                xl_np, lcfg, str(trace.with_name(
+                    f"{trace.stem}_multinomial{trace.suffix}"))))
+    draws = {}
+    for comp, (lres, _, lcfg, xl_np) in lin.items():
+        fam = get_family(comp)
+        st = lres.state
+        lprior = fam.build_prior(lcfg, torch.as_tensor(
+            xl_np.mean(0, keepdims=True), device=dev))
+        draws[comp] = {where: check_linear_draws(
+            fam, st.active, st.stats, st.substats, lprior, where)
+            for where in ("cuda", "cpu")}
+    emit("model_draws_linear", draws=DRAWS, z_max=Z_MAX, max_abs_z=draws)
 
     # (4) time each kernel at the fit's shapes (its final state, all N)
+    x = torch.as_tensor(x_np, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     sargs, k_c = fit_sweep_args(res.state, x, gibbs, sampler, gen)
     n_act = int(res.k)
     out_k = sweep.sweep_gauss_cuda(*sargs)
     out_p = sweep.sweep_gauss_plain(*sargs)
-    ties_fit = near_ties(sweep, sargs, out_k, out_p)
+    ties_fit = near_ties(sweep.label_mismatches, sargs, out_k,
+                         out_p)
     valid = sargs[10]
     err_sweep = stats_err(out_k[2:], suffstats.suffstats_labels_plain(
         x, out_k[0], out_k[1], valid, k_c))
@@ -401,7 +697,28 @@ def main() -> None:
     err_stats = stats_err(
         suffstats.suffstats_labels_cuda(x, lab_c, sub, valid, k_sm),
         suffstats.suffstats_labels_plain(x, lab_c, sub, valid, k_sm))
+    # the linear kernels at each linear fit's final state, as that fit's
+    # next sweep and split/merge fold would run them; the multinomial
+    # fit's (the widest) are kept for the times
+    fit_states = {}
+    for comp, (lres, _, _, xl_np) in lin.items():
+        fit_states[comp], *operands = check_fit_state(
+            get_family(comp), lres, torch.as_tensor(xl_np, device=dev),
+            gibbs, sampler, gen, sweep, suffstats)
+        if comp == "multinomial":
+            largs, llab, lsub, lk_sm = operands
+        del operands
+    mlaunch, mcfg = lin["multinomial"][1], lin["multinomial"][2]
+    err_lin = max(r["sweep_linear_max_abs_err"] for r in fit_states.values())
+    err_mom = max(r["moments_labels_max_abs_err"]
+                  for r in fit_states.values())
+    news_args = linear_sweep_args(get_family("multinomial"), torch.as_tensor(
+        news_np[0], device=dev), news_np[1], NEWS_KC, dev)
+    news_lab = sweep.sweep_linear_cuda(*news_args)
     ops.reset_launch_counts()
+    lin_times = time_linear(largs, llab, lsub, lk_sm, sweep, suffstats)
+    news_times = time_linear(news_args, *news_lab[:2], 2 * NEWS_KC, sweep,
+                             suffstats)
     ms_sweep = cuda_ms(lambda: sweep.sweep_gauss_cuda(*sargs), 20)
     plain_sweep = cuda_ms(lambda: sweep.sweep_gauss_plain(*sargs), 3)
     ms_stats = cuda_ms(lambda: suffstats.suffstats_labels_cuda(
@@ -439,11 +756,27 @@ def main() -> None:
             "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None})
+    for name, err, src, repl in (
+            ("sweep_linear", err_lin, "src/repro_torch/csrc/sweep_linear.cu",
+             "src/repro/kernels/sweep.py:179"),
+            ("moments_labels", err_mom,
+             "src/repro_torch/csrc/moments_labels.cu",
+             "src/repro/kernels/suffstats.py:218")):
+        t = lin_times[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": repl,
+            "launches": mlaunch[name],
+            "launches_per_iter": mlaunch[name] / mcfg.iters,
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     emit("kernel_times", n=n, d=d, k_sweep=k_c, k_live=n_act,
          k_stats=k_sm, near_tie_mismatches=ties_fit,
+         linear_fit_states=fit_states,
          timing_launches=ops.launch_counts(),
          detail={r["name"]: {"ms": r["ms"], "plain_ms": r["plain_ms"],
                              "bound_ms": r["bound_ms"]} for r in rows},
+         multinomial_fit_state=lin_times, news20=news_times,
          nvidia_smi=gpu)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": rows}))

@@ -1,8 +1,9 @@
 """Configuration of the port's DPMM sampler.
 
 The port's own copy of the fields of ``repro.configs.base.DPMMConfig`` that
-the Gaussian resident fit reads, with the same names and defaults. There is
-no ``use_pallas``: on the card the hand-written kernels are the path.
+the resident fit reads, with the same names and defaults, for the four
+component families (gaussian, diag_gaussian, multinomial, poisson). There
+is no ``use_pallas``: on the card the hand-written kernels are the path.
 """
 from __future__ import annotations
 
@@ -26,6 +27,15 @@ class DPMMConfig:
     niw_kappa: float = 1.0
     niw_nu_extra: float = 3.0
     niw_psi: float = 1.0
+    # Dirichlet prior (multinomial)
+    dir_alpha: float = 1.0
+    # Gamma prior (poisson)
+    gamma_a0: float = 1.0
+    gamma_b0: float = 1.0
+    # NIG prior (diag_gaussian); m is the data mean
+    nig_kappa: float = 1.0
+    nig_a0: float = 2.0
+    nig_b0: float = 0.5
     # sweep and split/merge stat fold on a compact slab of the live
     # clusters (O(K_active) per-point work instead of O(k_max))
     compact: bool = True

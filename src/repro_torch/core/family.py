@@ -1,18 +1,24 @@
 """ComponentFamily: what the sampler needs from an observation model.
 
-Port of ``repro.core.family`` for the ``gaussian`` family (full-covariance
-NIW). The sampler (``core/gibbs.py``, ``core/splitmerge.py``,
-``core/sampler.py``) reaches the likelihood only through this interface:
+Port of ``repro.core.family`` for its four families: ``gaussian``
+(full-covariance NIW, ``core/niw.py``), ``multinomial``, ``poisson`` and
+``diag_gaussian`` (``core/<family>.py``). The sampler (``core/gibbs.py``,
+``core/splitmerge.py``, ``core/sampler.py``) reaches the likelihood only
+through this interface:
 
-- conjugate math (``core/niw.py``);
+- conjugate math: ``build_prior``, ``empty_stats``, ``add_stats``,
+  ``log_marginal``, ``sample_posterior``, ``expected_params``;
 - ``sweep``: steps (e) + (f) + the sub-cluster stat fold in one pass over
-  the points, through ``kernels.ops.sweep_gauss`` (the CUDA kernel on the
-  card, its plain version on the CPU);
-- ``stats_from_labels``: label-indexed sub-cluster stats through
-  ``kernels.ops.suffstats_labels``;
-- ``assign`` / ``sub_assign``: steps (e) and (f) alone, the plain path.
-
-Only ``gaussian`` is ported; the linear families come later (ROADMAP.md).
+  the points. The gaussian family runs ``kernels.ops.sweep_gauss``; the
+  three linear families pack their likelihood as ``feats @ w.T + const``
+  (their ``sweep_pack``) and run ``kernels.ops.sweep_linear`` — the CUDA
+  kernels on the card, their plain versions on the CPU;
+- ``stats_from_labels``: label-indexed sub-cluster stats
+  (``ops.suffstats_labels`` for gaussian, ``ops.moments_labels`` through
+  ``core/labelstats.py`` for the linear families);
+- ``assign`` / ``sub_assign``: steps (e) and (f) alone, the plain path
+  (gaussian only so far);
+- ``cluster_means``: the first-moment field over the counts.
 """
 from __future__ import annotations
 
@@ -21,16 +27,17 @@ from typing import Any, Callable, Tuple
 
 import torch
 
-from repro_torch.core import niw
+from repro_torch.core import diag_gaussian, multinomial, niw, poisson
+from repro_torch.core.labelstats import fold_partials
 from repro_torch.kernels import ops
 from repro_torch.kernels.sweep import assign_plain, sub_assign_plain
 
 
 def fold_blocked(family: "ComponentFamily", k_max: int, body,
                  x: torch.Tensor, valid: torch.Tensor, extras: Tuple,
-                 acc: niw.GaussStats, label_map=None):
+                 acc, label_map=None):
     """Run the per-point ``body`` over the whole tile, then fold its
-    labels' sub-cluster stats into ``acc`` with one ``suffstats_labels``
+    labels' sub-cluster stats into ``acc`` with one ``stats_from_labels``
     call (per-STATS_BLOCK partials, one fixed-order reduction).
 
     ``body(x, valid, *extras) -> (labels, sublabels)``. ``label_map``
@@ -42,19 +49,56 @@ def fold_blocked(family: "ComponentFamily", k_max: int, body,
     stat_lab = labels if label_map is None else label_map[labels.long()]
     part = family.stats_from_labels(x, valid, stat_lab.to(torch.int32),
                                     sublabels, k_max)
-    return labels, sublabels, niw.add_stats(acc, part)
+    return labels, sublabels, family.add_stats(acc, part)
+
+
+def _gauss_sweep(x, valid, params, subparams, logw, sublogw, active, gidx,
+                 key_z, key_zb, slots):
+    mu, f, ld, smu, sf, sld = niw.sweep_pack(params, subparams)
+    labels, sublabels, n2, sx2, sxx2 = ops.sweep_gauss(
+        x, mu, f, ld, logw, active, smu, sf, sld, sublogw, valid, gidx,
+        key_z, key_zb, slots)
+    return labels, sublabels, niw.stats_from_partials(n2, sx2, sxx2)
+
+
+def _linear_sweep(mod):
+    """The fused sweep of a linear family: its ``sweep_pack`` builds the
+    shared feature block once, ``sweep_linear`` runs steps (e) + (f) and
+    the first-moment fold, and ``stats_from_moments`` unpacks the folded
+    partials into the family's stats."""
+    def sweep(x, valid, params, subparams, logw, sublogw, active, gidx,
+              key_z, key_zb, slots):
+        feats, w, const, subw, subconst = mod.sweep_pack(x, params,
+                                                         subparams)
+        labels, sublabels, n2, sf2 = ops.sweep_linear(
+            feats, w, const, logw, active, subw, subconst, sublogw, valid,
+            gidx, key_z, key_zb, slots)
+        return labels, sublabels, mod.stats_from_moments(
+            fold_partials(n2), fold_partials(sf2))
+    return sweep
 
 
 @dataclasses.dataclass(frozen=True)
 class ComponentFamily:
     """One observation model behind the sampler's interface."""
     name: str
+    # the conjugate-math module: core/niw.py or core/<name>.py
+    module: Any
     build_prior: Callable[..., Any]
     empty_stats: Callable[..., Any]
     add_stats: Callable[..., Any]
     log_marginal: Callable[..., torch.Tensor]
     sample_posterior: Callable[..., Any]
     expected_params: Callable[..., Any]
+    params_cls: type
+    stats_cls: type
+    # (x, valid, params, subparams, logw, sublogw, active, gidx, key_z,
+    #  key_zb, slots) -> (labels, sublabels, (k, 2) sub-cluster stats)
+    fused_sweep: Callable[..., Tuple]
+    # (x, valid, labels, sublabels, k_max) -> (k_max, 2) stats
+    labels_stats: Callable[..., Any]
+    # stats field holding the first moment (sum x) — cluster means read it
+    mean_field: str = "sx"
 
     def sweep(self, x, valid, params, subparams, logw, sublogw, active,
               gidx, key_z, key_zb, k_max: int, acc, slots=None):
@@ -64,21 +108,20 @@ class ComponentFamily:
         sublabels, acc')`` with labels in the slab's positions."""
         if slots is None:
             slots = torch.arange(k_max, device=x.device)
-        mu, f, ld, smu, sf, sld = niw.sweep_pack(params, subparams)
-        labels, sublabels, n2, sx2, sxx2 = ops.sweep_gauss(
-            x, mu, f, ld, logw, active.to(torch.int32), smu, sf, sld,
-            sublogw, valid, gidx, key_z, key_zb, slots.to(torch.int32))
-        return labels, sublabels, niw.add_stats(
-            acc, niw.stats_from_partials(n2, sx2, sxx2))
+        labels, sublabels, part = self.fused_sweep(
+            x, valid, params, subparams, logw, sublogw,
+            active.to(torch.int32), gidx, key_z, key_zb,
+            slots.to(torch.int32))
+        return labels, sublabels, self.add_stats(acc, part)
 
-    def stats_from_labels(self, x, valid, labels, sublabels,
-                          k_max: int) -> niw.GaussStats:
+    def stats_from_labels(self, x, valid, labels, sublabels, k_max: int):
         """(k_max, 2) sub-cluster stats straight from int labels."""
-        return niw.stats_from_labels(x, valid, labels, sublabels, k_max)
+        return self.labels_stats(x, valid, labels, sublabels, k_max)
 
     def assign(self, x, params, logw, active, gidx, key_z,
                slots=None) -> torch.Tensor:
         """Step (e) alone, plain path: (N,) labels."""
+        self._gaussian_only("assign")
         if slots is None:
             slots = torch.arange(logw.shape[0], device=x.device)
         return assign_plain(x, params.mu, params.chol_prec,
@@ -88,30 +131,62 @@ class ComponentFamily:
     def sub_assign(self, x, subparams, sublogw, labels, gidx,
                    key_zb) -> torch.Tensor:
         """Step (f) alone, plain path: (N,) sub-labels."""
+        self._gaussian_only("sub_assign")
         return sub_assign_plain(x, subparams.mu, subparams.chol_prec,
                                 subparams.logdet_prec, sublogw, labels,
                                 gidx, key_zb)
 
+    def _gaussian_only(self, step: str) -> None:
+        if self.name != "gaussian":
+            raise NotImplementedError(
+                f"{step} alone is ported for the gaussian family only; the "
+                f"{self.name} family runs steps (e)-(f) through sweep")
+
     def cluster_means(self, stats) -> torch.Tensor:
-        """(*B, d) empirical cluster means."""
-        return stats.sx / torch.clamp(stats.n[..., None], min=1.0)
+        """(*B, d) empirical cluster means from the first-moment field."""
+        first = getattr(stats, self.mean_field)
+        return first / torch.clamp(stats.n[..., None], min=1.0)
 
 
-GAUSSIAN = ComponentFamily(
-    name="gaussian", build_prior=niw.build_prior,
-    empty_stats=niw.empty_stats, add_stats=niw.add_stats,
-    log_marginal=niw.log_marginal, sample_posterior=niw.sample_posterior,
-    expected_params=niw.expected_params)
+def _module_family(mod, name: str, params_cls, stats_cls,
+                   **kw) -> ComponentFamily:
+    return ComponentFamily(
+        name=name, module=mod, build_prior=mod.build_prior, empty_stats=mod.empty_stats,
+        add_stats=mod.add_stats, log_marginal=mod.log_marginal,
+        sample_posterior=mod.sample_posterior,
+        expected_params=mod.expected_params, params_cls=params_cls,
+        stats_cls=stats_cls, labels_stats=mod.stats_from_labels, **kw)
 
-_REGISTRY = {"gaussian": GAUSSIAN}
+
+def _linear_family(mod, name: str, params_cls, stats_cls,
+                   mean_field: str) -> ComponentFamily:
+    return _module_family(mod, name, params_cls, stats_cls,
+                          fused_sweep=_linear_sweep(mod),
+                          mean_field=mean_field)
+
+
+GAUSSIAN = _module_family(niw, "gaussian", niw.GaussParams, niw.GaussStats,
+                          fused_sweep=_gauss_sweep)
+MULTINOMIAL = _linear_family(multinomial, "multinomial",
+                             multinomial.MultParams, multinomial.MultStats,
+                             mean_field="counts")
+POISSON = _linear_family(poisson, "poisson", poisson.PoisParams,
+                         poisson.PoisStats, mean_field="sx")
+DIAG_GAUSSIAN = _linear_family(diag_gaussian, "diag_gaussian",
+                               diag_gaussian.DiagParams,
+                               diag_gaussian.DiagStats, mean_field="sx")
+
+_REGISTRY = {f.name: f for f in (GAUSSIAN, MULTINOMIAL, POISSON,
+                                 DIAG_GAUSSIAN)}
+
+
+def available_families() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
 
 
 def get_family(name: str) -> ComponentFamily:
     try:
         return _REGISTRY[name]
     except KeyError:
-        raise NotImplementedError(
-            f"component family {name!r} is not ported to repro_torch yet: "
-            "only 'gaussian' is. The linear families (multinomial, poisson, "
-            "diag_gaussian) are queued in ROADMAP.md.") from None
-
+        raise ValueError(f"unknown component family {name!r}; registered: "
+                         f"{', '.join(available_families())}") from None

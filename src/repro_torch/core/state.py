@@ -10,8 +10,8 @@ with an ``active`` mask; sub-cluster tensors carry an extra axis of size 2
   O(N).
 
 ``model_state_from_numpy`` / ``model_state_to_numpy`` carry a model state
-between this package and the JAX one as plain numpy arrays, so both can
-compute from the same parameters.
+of any family between this package and the JAX one as plain numpy arrays,
+so both can compute from the same parameters.
 """
 from __future__ import annotations
 
@@ -20,8 +20,6 @@ from typing import Any, Callable, Dict, Mapping
 
 import numpy as np
 import torch
-
-from repro_torch.core.niw import GaussParams, GaussStats
 
 
 def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any) -> Any:
@@ -44,10 +42,10 @@ class ModelState:
     logweights: torch.Tensor      # (K,) log pi_k (-1e30 when inactive)
     sub_logweights: torch.Tensor  # (K, 2)
     stuck: torch.Tensor           # (K,) int32 sweeps since a split
-    params: GaussParams           # batch (K,)
-    subparams: GaussParams        # batch (K, 2)
-    stats: GaussStats             # batch (K,)
-    substats: GaussStats          # batch (K, 2)
+    params: Any                   # the family's params, batch (K,)
+    subparams: Any                # batch (K, 2)
+    stats: Any                    # the family's stats, batch (K,)
+    substats: Any                 # batch (K, 2)
 
     @property
     def k_hat(self) -> torch.Tensor:
@@ -81,26 +79,23 @@ def _field(tree: Any, name: str) -> Any:
     return getattr(tree, name)
 
 
-def model_state_from_numpy(tree: Any, device) -> ModelState:
+def model_state_from_numpy(tree: Any, device, family) -> ModelState:
     """Build a ``ModelState`` on ``device`` from numpy arrays.
 
     ``tree`` is the JAX ``ModelState`` with numpy leaves, or nested dicts
     with the same field names (``model_state_to_numpy``'s output). Its
-    ``key`` is the key's two raw uint32 words (``jax.random.key_data``);
-    ``params``/``subparams`` carry ``mu``, ``chol_prec``, ``logdet_prec``
-    and ``stats``/``substats`` carry ``n``, ``sx``, ``sxx``.
+    ``key`` is the key's two raw uint32 words (``jax.random.key_data``).
+    ``params``/``subparams`` and ``stats``/``substats`` carry the fields of
+    ``family``'s (a ``ComponentFamily``) params and stats classes:
+    ``mu``/``chol_prec``/``logdet_prec``, ``logtheta``, ``log_rate`` or
+    ``mu``/``log_prec``; ``n`` with ``sx``/``sxx``, ``counts`` or ``sx``.
     """
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.array(a)).to(device=device, dtype=dtype)
 
-    def params(p):
-        return GaussParams(mu=t(_field(p, "mu")),
-                           chol_prec=t(_field(p, "chol_prec")),
-                           logdet_prec=t(_field(p, "logdet_prec")))
-
-    def stats(s):
-        return GaussStats(n=t(_field(s, "n")), sx=t(_field(s, "sx")),
-                          sxx=t(_field(s, "sxx")))
+    def build(cls, tree):
+        return cls(**{f.name: t(_field(tree, f.name))
+                      for f in dataclasses.fields(cls)})
 
     key = np.asarray(_field(tree, "key")).reshape(-1)[:2].astype(np.int64)
     return ModelState(
@@ -109,10 +104,10 @@ def model_state_from_numpy(tree: Any, device) -> ModelState:
         logweights=t(_field(tree, "logweights")),
         sub_logweights=t(_field(tree, "sub_logweights")),
         stuck=t(_field(tree, "stuck"), torch.int32),
-        params=params(_field(tree, "params")),
-        subparams=params(_field(tree, "subparams")),
-        stats=stats(_field(tree, "stats")),
-        substats=stats(_field(tree, "substats")))
+        params=build(family.params_cls, _field(tree, "params")),
+        subparams=build(family.params_cls, _field(tree, "subparams")),
+        stats=build(family.stats_cls, _field(tree, "stats")),
+        substats=build(family.stats_cls, _field(tree, "substats")))
 
 
 def model_state_to_numpy(model: ModelState) -> Dict[str, Any]:

@@ -1,5 +1,6 @@
 // Per-STATS_BLOCK sub-cluster statistics of one block of points, shared by
-// the sweep_gauss and suffstats_labels kernels.
+// the sweep_gauss and suffstats_labels kernels (n, sx, sxx) and the
+// sweep_linear and moments_labels kernels (n and first moments only).
 //
 // One thread block owns STATS_BLOCK (= 1024) consecutive points and writes
 // their partial (n, sx, sxx) for every segment s = 2 * label + sublabel:
@@ -14,6 +15,8 @@
 // sum over its segment's points in point order. The result does not depend
 // on scheduling, so two launches on the same inputs give identical bits.
 #pragma once
+
+#include <stdint.h>
 
 namespace repro_torch {
 
@@ -54,6 +57,59 @@ __device__ void sort_by_segment(const int* seg, int np, int S, int* start,
   __syncthreads();
 }
 
+// First moments of one feature chunk [c0, c0 + dc) of this block's points:
+// f, w are the block's (np, dp) rows and (np,) weights; n_out (nullptr to
+// skip) gets the (S,) weighted counts and sf_out the chunk's columns of the
+// (S, dp) first-moment slice. Consecutive threads take consecutive features
+// of one segment, so a warp reads a point's row chunk in one sweep. The
+// entry index runs to S dc in an int: callers keep S dc < 2^31.
+__device__ void accumulate_moments(const float* __restrict__ f,
+                                   const float* __restrict__ w, size_t dp,
+                                   int S, const int* start, const int* idx,
+                                   int c0, int dc, float* __restrict__ n_out,
+                                   float* __restrict__ sf_out) {
+  if (n_out != nullptr) {
+    for (int e = threadIdx.x; e < S; e += blockDim.x) {
+      float acc = 0.f;
+      for (int i = start[e]; i < start[e + 1]; ++i) acc += w[idx[i]];
+      n_out[e] = acc;
+    }
+  }
+  if (((dp | (size_t)dc | (size_t)c0) & 3) == 0 &&
+      (((uintptr_t)f | (uintptr_t)sf_out) & 15) == 0) {
+    // four consecutive features per thread, 16-byte loads and stores
+    const int dq = dc >> 2;
+    for (int e = threadIdx.x; e < S * dq; e += blockDim.x) {
+      const int s = e / dq, a = c0 + 4 * (e - s * dq);
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+      for (int i = start[s]; i < start[s + 1]; ++i) {
+        const int p = idx[i];
+        const float wp = w[p];
+        const float4 v = *reinterpret_cast<const float4*>(f + (size_t)p * dp
+                                                          + a);
+        acc.x = fmaf(wp, v.x, acc.x);
+        acc.y = fmaf(wp, v.y, acc.y);
+        acc.z = fmaf(wp, v.z, acc.z);
+        acc.w = fmaf(wp, v.w, acc.w);
+      }
+      *reinterpret_cast<float4*>(sf_out + (size_t)s * dp + a) = acc;
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < S * dc; e += blockDim.x) {
+    const int s = e / dc, a = c0 + (e - s * dc);
+    float acc = 0.f;
+    // unrolled so several loads are in flight; the sum stays in point order
+#pragma unroll 4
+    for (int i = start[s]; i < start[s + 1]; ++i) {
+      const int p = idx[i];
+      acc = fmaf(w[p], f[(size_t)p * dp + a], acc);
+    }
+    sf_out[(size_t)s * dp + a] = acc;
+  }
+}
+
 // x, w: this block's points ((np, d) and (np,)); outputs: this block's
 // (S,), (S, d), (S, d, d) partial slices. The entry index runs to S d^2 in
 // an int: callers hold S <= 16384 and d <= 64 (S d^2 <= 2^26).
@@ -63,20 +119,7 @@ __device__ void accumulate_segments(const float* __restrict__ x,
                                     float* __restrict__ n_out,
                                     float* __restrict__ sx_out,
                                     float* __restrict__ sxx_out) {
-  for (int e = threadIdx.x; e < S; e += blockDim.x) {
-    float acc = 0.f;
-    for (int i = start[e]; i < start[e + 1]; ++i) acc += w[idx[i]];
-    n_out[e] = acc;
-  }
-  for (int e = threadIdx.x; e < S * d; e += blockDim.x) {
-    const int s = e / d, a = e - s * d;
-    float acc = 0.f;
-    for (int i = start[s]; i < start[s + 1]; ++i) {
-      const int p = idx[i];
-      acc = fmaf(w[p], x[(size_t)p * d + a], acc);
-    }
-    sx_out[e] = acc;
-  }
+  accumulate_moments(x, w, d, S, start, idx, 0, d, n_out, sx_out);
   const int dd = d * d;
   for (int e = threadIdx.x; e < S * dd; e += blockDim.x) {
     const int s = e / dd, r = e - s * dd;

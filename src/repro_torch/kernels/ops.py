@@ -41,12 +41,35 @@ def suffstats_labels(x, labels, sublabels, valid, k: int):
     return fn(x, labels, sublabels, valid, k)
 
 
+def sweep_linear(feats, w, const, logw, active, subw, subconst, sublogw,
+                 valid, gidx, key_z, key_zb, slots):
+    """Fused steps (e) + (f) + per-STATS_BLOCK first-moment partials for
+    the linear families (``kernels/sweep.py``)."""
+    fn = _route(feats, _sweep.sweep_linear_cuda, _sweep.sweep_linear_plain)
+    return fn(feats, w, const, logw, active, subw, subconst, sublogw, valid,
+              gidx, key_z, key_zb, slots)
+
+
+def moments_labels(feats, labels, sublabels, valid, k: int):
+    """Per-STATS_BLOCK n / first-moment partials from int labels
+    (``kernels/suffstats.py``)."""
+    fn = _route(feats, _suffstats.moments_labels_cuda,
+                _suffstats.moments_labels_plain)
+    return fn(feats, labels, sublabels, valid, k)
+
+
+# every kernel wrapper, by kernel name
+_CUDA = {"sweep_gauss": _sweep.sweep_gauss_cuda,
+         "suffstats_labels": _suffstats.suffstats_labels_cuda,
+         "sweep_linear": _sweep.sweep_linear_cuda,
+         "moments_labels": _suffstats.moments_labels_cuda}
+
+
 def launch_counts() -> dict:
     """Launches of every kernel wrapper since its count was last reset."""
-    return {"sweep_gauss": _sweep.sweep_gauss_cuda.launches,
-            "suffstats_labels": _suffstats.suffstats_labels_cuda.launches}
+    return {name: fn.launches for name, fn in _CUDA.items()}
 
 
 def reset_launch_counts() -> None:
-    _sweep.sweep_gauss_cuda.launches = 0
-    _suffstats.suffstats_labels_cuda.launches = 0
+    for fn in _CUDA.values():
+        fn.launches = 0

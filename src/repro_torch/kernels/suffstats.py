@@ -1,26 +1,32 @@
 """Label-indexed sub-cluster statistics per STATS_BLOCK of points.
 
-Port of ``repro.kernels.suffstats.suffstats_labels``. For x (N, d), int32
-labels / sublabels (N,) and the valid mask (N,), it returns for every
-block b of ``STATS_BLOCK`` consecutive points the partials
+Port of ``repro.kernels.suffstats.suffstats_labels`` and
+``moments_labels``. For points (N, d), int32 labels / sublabels (N,) and
+the valid mask (N,), they return for every block b of ``STATS_BLOCK``
+consecutive points the partials
 
     n2  (nsb, k, 2)        sum of valid over the block's points in segment
     sx2 (nsb, k, 2, d)     sum of valid * x
-    sxx2 (nsb, k, 2, d, d) sum of (valid * x) x^T
+    sxx2 (nsb, k, 2, d, d) sum of (valid * x) x^T   (suffstats_labels only)
 
 over segments 2 * label + sublabel; points whose label is outside [0, k)
-add nothing. The caller folds the nsb partials (``core.family``).
+add nothing. ``moments_labels`` is the first-moment half, for the linear
+families: its per-point features are x (multinomial, poisson) or the
+stacked [x, x^2] (diag_gaussian), of any width d'. The caller folds the
+nsb partials (``core.family``, ``core.labelstats``).
 
-Two versions of one function:
+Two versions of each function:
 
-- ``suffstats_labels_cuda``: the hand-written kernel
-  ``csrc/suffstats_labels.cu`` for a CUDA tensor (one launch per call,
-  counted in ``suffstats_labels_cuda.launches``);
-- ``suffstats_labels_plain``: the same math in plain PyTorch, chunked per
-  STATS_BLOCK so no (N, 2k) one-hot exists whole. The CPU path and the
-  tests use it; on the card only the comparison in ``chip_smoke.py`` does.
+- ``suffstats_labels_cuda`` / ``moments_labels_cuda``: the hand-written
+  kernels ``csrc/suffstats_labels.cu`` / ``csrc/moments_labels.cu`` for a
+  CUDA tensor (one launch per call, counted in the wrapper's
+  ``launches``);
+- ``suffstats_labels_plain`` / ``moments_labels_plain``: the same math in
+  plain PyTorch, chunked per STATS_BLOCK so no (N, 2k) one-hot exists
+  whole. The CPU path and the tests use them; on the card only the
+  comparison in ``chip_smoke.py`` does.
 
-``kernels.ops.suffstats_labels`` picks between them by the tensor's device.
+``kernels.ops`` picks between them by the tensor's device.
 """
 from __future__ import annotations
 
@@ -36,6 +42,10 @@ CHUNK_FLOATS = 1 << 24
 MAX_K = 8192
 # The kernel indexes a block's 2k d^2 sxx entries with an int.
 MAX_D = 64
+# moments_labels: a block's 2k d' partial entries stay below 2^31 for
+# k <= MAX_K (its per-chunk entry index is an int; d' rows use 64-bit
+# offsets), and d' covers the 20newsgroups vocabulary with room.
+MAX_DP = 1 << 16
 
 Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -52,6 +62,31 @@ def _pad_blocks(a: torch.Tensor, nb: int) -> torch.Tensor:
     return a.reshape((nb, STATS_BLOCK) + a.shape[1:])
 
 
+def _segment_onehot(labels: torch.Tensor, sublabels: torch.Tensor,
+                    valid: torch.Tensor, k: int, nb: int,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """(nb, 2k, STATS_BLOCK) valid-weighted one-hot over segments
+    2 * label + sublabel; out-of-range labels give an all-zero column."""
+    inside = (labels >= 0) & (labels < k) & (sublabels >= 0) & (sublabels <= 1)
+    seg = torch.where(inside, labels * 2 + sublabels, -1)
+    cols = torch.arange(2 * k, device=labels.device)
+    r = ((seg[:, None] == cols[None, :]).to(dtype)
+         * valid.to(dtype)[:, None])                      # (m, 2k)
+    return _pad_blocks(r, nb).transpose(1, 2)
+
+
+def block_moments(feats: torch.Tensor, labels: torch.Tensor,
+                  sublabels: torch.Tensor, valid: torch.Tensor, k: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """n / first-moment partials of ``ceil(m / STATS_BLOCK)`` blocks of m
+    points, as one batch: the weighted one-hot times the features."""
+    nb = n_blocks(feats.shape[0])
+    r = _segment_onehot(labels, sublabels, valid, k, nb, feats.dtype)
+    n2 = r.sum(dim=2).reshape(nb, k, 2)
+    sf2 = torch.bmm(r, _pad_blocks(feats, nb)).reshape(nb, k, 2, -1)
+    return n2, sf2
+
+
 def block_partials(x: torch.Tensor, labels: torch.Tensor,
                    sublabels: torch.Tensor, valid: torch.Tensor,
                    k: int) -> Partials:
@@ -60,12 +95,7 @@ def block_partials(x: torch.Tensor, labels: torch.Tensor,
     flattened per-point outer products."""
     d = x.shape[1]
     nb = n_blocks(x.shape[0])
-    inside = (labels >= 0) & (labels < k) & (sublabels >= 0) & (sublabels <= 1)
-    seg = torch.where(inside, labels * 2 + sublabels, -1)
-    cols = torch.arange(2 * k, device=x.device)
-    r = ((seg[:, None] == cols[None, :]).to(x.dtype)
-         * valid.to(x.dtype)[:, None])                    # (m, 2k)
-    r = _pad_blocks(r, nb).transpose(1, 2)                 # (nb, 2k, SB)
+    r = _segment_onehot(labels, sublabels, valid, k, nb, x.dtype)
     xb = _pad_blocks(x, nb)                                # (nb, SB, d)
     outer = _pad_blocks((x[:, :, None] * x[:, None, :]).reshape(-1, d * d),
                         nb)
@@ -91,6 +121,22 @@ def suffstats_labels_plain(x: torch.Tensor, labels: torch.Tensor,
         n2[b0:b1], sx2[b0:b1], sxx2[b0:b1] = block_partials(
             x[sl], labels[sl], sublabels[sl], valid[sl], k)
     return n2, sx2, sxx2
+
+
+def moments_labels_plain(feats: torch.Tensor, labels: torch.Tensor,
+                         sublabels: torch.Tensor, valid: torch.Tensor,
+                         k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    n, dp = feats.shape
+    nsb = n_blocks(n)
+    n2 = feats.new_empty((nsb, k, 2))
+    sf2 = feats.new_empty((nsb, k, 2, dp))
+    step = max(1, CHUNK_FLOATS // (STATS_BLOCK * (2 * k + dp)))
+    for b0 in range(0, nsb, step):
+        b1 = min(nsb, b0 + step)
+        sl = slice(b0 * STATS_BLOCK, b1 * STATS_BLOCK)
+        n2[b0:b1], sf2[b0:b1] = block_moments(
+            feats[sl], labels[sl], sublabels[sl], valid[sl], k)
+    return n2, sf2
 
 
 def _check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
@@ -141,3 +187,39 @@ def suffstats_labels_cuda(x: torch.Tensor, labels: torch.Tensor,
 
 
 suffstats_labels_cuda.launches = 0
+
+
+def moments_labels_cuda(feats: torch.Tensor, labels: torch.Tensor,
+                        sublabels: torch.Tensor, valid: torch.Tensor,
+                        k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``csrc/moments_labels.cu`` on the current stream."""
+    n, dp = feats.shape
+    if feats.device.type != "cuda":
+        raise ValueError("moments_labels_cuda takes CUDA tensors; the "
+                         "plain version serves the CPU")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"moments_labels: k={k} outside [1, {MAX_K}] (the "
+                         "segment offsets live in shared memory)")
+    if not 1 <= dp <= MAX_DP:
+        raise ValueError(f"moments_labels: d'={dp} outside [1, {MAX_DP}]")
+    if n == 0:
+        raise ValueError("moments_labels: no points")
+    dev = feats.device
+    _check_cuda("feats", feats, torch.float32, (n, dp), dev)
+    _check_cuda("labels", labels, torch.int32, (n,), dev)
+    _check_cuda("sublabels", sublabels, torch.int32, (n,), dev)
+    _check_cuda("valid", valid, torch.float32, (n,), dev)
+    nsb = n_blocks(n)
+    n2 = torch.empty((nsb, k, 2), device=dev, dtype=torch.float32)
+    sf2 = torch.empty((nsb, k, 2, dp), device=dev, dtype=torch.float32)
+    fn = build.c_function("moments_labels", "moments_labels_launch",
+                          "piipppippp")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        fn(feats.data_ptr(), n, dp, labels.data_ptr(), sublabels.data_ptr(),
+           valid.data_ptr(), k, n2.data_ptr(), sf2.data_ptr(), stream)
+    moments_labels_cuda.launches += 1
+    return n2, sf2
+
+
+moments_labels_cuda.launches = 0

@@ -5,8 +5,11 @@
         [--data-path x.npy] [--result-path out.json] [--device cuda]
 
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
-is given. Only the Gaussian family is ported (``--prior-type Gaussian``).
-The result JSON has the keys of ``repro.launch.sample_dpmm``'s for these
+is given. ``--prior-type`` takes any family of the registry (gaussian,
+diag_gaussian, multinomial, poisson) or the reference CLI's aliases
+(Gaussian, DiagGaussian, Multinomial, Poisson); without ``--data-path`` the
+data comes from the family's generator (``generate_gmm`` for the two
+Gaussian families, ``generate_pmm``, ``generate_mnmm``). The result JSON has the keys of ``repro.launch.sample_dpmm``'s for these
 flags: labels, weights, k, nmi, iter_times_s, device_bytes, config,
 dist, recoveries.
 """
@@ -20,16 +23,27 @@ import time
 import numpy as np
 
 from repro_torch.configs import DPMMConfig
+from repro_torch.core.family import available_families
 from repro_torch.core.sampler import DPMM
-from repro_torch.data.synthetic import generate_gmm
+from repro_torch.data.synthetic import (generate_gmm, generate_mnmm,
+                                        generate_pmm)
+
+# reference-CLI aliases on top of the registry's names
+_PRIOR_ALIASES = {"gaussian": "gaussian", "multinomial": "multinomial",
+                  "poisson": "poisson", "diaggaussian": "diag_gaussian"}
+_GENERATORS = {"gaussian": generate_gmm, "diag_gaussian": generate_gmm,
+               "poisson": generate_pmm, "multinomial": generate_mnmm}
 
 
 def _component_of(prior_type: str) -> str:
-    if prior_type.lower() != "gaussian":
+    name = prior_type.lower()
+    name = _PRIOR_ALIASES.get(name, name)
+    if name not in available_families():
         raise SystemExit(
-            f"--prior-type {prior_type!r} is not ported to repro_torch yet: "
-            "only Gaussian is (ROADMAP.md queues the linear families)")
-    return "gaussian"
+            f"unknown --prior-type {prior_type!r}; known: "
+            f"{', '.join(available_families())} (or reference-CLI aliases "
+            f"{', '.join(sorted(_PRIOR_ALIASES))})")
+    return name
 
 
 def main(argv=None):
@@ -40,7 +54,9 @@ def main(argv=None):
     ap.add_argument("--alpha", type=float, default=10.0)
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--prior-type", "--prior_type", default="Gaussian")
+    ap.add_argument("--prior-type", "--prior_type", default="Gaussian",
+                    help="component family: a registry name or the "
+                         "reference CLI's capitalized alias")
     ap.add_argument("--data-path", default="", help=".npy (N, d) input")
     ap.add_argument("--result-path", "--result_path", default="")
     ap.add_argument("--device", default="cuda",
@@ -53,7 +69,8 @@ def main(argv=None):
     if args.data_path:
         x, gt = np.load(args.data_path), None
     else:
-        x, gt = generate_gmm(args.n, args.d, args.k, seed=args.seed)
+        x, gt = _GENERATORS[cfg.component](args.n, args.d, args.k,
+                                           seed=args.seed)
     print(f"DPMM fit: N={x.shape[0]} d={x.shape[1]} component="
           f"{cfg.component} alpha={cfg.alpha} iters={cfg.iters} "
           f"device={args.device}")

@@ -9,11 +9,12 @@ import pytest
 import torch
 
 from repro.core import metrics as jmetrics
-from repro.data.synthetic import generate_gmm as jax_pkg_generate_gmm
+from repro.data import synthetic as jax_pkg_synthetic
 from repro_torch.configs import DPMMConfig
 from repro_torch.core import metrics
-from repro_torch.core.family import get_family
+from repro_torch.core.family import available_families, get_family
 from repro_torch.core.sampler import DPMM, resolve_device
+from repro_torch.data import synthetic
 from repro_torch.data.synthetic import generate_gmm
 from repro_torch.launch import sample_dpmm
 
@@ -69,17 +70,29 @@ def test_config_rejects(kw, err):
         DPMMConfig(**kw)
 
 
-def test_only_the_gaussian_family_is_ported():
-    assert get_family("gaussian").name == "gaussian"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_family("multinomial")
-    with pytest.raises(NotImplementedError):
-        DPMM(DPMMConfig(component="poisson"), device="cpu")
+def test_the_four_families_are_registered_and_unknown_names_raise():
+    assert available_families() == ("diag_gaussian", "gaussian",
+                                     "multinomial", "poisson")
+    for name in available_families():
+        assert get_family(name).name == name
+        assert DPMM(DPMMConfig(component=name), device="cpu").family.name \
+            == name
+    with pytest.raises(ValueError, match="unknown component family"):
+        get_family("student_t")
+    with pytest.raises(ValueError, match="registered: diag_gaussian"):
+        DPMM(DPMMConfig(component="student_t"), device="cpu")
 
 
 def test_generate_gmm_is_the_jax_package_copy():
     for got, want in zip(generate_gmm(500, 3, 4, seed=5),
-                         jax_pkg_generate_gmm(500, 3, 4, seed=5)):
+                         jax_pkg_synthetic.generate_gmm(500, 3, 4, seed=5)):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["generate_mnmm", "generate_pmm"])
+def test_count_generators_are_the_jax_package_copies(name):
+    for got, want in zip(getattr(synthetic, name)(500, 3, 4, seed=5),
+                         getattr(jax_pkg_synthetic, name)(500, 3, 4, seed=5)):
         np.testing.assert_array_equal(got, want)
 
 
@@ -110,8 +123,8 @@ def test_cli_writes_the_result_json(tmp_path, capsys):
     assert res["config"]["component"] == "gaussian"
     assert res["device_bytes"]["device"] == "cpu"
     assert "iter   20" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="not ported"):
-        sample_dpmm.main(["--prior-type", "Multinomial", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="unknown --prior-type"):
+        sample_dpmm.main(["--prior-type", "Dirichlet", "--device", "cpu"])
 
 
 def test_cli_reads_a_data_file(tmp_path):

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels (sweep_gauss, suffstats_labels, sweep_linear,
+moments_labels) against their plain versions, on the card.
 
 Marked ``cuda``; each test skips (from a fixture, at run time) where no
 CUDA device is available. Run on a GPU machine with
@@ -15,7 +16,7 @@ import torch
 
 from repro_torch.configs import DPMMConfig
 from repro_torch.core.sampler import DPMM
-from repro_torch.data.synthetic import generate_gmm
+from repro_torch.data.synthetic import generate_gmm, generate_mnmm
 from repro_torch.kernels import ops, suffstats, sweep
 
 
@@ -85,6 +86,54 @@ def test_suffstats_labels_kernel_matches_plain(dev, n, d, k):
     _close(got, suffstats.suffstats_labels_plain(x, lab, sub, valid, k))
 
 
+def _linear_args(n, dp, k, dev, seed=0):
+    """sweep_linear operands: count features, log-probability weights."""
+    g = torch.Generator().manual_seed(seed)
+    feats = torch.poisson(torch.full((n, dp), 3.0), generator=g)
+    logp = lambda *s: torch.log_softmax(torch.randn(*s, generator=g) * 2, -1)
+    a = (feats, logp(k, dp), torch.randn(k, generator=g),
+         torch.log_softmax(torch.randn(k, generator=g), 0),
+         (torch.arange(k) % 3 != 2).to(torch.int32), logp(k, 2, dp),
+         torch.randn(k, 2, generator=g),
+         torch.log_softmax(torch.randn(k, 2, generator=g), 1),
+         (torch.rand(n, generator=g) < 0.98).float(),
+         torch.arange(n, dtype=torch.int64) + 77,
+         torch.tensor([5, 4000000000]), torch.tensor([1, 2]),
+         torch.randperm(3 * k, generator=g)[:k].to(torch.int32))
+    return tuple(v.to(dev).contiguous() for v in a)
+
+
+@pytest.mark.parametrize("n,dp,k", [(2500, 8, 8), (5000, 128, 32),
+                                    (3000, 33, 70), (2100, 20_000, 5)])
+def test_sweep_linear_kernel_matches_plain(dev, n, dp, k):
+    a = _linear_args(n, dp, k, dev, seed=dp)
+    before = sweep.sweep_linear_cuda.launches
+    got = ops.sweep_linear(*a)
+    again = ops.sweep_linear(*a)
+    assert sweep.sweep_linear_cuda.launches == before + 2
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    want = sweep.sweep_linear_plain(*a)
+    mism, not_ties = sweep.label_mismatches_linear(
+        a, got[0], got[1], want[0], want[1], rtol=1e-4)
+    assert not_ties == 0 and mism <= 1e-3 * n, (mism, not_ties)
+    _close(got[2:], suffstats.moments_labels_plain(a[0], got[0], got[1],
+                                                   a[8], k))
+
+
+@pytest.mark.parametrize("n,dp,k", [(2500, 8, 8), (4096, 300, 64),
+                                    (3000, 20_000, 3)])
+def test_moments_labels_kernel_matches_plain(dev, n, dp, k):
+    g = torch.Generator().manual_seed(n)
+    feats = torch.poisson(torch.full((n, dp), 2.0), generator=g).to(dev)
+    lab = torch.randint(-1, k + 1, (n,), generator=g).to(dev, torch.int32)
+    sub = torch.randint(0, 2, (n,), generator=g).to(dev, torch.int32)
+    valid = (torch.rand(n, generator=g) < 0.9).float().to(dev)
+    got = ops.moments_labels(feats, lab, sub, valid, k)
+    again = ops.moments_labels(feats, lab, sub, valid, k)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    _close(got, suffstats.moments_labels_plain(feats, lab, sub, valid, k))
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     a = list(_args(2048, 4, 4, dev))
     bad = list(a)
@@ -111,4 +160,32 @@ def test_fit_on_the_card_runs_through_both_kernels(dev):
     counts = ops.launch_counts()
     assert counts["sweep_gauss"] == 25 and counts["suffstats_labels"] > 0
     assert r.device.startswith("cuda") and r.peak_bytes > 0
+    assert r.nmi(y) > 0.9
+
+
+def test_linear_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    a = list(_linear_args(1024, 4, 4, dev))
+    wide = torch.zeros(4, suffstats.MAX_DP + 1, device=dev)
+    with pytest.raises(ValueError, match="d'=65537"):
+        suffstats.moments_labels_cuda(wide, a[4], a[4], a[8][:4], 2)
+    bad = list(a)
+    bad[1] = a[1].double()
+    with pytest.raises(TypeError):
+        sweep.sweep_linear_cuda(*bad)
+    with pytest.raises(ValueError, match="K=2049"):
+        sweep.sweep_linear_cuda(a[0], *(torch.zeros((2049,) + t.shape[1:],
+                                                    device=dev, dtype=t.dtype)
+                                        for t in a[1:8]), *a[8:12],
+                                torch.zeros(2049, device=dev,
+                                            dtype=torch.int32))
+
+
+def test_multinomial_fit_on_the_card_runs_through_both_kernels(dev):
+    x, y = generate_mnmm(20_000, 32, 4, seed=0)
+    ops.reset_launch_counts()
+    r = DPMM(DPMMConfig(component="multinomial", iters=25,
+                        burnout=5)).fit(x)
+    counts = ops.launch_counts()
+    assert counts["sweep_linear"] == 25 and counts["moments_labels"] > 0
+    assert counts["sweep_gauss"] == counts["suffstats_labels"] == 0
     assert r.nmi(y) > 0.9

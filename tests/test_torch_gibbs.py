@@ -76,7 +76,7 @@ def setup():
     # the JAX state as numpy leaves, key as its raw words, back to torch
     as_np = jax.tree.map(np.asarray, jmodel._replace(
         key=jax.random.key_data(jmodel.key)))
-    model = state.model_state_from_numpy(as_np, "cpu")
+    model = state.model_state_from_numpy(as_np, "cpu", GAUSSIAN)
     jplan, draws = _jax_plan(jmodel, jprior, jax.random.key(0))
     return dict(x=x, xt=xt, cfg=cfg, prior=prior, jprior=jprior,
                 model=model, point=point, jmodel=jmodel, jpoint=jpoint,
@@ -91,7 +91,7 @@ def test_state_carried_across_is_the_same_state(setup):
     np.testing.assert_array_equal(m.params.chol_prec.numpy(),
                                   np.asarray(jm.params.chol_prec))
     back = state.model_state_to_numpy(m)
-    again = state.model_state_from_numpy(back, "cpu")
+    again = state.model_state_from_numpy(back, "cpu", GAUSSIAN)
     assert torch.equal(again.substats.sxx, m.substats.sxx)
     assert torch.equal(again.stuck, m.stuck)
 
