@@ -2,11 +2,14 @@
 
     python3 chip_smoke.py [--profile TRACE.json]
 
-Builds the port's four CUDA kernels from ``src/repro_torch/csrc`` and
+Builds the port's eight CUDA kernels from ``src/repro_torch/csrc`` and
 holds each against its plain PyTorch version on the card (phases
 ``kernel_check``: sweep_gauss, suffstats_labels; ``kernel_check_linear``:
 sweep_linear, moments_labels, at the multinomial fit's width, the diagonal
-Gaussian pack and the 20newsgroups width d' = 20,000). Then it runs
+Gaussian pack and the 20newsgroups width d' = 20,000;
+``kernel_check_serve``: loglik_gauss, assign_gauss at d = 32 and 128,
+assign_linear at d' = 128 and 20,000, matmul, at one serving step of
+8192 rows). Then it runs
 ``DPMM.fit`` (k_max = 64, 40 iterations, 16 true clusters) on a
 1,000,000 x 32 Gaussian mixture (``fit``), on a 1,000,000 x 128
 multinomial mixture — the top of the paper's DPMNMM grid —
@@ -19,8 +22,22 @@ are held against their analytic moments (``model_draws``,
 ``model_draws_linear``), and each kernel and its plain version are timed
 at the fits' final states (``kernel_times``, which also holds the linear
 kernels against their plain versions at every linear fit's final state).
-Each phase prints one JSON line; any failed check raises, so the script
-exits non-zero. The last line is ``{"ok": true, "device": {...}}``.
+A Gaussian fit at 200,000 x 128 (``fit_gaussian_d128``) runs the wide
+layout of the Gaussian kernels, and its final state holds sweep_gauss and
+suffstats_labels against their plain versions and times them
+(``kernels_d128``). The Gaussian,
+multinomial and diagonal-Gaussian fits are then served: each is written
+with ``save_model`` and loaded by ``DPMMEngine.from_checkpoint`` (default
+ladder 256/2048/8192), which answers 100,000 fresh rows of the fit's
+mixture as one request and as requests of 1 to 9,000 rows (bitwise equal
+to the same rows of the whole), is held against an engine on the kernels'
+plain versions on the same card, must reach NMI >= 0.9 for ``predict``,
+swaps to a redrawn model, and reports latency by request size
+(``serve_<family>``). ``kernel_times`` also times the serving kernels at
+one step, and ``matmul_crossover`` times ``matmul`` against
+``torch.matmul`` over a ladder of sizes. Each phase prints one JSON line;
+any failed check raises, so the script exits non-zero. The last line is
+``{"ok": true, "device": {...}}``.
 
 ``--profile TRACE.json`` adds two phases: after the Gaussian fit and after
 the multinomial fit, the same fit again under ``torch.profiler``, reported
@@ -60,6 +77,18 @@ LINEAR_FITS = (("multinomial", "generate_mnmm", 1_000_000, 128),
 # documents over a vocabulary of d' words, 20 topics, a 32-row slab
 NEWS_N, NEWS_D, NEWS_K, NEWS_KC = 11_314, 20_000, 20, 32
 CHECK_N = 131_072
+# The Gaussian fit at the top of the paper's DPGMM grid (d = 128), cut to
+# a fifth of N like the poisson and diag_gaussian fits.
+D128_N, D128_D = 200_000, 128
+# Serving: the default ladder's largest step, the compact slab of the
+# checks (17 live rows of 32), request sizes (a single row, ladder steps,
+# a ragged 300, and longer than the largest step) and query rows.
+SERVE_B, SERVE_KC, SERVE_LIVE = 8192, 32, 17
+SERVE_SIZES = (1, 256, 300, 2048, 8192, 9000)
+SERVE_ROWS = 100_000
+# Log-likelihoods and products of kernel and plain version: fp32 sums in
+# another order, relative to the array's scale.
+SERVE_RTOL = 1e-5
 # Labels of kernel and plain version may differ only where the two best
 # logits are this close (relative): sums taken in another order.
 TIE_RTOL = 1e-4
@@ -498,10 +527,407 @@ def time_linear(args, lab, sub, k_sm: int, sweep, suffstats) -> dict:
         "library_ms": cuda_ms(lambda: buf.index_add_(0, idx, src), 20)}
     for name in ("sweep_linear", "moments_labels"):
         r = out[name]
-        t_ops = r["flop"] / PEAK_FP32_FLOP_S * 1e3
-        t_bytes = r["bytes"] / PEAK_BYTES_S * 1e3
-        r["bound_ms"] = max(t_ops, t_bytes)
-        r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        r["bound_ms"], r["bound_by"] = bound(r["flop"], r["bytes"])
+    return out
+
+
+def bound(flop: float, nbytes: float):
+    """(least ms, "operations" or "bytes") of work on the card's peaks."""
+    t_ops = flop / PEAK_FP32_FLOP_S * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def gauss_work(n, d, k_c, n_act, k_sm) -> dict:
+    """(FLOP, bytes) each Gaussian kernel needs: ``sweep_gauss`` on a
+    ``k_c``-row slab with ``n_act`` live rows (step (e) over the live
+    slots, step (f) over two sub-clusters, the sx/sxx fold; FMA = 2 FLOP,
+    each input read once, labels and partials written once) and
+    ``suffstats_labels`` over ``k_sm`` clusters."""
+    nsb = -(-n // 1024)
+    entries = 1 + d + d * d
+    return {
+        "sweep_gauss": (2 * n * d * d * (n_act + 2) + 2 * n * (d * d + d),
+                        n * d * 4 + n * (4 + 8) + k_c * (d * d + d + 4) * 4
+                        + k_c * 2 * (d * d + d + 2) * 4 + 8 * n
+                        + nsb * 2 * k_c * entries * 4),
+        "suffstats_labels": (2 * n * (d * d + d),
+                             n * (4 * d + 12) + nsb * 2 * k_sm * entries * 4)}
+
+
+# ---------------------------------------------------------------------------
+# Serving: the four kernels of DPMMEngine's query and sample steps
+# ---------------------------------------------------------------------------
+def gauss_step_e_args(n, d, k, live, dev, seed=0):
+    """``assign_gauss`` operands: ``n`` points, a ``k``-row slab with
+    ``live`` active rows, dense-slot counters from a slab twice as wide."""
+    a = synthetic_sweep_args(n, d, k, dev, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    act = torch.zeros(k, dtype=torch.int32)
+    act[torch.randperm(k, generator=g)[:live]] = 1
+    return (a[0], a[1], a[2], a[3], a[4], act.to(dev), a[11], a[12], a[14])
+
+
+def rel_err(got, want, rtol: float, what: str) -> float:
+    """max |got - want|; raises unless within ``rtol`` of the array's
+    scale."""
+    err = (got - want).abs()
+    if bool((err > rtol * (want.abs() + want.abs().max())).any()):
+        fail(f"{what}: beyond rtol {rtol}: max err {float(err.max())}")
+    return float(err.max())
+
+
+def check_serve_kernels(sweep, suffstats, assign, loglik, matmul, news_np,
+                        dev) -> dict:
+    """Each serving kernel against its plain version on the card at the
+    serving step's B = SERVE_B rows: labels exact except float64-proven
+    near-ties, log-likelihoods and products within SERVE_RTOL, repeat
+    launches bitwise equal."""
+    from repro_torch.core.family import get_family
+    from repro_torch.data import synthetic
+    out = {}
+    for d in (32, 128):
+        args = gauss_step_e_args(SERVE_B, d, SERVE_KC, SERVE_LIVE, dev,
+                                 seed=d)
+        ll = loglik.loglik_cuda(*args[:4])
+        lab = assign.assign_gauss_cuda(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(ll, loglik.loglik_cuda(*args[:4]))
+                and torch.equal(lab, assign.assign_gauss_cuda(*args))):
+            fail(f"d={d}: two launches on the same inputs differ")
+        ties = assign_ties(assign, True, args, lab,
+                           assign.assign_gauss_plain(*args))
+        out[f"gauss_d{d}"] = {
+            "loglik_gauss_max_abs_err": rel_err(
+                ll, loglik.loglik_plain(*args[:4]), SERVE_RTOL,
+                f"loglik_gauss d={d}"),
+            "assign_gauss_near_tie_mismatches": ties}
+    fam = get_family("multinomial")
+    for name, (xn, yn) in (
+            ("linear_d128", synthetic.generate_mnmm(SERVE_B, 128, FIT_K,
+                                                    seed=2)),
+            ("linear_d20000", (news_np[0][:SERVE_B], news_np[1][:SERVE_B]))):
+        la = linear_sweep_args(fam, torch.as_tensor(xn, device=dev), yn,
+                               SERVE_KC, dev)
+        # SERVE_LIVE live rows: the generator's clusters first
+        act = torch.zeros_like(la[4])
+        act[torch.argsort(1 - la[4], stable=True)[:SERVE_LIVE]] = 1
+        args = la[:4] + (act,) + la[9:11] + (la[12],)
+        lab = assign.assign_linear_cuda(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(lab, assign.assign_linear_cuda(*args)):
+            fail(f"assign_linear {name}: two launches differ")
+        out[name] = {"d_feat": args[0].shape[1], "k_live": int(act.sum()),
+                     "assign_linear_near_tie_mismatches": assign_ties(
+                         assign, False, args, lab,
+                         assign.assign_linear_plain(*args))}
+    g = torch.Generator(device=dev).manual_seed(5)
+    for m, k, n in ((SERVE_B, 32, 32), (300, 33, 17)):
+        a = torch.randn(m, k, device=dev, generator=g)
+        b = torch.randn(k, n, device=dev, generator=g)
+        c = matmul.matmul_cuda(a, b)
+        torch.cuda.synchronize()
+        if not torch.equal(c, matmul.matmul_cuda(a, b)):
+            fail(f"matmul {m}x{k}x{n}: two launches differ")
+        out[f"matmul_{m}x{k}x{n}"] = {"max_abs_err": rel_err(
+            c, matmul.matmul_plain(a, b), SERVE_RTOL, "matmul")}
+    return out
+
+
+def assign_ties(assign, gauss: bool, args, got, want) -> int:
+    bad, not_ties = assign.assign_mismatches(gauss, args, got, want,
+                                             TIE_RTOL)
+    if not_ties:
+        fail(f"{not_ties} step-(e) label mismatches are not near-ties")
+    if bad > MAX_TIE_SHARE * args[0].shape[0] + 1:
+        fail(f"{bad} near-tie mismatches of {args[0].shape[0]} points")
+    return bad
+
+
+def plain_family(fam):
+    """``fam`` with its query likelihood and step (e) on the kernels'
+    plain versions: the yardstick engine the kernel path is held
+    against on the same card."""
+    import dataclasses
+    from repro_torch.core import diag_gaussian, multinomial, poisson
+    from repro_torch.kernels import assign, loglik
+
+    def ll(x, p):
+        if fam.name == "gaussian":
+            return loglik.loglik_plain(x, p.mu, p.chol_prec, p.logdet_prec)
+        return {"diag_gaussian": diag_gaussian, "multinomial": multinomial,
+                "poisson": poisson}[fam.name].loglik(x, p)
+
+    def step_e(x, p, logw, active, gidx, key_z, slots):
+        if fam.name == "gaussian":
+            return assign.assign_gauss_plain(x, p.mu, p.chol_prec,
+                                             p.logdet_prec, logw, active,
+                                             gidx, key_z, slots)
+        return assign.assign_linear_plain(*fam.module.assign_pack(x, p),
+                                          logw, active, gidx, key_z, slots)
+    return dataclasses.replace(fam, loglik_fn=ll, assign_step=step_e)
+
+
+def logits64(fam, engine, x, rows, key_words=None):
+    """float64 (len(rows), K_max) logits of ``rows`` under the engine's
+    model (plus the Gumbel noise of a draw with ``key_words``): the
+    referee of near-ties between two float32 paths."""
+    from repro_torch.kernels import loglik, prng
+    ops_ = engine._served.ops
+    p = type(ops_.params)(**{k: v.double() for k, v in
+                             vars(ops_.params).items()})
+    xr = torch.as_tensor(x[rows], device=engine.device).double()
+    if fam.name == "gaussian":
+        ll = loglik.loglik_plain(xr, p.mu, p.chol_prec, p.logdet_prec)
+    else:
+        ll = fam.module.loglik(xr, p)
+    t = torch.where(ops_.active[None, :], ll + ops_.logw.double()[None, :],
+                    -1e30)
+    if key_words is not None:
+        t = t + prng.gumbel(torch.as_tensor(key_words,
+                                            device=engine.device),
+                            torch.as_tensor(rows, device=engine.device)
+                            [:, None], ops_.slots[None, :]).double()
+    dense = torch.full((len(rows), engine.k_max), -1e30, dtype=torch.float64,
+                       device=engine.device)
+    dense[:, ops_.slots] = t
+    return dense.cpu().numpy()
+
+
+def label_ties(fam, engine, x, a, b, key_words=None) -> int:
+    """Rows where labellings ``a`` and ``b`` differ; raises unless each is
+    a float64-proven near-tie and they are few."""
+    rows = np.flatnonzero(a != b)
+    if rows.size == 0:
+        return 0
+    t = logits64(fam, engine, x, rows, key_words)
+    i = np.arange(rows.size)
+    ta, tb = t[i, a[rows]], t[i, b[rows]]
+    gap = np.abs(ta - tb) / np.maximum(1.0, np.maximum(np.abs(ta),
+                                                       np.abs(tb)))
+    if (gap > TIE_RTOL).any():
+        fail(f"{int((gap > TIE_RTOL).sum())} served label mismatches are "
+             "not near-ties")
+    if rows.size > MAX_TIE_SHARE * a.size + 1:
+        fail(f"{rows.size} near-tie mismatches of {a.size} served rows")
+    return int(rows.size)
+
+
+def serve_model(name, res, fam_name, xq, yq, x_fit, tmp, gpu) -> dict:
+    """Drive ``DPMMEngine`` on the fit ``res``: checkpoint -> engine ->
+    requests of SERVE_SIZES rows and one of all rows -> checks -> swap ->
+    latency. The launch counts are set to 0 just before and read just
+    after. Returns the phase's report, with the engine and the request
+    rows for the timings."""
+    from repro_torch.core import checkpoint, gibbs
+    from repro_torch.configs import DPMMConfig
+    from repro_torch.core.family import get_family
+    from repro_torch.core.metrics import nmi
+    from repro_torch.kernels import ops
+    from repro_torch.serve.dpmm import DPMMEngine
+    fam = get_family(fam_name)
+    path = checkpoint.save_model(str(tmp / f"{name}.npz"), res.state,
+                                 fam_name)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng = DPMMEngine.from_checkpoint(path)
+    build_s = time.perf_counter() - t0
+    words = np.array([0x1234567, 0x89ABCDEF], np.int64)
+    whole = eng.query(xq, sample=True, key_words=words)
+    start = 0
+    for n in SERVE_SIZES:
+        part = eng.query(xq[start:start + n])
+        same = all(np.array_equal(getattr(part, f),
+                                  getattr(whole, f)[start:start + n])
+                   for f in ("labels", "logprobs", "log_predictive"))
+        # a draw counts on the request's own row index: the same rows
+        # from row 0 again give the whole request's first draws
+        again = eng.sample(xq[:n], key_words=words)
+        if not same or not np.array_equal(again, whole.sampled_labels[:n]):
+            fail(f"serve {name}: a {n}-row request differs from the same "
+                 "rows inside the whole request")
+        start += n
+    launches = ops.launch_counts()
+    want = {"gaussian": ("loglik_gauss", "assign_gauss"),
+            "diag_gaussian": ("matmul", "assign_linear"),
+            "multinomial": ("matmul", "assign_linear")}[fam_name]
+    for k in want:
+        if launches[k] == 0:
+            fail(f"serve {name}: kernel {k} was never launched")
+    # the plain-path engine on the same card
+    plain = DPMMEngine(eng.model, plain_family(fam), eng.cfg)
+    ref = plain.query(xq, sample=True, key_words=words)
+    ties = label_ties(fam, eng, xq, whole.labels, ref.labels)
+    sties = label_ties(fam, eng, xq, whole.sampled_labels,
+                       ref.sampled_labels, words)
+    act = np.zeros(eng.k_max, bool)
+    act[eng.slots[:eng.k_active]] = True
+    lp_err = rel_err(torch.as_tensor(whole.logprobs[:, act]),
+                     torch.as_tensor(ref.logprobs[:, act]), SERVE_RTOL,
+                     f"serve {name} logprobs")
+    lpd_err = rel_err(torch.as_tensor(whole.log_predictive),
+                      torch.as_tensor(ref.log_predictive), SERVE_RTOL,
+                      f"serve {name} log_predictive")
+    if not (np.isfinite(whole.log_predictive).all()
+            and (whole.logprobs[:, ~act] == np.float32(-1e30)).all()):
+        fail(f"serve {name}: non-finite or unmasked answers")
+    score = nmi(torch.as_tensor(yq), torch.as_tensor(whole.labels),
+                int(yq.max()) + 1, eng.k_max)
+    if score < 0.9:
+        fail(f"serve {name}: NMI of predict {score:.4f} < 0.9")
+    # swap to the fitted state after one more model-side step (weights
+    # and params redrawn); a query before the flip is the old model's, a
+    # query after it the new model's, bit for bit
+    g = torch.Generator(device=eng.device).manual_seed(9)
+    xf = torch.as_tensor(x_fit, device=eng.device)
+    prior = fam.build_prior(DPMMConfig(component=fam_name),
+                            xf.mean(dim=0, keepdim=True))
+    nxt = gibbs.sweep_model(res.state, prior, fam, DPMMConfig().alpha, g)
+    path2 = checkpoint.save_model(str(tmp / f"{name}_next.npz"), nxt,
+                                  fam_name)
+    probe = xq[:SERVE_B]
+    old = eng.query(probe)
+    if not np.array_equal(old.log_predictive,
+                          whole.log_predictive[:SERVE_B]):
+        fail(f"serve {name}: the model changed before the swap")
+    epoch = eng.swap(path2)
+    new = eng.query(probe)
+    fresh = DPMMEngine.from_checkpoint(path2).query(probe)
+    if not (epoch == 1 and new.model_epoch == 1
+            and np.array_equal(new.log_predictive, fresh.log_predictive)
+            and np.array_equal(new.labels, fresh.labels)
+            and not np.array_equal(new.log_predictive,
+                                   old.log_predictive)):
+        fail(f"serve {name}: the swap did not flip to the new model")
+    lat = {}
+    for n in SERVE_SIZES + (xq.shape[0],):
+        reps = 5 if n > SERVE_B else 30
+        times = []
+        for i in range(reps):
+            s = (i * 997) % (xq.shape[0] - n + 1)
+            t1 = time.perf_counter()
+            eng.query(xq[s:s + n])
+            times.append(time.perf_counter() - t1)
+        lat[str(n)] = {"p50_ms": 1e3 * float(np.percentile(times, 50)),
+                       "p99_ms": 1e3 * float(np.percentile(times, 99)),
+                       "rows_per_s": n / float(np.median(times))}
+    report = {"family": fam_name, "k_max": eng.k_max,
+              "k_active": eng.k_active, "k_compact": len(eng.slots),
+              "d": eng.d, "rows": int(xq.shape[0]),
+              "engine_build_s": build_s, "nmi_predict": score,
+              "bitwise_ragged": True, "request_sizes": list(SERVE_SIZES),
+              "near_tie_mismatches": {"labels": ties, "sampled": sties},
+              "max_abs_err": {"logprobs": lp_err,
+                              "log_predictive": lpd_err},
+              "swap_epoch": epoch, "launches": launches,
+              "latency": lat, "nvidia_smi": gpu}
+    return report, eng, launches
+
+
+def time_serve_kernels(engines, xq, assign, loglik, matmul, dev) -> dict:
+    """Kernel, plain and library times of the four serving kernels on the
+    engines' compact operands at one SERVE_B-row step, with the bound of
+    that work."""
+    out = {}
+    x = torch.as_tensor(xq["gaussian"][:SERVE_B], device=dev)
+    op = engines["gaussian"]._served.ops
+    p = op.params
+    k, d = p.mu.shape
+    live = int(op.active.sum())
+    gidx = torch.arange(SERVE_B, device=dev)
+    words = torch.tensor([5, 6], device=dev)
+    act, slots = op.active.to(torch.int32), op.slots.to(torch.int32)
+    gargs = (x, p.mu, p.chol_prec, p.logdet_prec, op.logw, act, gidx, words,
+             slots)
+    out["loglik_gauss"] = dict(
+        ms=cuda_ms(lambda: loglik.loglik_cuda(*gargs[:4]), 50),
+        plain_ms=cuda_ms(lambda: loglik.loglik_plain(*gargs[:4]), 10),
+        flop=2 * SERVE_B * k * d * (d + 1),
+        bytes=4 * (SERVE_B * d + k * (d * d + d + 1) + SERVE_B * k),
+        library_ms=None, shape=f"B={SERVE_B} d={d} K={k}",
+        max_abs_err=rel_err(loglik.loglik_cuda(*gargs[:4]),
+                            loglik.loglik_plain(*gargs[:4]), SERVE_RTOL,
+                            "loglik_gauss at the serve step"))
+    out["assign_gauss"] = dict(
+        ms=cuda_ms(lambda: assign.assign_gauss_cuda(*gargs), 50),
+        plain_ms=cuda_ms(lambda: assign.assign_gauss_plain(*gargs), 10),
+        flop=2 * SERVE_B * live * d * (d + 1),
+        bytes=(4 * SERVE_B * d + 12 * SERVE_B
+               + 4 * k * (d * d + d + 4)),
+        library_ms=None, shape=f"B={SERVE_B} d={d} K={k} live={live}",
+        max_abs_err=float(assign_ties(
+            assign, True, gargs, assign.assign_gauss_cuda(*gargs),
+            assign.assign_gauss_plain(*gargs))))
+    eng = engines["multinomial"]
+    op = eng._served.ops
+    feats, w, const = eng.family.module.assign_pack(
+        torch.as_tensor(xq["multinomial"][:SERVE_B], device=dev), op.params)
+    k, dp = w.shape
+    live = int(op.active.sum())
+    largs = (feats.contiguous(), w.contiguous(), const.contiguous(), op.logw,
+             op.active.to(torch.int32), gidx, words,
+             op.slots.to(torch.int32))
+    out["assign_linear"] = dict(
+        ms=cuda_ms(lambda: assign.assign_linear_cuda(*largs), 50),
+        plain_ms=cuda_ms(lambda: assign.assign_linear_plain(*largs), 10),
+        flop=2 * SERVE_B * live * dp,
+        bytes=4 * SERVE_B * dp + 12 * SERVE_B + 4 * k * (dp + 4),
+        library_ms=None, shape=f"B={SERVE_B} d'={dp} K={k} live={live}",
+        max_abs_err=float(assign_ties(
+            assign, False, largs, assign.assign_linear_cuda(*largs),
+            assign.assign_linear_plain(*largs))))
+    op = engines["diag_gaussian"]._served.ops
+    xd = torch.as_tensor(xq["diag_gaussian"][:SERVE_B], device=dev)
+    prec = torch.exp(op.params.log_prec)
+    a, b = (xd * xd).contiguous(), prec.T.contiguous()
+    m, kk = a.shape
+    n = b.shape[1]
+    out["matmul"] = dict(
+        ms=cuda_ms(lambda: matmul.matmul_cuda(a, b), 50),
+        plain_ms=cuda_ms(lambda: matmul.matmul_plain(a, b), 50),
+        flop=2 * m * kk * n, bytes=4 * (m * kk + kk * n + m * n),
+        library_ms=cuda_ms(lambda: torch.matmul(a, b), 50),
+        shape=f"({m}, {kk}) @ ({kk}, {n})",
+        max_abs_err=rel_err(matmul.matmul_cuda(a, b),
+                            matmul.matmul_plain(a, b), SERVE_RTOL,
+                            "matmul at the serve step"))
+    for r in out.values():
+        r["bound_ms"], r["bound_by"] = bound(r["flop"], r["bytes"])
+    return out
+
+
+def matmul_crossover(matmul, dev) -> dict:
+    """The blocked kernel against ``torch.matmul`` over a ladder of row
+    counts N for (N, d) @ (d, 16) at d = 32 and 128: the least d N at
+    which the library is faster (``ops.matmul_auto``'s size test; the
+    reference keeps the paper's 640,000). Also whether the library's
+    first 256 rows of an 8192-row product equal a 256-row product's, the
+    property the serving ladder needs of a row (the kernel's hold by
+    construction)."""
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(7)
+    for d in (32, 128):
+        rows, first = [], None
+        b = torch.randn(d, 16, device=dev, generator=g)
+        a = torch.randn(SERVE_B, d, device=dev, generator=g)
+        invariant = {
+            "torch_matmul": torch.equal(torch.matmul(a[:256], b),
+                                        torch.matmul(a, b)[:256]),
+            "kernel": torch.equal(matmul.matmul_cuda(a[:256].contiguous(),
+                                                     b),
+                                  matmul.matmul_cuda(a, b)[:256])}
+        for n in (1024, 4096, 8192, 16384, 32768, 65536, 131072, 262144,
+                  524288):
+            a = torch.randn(n, d, device=dev, generator=g)
+            ms_k = cuda_ms(lambda: matmul.matmul_cuda(a, b), 20)
+            ms_l = cuda_ms(lambda: torch.matmul(a, b), 20)
+            rows.append({"n": n, "dn": d * n, "kernel_ms": ms_k,
+                         "torch_matmul_ms": ms_l})
+            if first is None and ms_l < ms_k:
+                first = d * n
+        out[f"d{d}"] = {"rows": rows, "first_dn_library_faster": first,
+                        "cublas_rows_batch_invariant": invariant}
     return out
 
 
@@ -559,7 +985,8 @@ def main() -> None:
     from repro_torch.core.sampler import DPMM
     from repro_torch.data import synthetic
     from repro_torch.data.synthetic import generate_gmm
-    from repro_torch.kernels import build, ops, suffstats, sweep
+    from repro_torch.kernels import (assign, build, loglik, matmul, ops,
+                                     suffstats, sweep)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -629,6 +1056,11 @@ def main() -> None:
     del cargs          # the fits' peak memory is their own
     emit("kernel_check_linear", **checks)
 
+    # the serving path's kernels at one ladder step of SERVE_B rows
+    emit("kernel_check_serve", n=SERVE_B, k=SERVE_KC, k_live=SERVE_LIVE,
+         rtol=SERVE_RTOL, **check_serve_kernels(
+             sweep, suffstats, assign, loglik, matmul, news_np, dev))
+
     # (5) the main path: DPMM.fit on the card through the kernels
     x_np, y_np = generate_gmm(FIT_N, FIT_D, FIT_K, seed=0)
     cfg = DPMMConfig(**FIT_CFG)
@@ -676,6 +1108,69 @@ def main() -> None:
             fam, st.active, st.stats, st.substats, lprior, where)
             for where in ("cuda", "cpu")}
     emit("model_draws_linear", draws=DRAWS, z_max=Z_MAX, max_abs_z=draws)
+
+    # the Gaussian fit at d = 128 (the wide layout of both kernels), and
+    # sweep_gauss against its plain version on its final state
+    x128_np, y128_np = generate_gmm(D128_N, D128_D, FIT_K, seed=0)
+    res128, launch128 = run_fit(DPMM, cfg, x128_np, y128_np,
+                                ("sweep_gauss", "suffstats_labels"), gpu,
+                                "fit_gaussian_d128")
+    x128 = torch.as_tensor(x128_np, device=dev)
+    a128, k128 = fit_sweep_args(res128.state, x128, gibbs, sampler,
+                                torch.Generator(device=dev).manual_seed(4))
+    out_k = sweep.sweep_gauss_cuda(*a128)
+    out_p = sweep.sweep_gauss_plain(*a128)
+    live128 = int(a128[5].sum())
+    ties128 = near_ties(sweep.label_mismatches, a128, out_k, out_p)
+    err128 = stats_err(out_k[2:], suffstats.suffstats_labels_plain(
+        x128, out_k[0], out_k[1], a128[10], k128))
+    # the split/merge fold's stats over 2 K_c clusters at d = 128
+    k_sm128 = min(64, 2 * k128)
+    lab128 = gibbs.compaction_plan(res128.state.active, k_sm128
+                                   ).compact_of_slot[torch.as_tensor(
+                                       res128.labels, device=dev).long()
+                                   ].to(torch.int32)
+    s_args = (x128, lab128, out_k[1], a128[10], k_sm128)
+    work128 = gauss_work(D128_N, D128_D, k128, live128, k_sm128)
+    d128 = {"sweep_gauss": {
+                "ms": cuda_ms(lambda: sweep.sweep_gauss_cuda(*a128), 10),
+                "plain_ms": cuda_ms(lambda: sweep.sweep_gauss_plain(*a128),
+                                    1),
+                "near_tie_mismatches": ties128, "max_abs_err": err128},
+            "suffstats_labels": {
+                "ms": cuda_ms(lambda: suffstats.suffstats_labels_cuda(
+                    *s_args), 10),
+                "plain_ms": cuda_ms(lambda: suffstats.suffstats_labels_plain(
+                    *s_args), 1),
+                "max_abs_err": stats_err(
+                    suffstats.suffstats_labels_cuda(*s_args),
+                    suffstats.suffstats_labels_plain(*s_args))}}
+    for name, r in d128.items():
+        r["bound_ms"], r["bound_by"] = bound(*work128[name])
+    emit("kernels_d128", n=D128_N, d=D128_D, k_sweep=k128, k_live=live128,
+         k_stats=k_sm128, nvidia_smi=gpu, **d128)
+    del x128, a128, out_k, out_p, lab128, s_args
+
+    # serving: each fitted model through DPMMEngine, checkpoint first
+    import tempfile
+    xq, yq, engines, serve_launch = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fit_res, fam_name, x_fit, gen_name in (
+                ("gaussian", res, "gaussian", x_np, "generate_gmm"),
+                ("multinomial", lin["multinomial"][0], "multinomial",
+                 lin["multinomial"][3], "generate_mnmm"),
+                ("diag_gaussian", lin["diag_gaussian"][0], "diag_gaussian",
+                 lin["diag_gaussian"][3], "generate_gmm")):
+            # fresh rows of the fit's own mixture: the generators draw the
+            # mixture from the seed, so seed 0 at another N
+            xq[name], yq[name] = getattr(synthetic, gen_name)(
+                SERVE_ROWS, x_fit.shape[1], FIT_K, seed=0)
+            report, engines[name], serve_launch[name] = serve_model(
+                name, fit_res, fam_name, xq[name], yq[name], x_fit,
+                Path(tmp), gpu)
+            emit(f"serve_{name}", **report)
+    serve_times = time_serve_kernels(engines, xq, assign, loglik, matmul,
+                                     dev)
 
     # (4) time each kernel at the fit's shapes (its final state, all N)
     x = torch.as_tensor(x_np, device=dev)
@@ -727,35 +1222,22 @@ def main() -> None:
         x, lab_c, sub, valid, k_sm), 3)
 
     n, d = x.shape
-    nsb = -(-n // suffstats.STATS_BLOCK)
-    entries = 1 + d + d * d
-    # sweep: step (e) over the live slots, step (f) over two sub-clusters,
-    # the sxx/sx fold — FMA = 2 FLOP
-    sweep_flop = 2 * n * d * d * (n_act + 2) + 2 * n * (d * d + d)
-    sweep_bytes = (n * d * 4 + n * (4 + 8) + k_c * (d * d + d + 4) * 4
-                   + k_c * 2 * (d * d + d + 2) * 4 + 8 * n
-                   + nsb * 2 * k_c * entries * 4)
-    stats_flop = 2 * n * (d * d + d)
-    stats_bytes = n * (4 * d + 12) + nsb * 2 * k_sm * entries * 4
+    work = gauss_work(n, d, k_c, n_act, k_sm)
     rows = []
-    for name, ms, plain, flop, nbytes, err, src, repl, count in (
-            ("sweep_gauss", ms_sweep, plain_sweep, sweep_flop, sweep_bytes,
-             err_sweep, "src/repro_torch/csrc/sweep_gauss.cu",
-             "src/repro/kernels/sweep.py:344", launches["sweep_gauss"]),
-            ("suffstats_labels", ms_stats, plain_stats, stats_flop,
-             stats_bytes, err_stats,
+    for name, ms, plain, err, src, repl in (
+            ("sweep_gauss", ms_sweep, plain_sweep, err_sweep,
+             "src/repro_torch/csrc/sweep_gauss.cu",
+             "src/repro/kernels/sweep.py:344"),
+            ("suffstats_labels", ms_stats, plain_stats, err_stats,
              "src/repro_torch/csrc/suffstats_labels.cu",
-             "src/repro/kernels/suffstats.py:169",
-             launches["suffstats_labels"])):
-        t_ops = flop / PEAK_FP32_FLOP_S * 1e3
-        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+             "src/repro/kernels/suffstats.py:169")):
+        bound_ms, bound_by = bound(*work[name])
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
-            "launches": count, "launches_per_iter": count / cfg.iters,
-            "max_abs_err": err, "ms": ms,
-            "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None})
+            "launches": launches[name],
+            "launches_per_iter": launches[name] / cfg.iters,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     for name, err, src, repl in (
             ("sweep_linear", err_lin, "src/repro_torch/csrc/sweep_linear.cu",
              "src/repro/kernels/sweep.py:179"),
@@ -770,6 +1252,23 @@ def main() -> None:
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    serve_rows = (
+        ("loglik_gauss", "src/repro_torch/csrc/loglik_gauss.cu",
+         "src/repro/kernels/loglik.py:49"),
+        ("assign_gauss", "src/repro_torch/csrc/assign_gauss.cu",
+         "src/repro/kernels/assign.py:187"),
+        ("assign_linear", "src/repro_torch/csrc/assign_linear.cu",
+         "src/repro/kernels/assign.py:130"),
+        ("matmul", "src/repro_torch/csrc/matmul.cu",
+         "src/repro/kernels/matmul.py:33"))
+    for name, src, repl in serve_rows:
+        t = serve_times[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": repl,
+            "launches": sum(v[name] for v in serve_launch.values()),
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     emit("kernel_times", n=n, d=d, k_sweep=k_c, k_live=n_act,
          k_stats=k_sm, near_tie_mismatches=ties_fit,
          linear_fit_states=fit_states,
@@ -777,7 +1276,9 @@ def main() -> None:
          detail={r["name"]: {"ms": r["ms"], "plain_ms": r["plain_ms"],
                              "bound_ms": r["bound_ms"]} for r in rows},
          multinomial_fit_state=lin_times, news20=news_times,
-         nvidia_smi=gpu)
+         serve_step=serve_times, nvidia_smi=gpu)
+    emit("matmul_crossover", nvidia_smi=gpu,
+         paper_crossover_dn=640_000, **matmul_crossover(matmul, dev))
     torch.cuda.synchronize()
     print(json.dumps({"kernels": rows}))
     print(gpu)

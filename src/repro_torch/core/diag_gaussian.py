@@ -156,15 +156,19 @@ def expected_params(prior: NIGPrior, stats: DiagStats) -> DiagParams:
                       log_prec=torch.log(a_n)[..., None] - torch.log(b_n))
 
 
-def loglik(x: torch.Tensor, params: DiagParams) -> torch.Tensor:
+def loglik(x: torch.Tensor, params: DiagParams,
+           matmul=None) -> torch.Tensor:
     """sum_j log N(x_j; mu_bj, 1 / tau_bj) -> (N, *B), as two matmuls of
-    the expanded quadratic."""
+    the expanded quadratic. ``matmul`` swaps the (N, d) x (d, B) product
+    (the family's query path passes ``ops.matmul_auto``, the paper's
+    size-dispatched kernel); the default is ``torch.matmul``."""
+    mm = matmul if matmul is not None else torch.matmul
     d = x.shape[-1]
     bshape = params.mu.shape[:-1]
     mu = params.mu.reshape(-1, d)
     log_prec = params.log_prec.reshape(-1, d)
     prec = torch.exp(log_prec)
-    quad = (x * x) @ prec.T - 2.0 * (x @ (prec * mu).T)
+    quad = mm(x * x, prec.T) - 2.0 * mm(x, (prec * mu).T)
     const = (0.5 * log_prec.sum(dim=-1) - 0.5 * (prec * mu * mu).sum(dim=-1)
              - 0.5 * d * LOG_2PI)
     return (const[None, :] - 0.5 * quad).reshape((x.shape[0],) + bshape)

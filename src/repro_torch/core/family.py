@@ -16,8 +16,18 @@ through this interface:
 - ``stats_from_labels``: label-indexed sub-cluster stats
   (``ops.suffstats_labels`` for gaussian, ``ops.moments_labels`` through
   ``core/labelstats.py`` for the linear families);
-- ``assign`` / ``sub_assign``: steps (e) and (f) alone, the plain path
-  (gaussian only so far);
+- ``assign``: step (e) alone (``DPMMEngine.sample``): ``ops.assign_gauss``
+  for gaussian, the module's ``assign_pack`` and ``ops.assign_linear`` for
+  the linear families;
+- ``sub_assign``: step (f) alone, the gaussian plain path on the CPU only
+  (its kernels are queued in ``ROADMAP.md`` §2);
+- ``loglik``: (N, K) log-likelihoods (``DPMMEngine.query``), on the
+  reference's fast route: ``ops.loglik_gauss`` for gaussian,
+  ``diag_gaussian.loglik`` with ``ops.matmul_auto`` for diag_gaussian; the
+  module's ``loglik`` for multinomial and poisson, its one product through
+  ``ops.matmul`` (the blocked kernel at every size: cuBLAS's rows change
+  with the batch size, the kernel's do not, and a served point's answer
+  must not depend on the request it came in);
 - ``cluster_means``: the first-moment field over the counts.
 """
 from __future__ import annotations
@@ -30,7 +40,7 @@ import torch
 from repro_torch.core import diag_gaussian, multinomial, niw, poisson
 from repro_torch.core.labelstats import fold_partials
 from repro_torch.kernels import ops
-from repro_torch.kernels.sweep import assign_plain, sub_assign_plain
+from repro_torch.kernels.sweep import sub_assign_plain
 
 
 def fold_blocked(family: "ComponentFamily", k_max: int, body,
@@ -78,6 +88,35 @@ def _linear_sweep(mod):
     return sweep
 
 
+def _gauss_assign(x, params, logw, active, gidx, key_z, slots):
+    return ops.assign_gauss(x, params.mu, params.chol_prec,
+                            params.logdet_prec, logw, active, gidx, key_z,
+                            slots)
+
+
+def _linear_assign(mod):
+    """Step (e) of a linear family: ``assign_pack`` gives (feats, w,
+    const), ``assign_linear`` the first-max labels."""
+    def assign(x, params, logw, active, gidx, key_z, slots):
+        feats, w, const = mod.assign_pack(x, params)
+        return ops.assign_linear(feats, w, const, logw, active, gidx, key_z,
+                                 slots)
+    return assign
+
+
+def _gauss_loglik(x, params):
+    return ops.loglik_gauss(x, params.mu, params.chol_prec,
+                            params.logdet_prec)
+
+
+def _diag_loglik(x, params):
+    return diag_gaussian.loglik(x, params, matmul=ops.matmul_auto)
+
+
+def _product_loglik(mod):
+    return lambda x, params: mod.loglik(x, params, matmul=ops.matmul)
+
+
 @dataclasses.dataclass(frozen=True)
 class ComponentFamily:
     """One observation model behind the sampler's interface."""
@@ -97,6 +136,10 @@ class ComponentFamily:
     fused_sweep: Callable[..., Tuple]
     # (x, valid, labels, sublabels, k_max) -> (k_max, 2) stats
     labels_stats: Callable[..., Any]
+    # (x, params, logw, active, gidx, key_z, slots) -> (N,) labels
+    assign_step: Callable[..., torch.Tensor]
+    # (x, params) -> (N, K) log-likelihoods
+    loglik_fn: Callable[..., torch.Tensor]
     # stats field holding the first moment (sum x) — cluster means read it
     mean_field: str = "sx"
 
@@ -120,27 +163,33 @@ class ComponentFamily:
 
     def assign(self, x, params, logw, active, gidx, key_z,
                slots=None) -> torch.Tensor:
-        """Step (e) alone, plain path: (N,) labels."""
-        self._gaussian_only("assign")
+        """Step (e) alone: (N,) labels in the slab's positions. ``slots``
+        ((K,) int, default ``arange(K)``) are the dense slot ids, the
+        Gumbel counters."""
         if slots is None:
             slots = torch.arange(logw.shape[0], device=x.device)
-        return assign_plain(x, params.mu, params.chol_prec,
-                            params.logdet_prec, logw, active, gidx, key_z,
-                            slots)
+        return self.assign_step(x, params, logw, active.to(torch.int32),
+                                gidx, key_z, slots.to(torch.int32))
 
     def sub_assign(self, x, subparams, sublogw, labels, gidx,
                    key_zb) -> torch.Tensor:
-        """Step (f) alone, plain path: (N,) sub-labels."""
-        self._gaussian_only("sub_assign")
+        """Step (f) alone, plain path: (N,) sub-labels (gaussian, CPU)."""
+        if self.name != "gaussian":
+            raise NotImplementedError(
+                f"sub_assign alone is ported for the gaussian family only; "
+                f"the {self.name} family runs steps (e)-(f) through sweep")
+        if x.device.type == "cuda":
+            raise NotImplementedError(
+                "sub_assign has no kernel on the card yet: sub_assign_gauss "
+                "/ sub_assign_linear are queued in ROADMAP.md §2 (the "
+                "three-pass path); use sweep")
         return sub_assign_plain(x, subparams.mu, subparams.chol_prec,
                                 subparams.logdet_prec, sublogw, labels,
                                 gidx, key_zb)
 
-    def _gaussian_only(self, step: str) -> None:
-        if self.name != "gaussian":
-            raise NotImplementedError(
-                f"{step} alone is ported for the gaussian family only; the "
-                f"{self.name} family runs steps (e)-(f) through sweep")
+    def loglik(self, x, params) -> torch.Tensor:
+        """(N, K) log-likelihoods on the reference's fast route."""
+        return self.loglik_fn(x, params)
 
     def cluster_means(self, stats) -> torch.Tensor:
         """(*B, d) empirical cluster means from the first-moment field."""
@@ -159,14 +208,18 @@ def _module_family(mod, name: str, params_cls, stats_cls,
 
 
 def _linear_family(mod, name: str, params_cls, stats_cls,
-                   mean_field: str) -> ComponentFamily:
+                   mean_field: str, loglik_fn=None) -> ComponentFamily:
     return _module_family(mod, name, params_cls, stats_cls,
                           fused_sweep=_linear_sweep(mod),
+                          assign_step=_linear_assign(mod),
+                          loglik_fn=loglik_fn or _product_loglik(mod),
                           mean_field=mean_field)
 
 
 GAUSSIAN = _module_family(niw, "gaussian", niw.GaussParams, niw.GaussStats,
-                          fused_sweep=_gauss_sweep)
+                          fused_sweep=_gauss_sweep,
+                          assign_step=_gauss_assign,
+                          loglik_fn=_gauss_loglik)
 MULTINOMIAL = _linear_family(multinomial, "multinomial",
                              multinomial.MultParams, multinomial.MultStats,
                              mean_field="counts")
@@ -174,7 +227,8 @@ POISSON = _linear_family(poisson, "poisson", poisson.PoisParams,
                          poisson.PoisStats, mean_field="sx")
 DIAG_GAUSSIAN = _linear_family(diag_gaussian, "diag_gaussian",
                                diag_gaussian.DiagParams,
-                               diag_gaussian.DiagStats, mean_field="sx")
+                               diag_gaussian.DiagStats, mean_field="sx",
+                               loglik_fn=_diag_loglik)
 
 _REGISTRY = {f.name: f for f in (GAUSSIAN, MULTINOMIAL, POISSON,
                                  DIAG_GAUSSIAN)}

@@ -115,7 +115,11 @@ def expected_params(prior: MultPrior, stats: MultStats) -> MultParams:
                       - torch.log(conc.sum(dim=-1, keepdim=True)))
 
 
-def loglik(x: torch.Tensor, params: MultParams) -> torch.Tensor:
-    """sum_j x_ij log theta_bj for all points and clusters -> (N, *B)."""
+def loglik(x: torch.Tensor, params: MultParams,
+           matmul=None) -> torch.Tensor:
+    """sum_j x_ij log theta_bj for all points and clusters -> (N, *B).
+    ``matmul`` swaps the (N, d) x (d, B) product (default
+    ``torch.matmul``)."""
+    mm = matmul if matmul is not None else torch.matmul
     lt = params.logtheta.reshape(-1, params.logtheta.shape[-1])
-    return (x @ lt.T).reshape((x.shape[0],) + params.logtheta.shape[:-1])
+    return mm(x, lt.T).reshape((x.shape[0],) + params.logtheta.shape[:-1])

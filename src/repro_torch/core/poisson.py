@@ -109,8 +109,12 @@ def expected_params(prior: PoisPrior, stats: PoisStats) -> PoisParams:
     return PoisParams(log_rate=torch.log(a_n) - torch.log(b_n))
 
 
-def loglik(x: torch.Tensor, params: PoisParams) -> torch.Tensor:
-    """sum_j [x_ij log lambda_bj - lambda_bj] -> (N, *B); log x! dropped."""
+def loglik(x: torch.Tensor, params: PoisParams,
+           matmul=None) -> torch.Tensor:
+    """sum_j [x_ij log lambda_bj - lambda_bj] -> (N, *B); log x! dropped.
+    ``matmul`` swaps the (N, d) x (d, B) product (default
+    ``torch.matmul``)."""
+    mm = matmul if matmul is not None else torch.matmul
     lr = params.log_rate.reshape(-1, params.log_rate.shape[-1])
-    out = x @ lr.T - torch.exp(lr).sum(dim=-1)[None, :]
+    out = mm(x, lr.T) - torch.exp(lr).sum(dim=-1)[None, :]
     return out.reshape((x.shape[0],) + params.log_rate.shape[:-1])

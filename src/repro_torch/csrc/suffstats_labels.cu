@@ -22,8 +22,8 @@
 // FMAs. At the fit's shapes (N = 1e6, d = 32, 2k = 128) the partial writes
 // dominate, so it is bound by device-memory bytes, not by arithmetic.
 //
-// Limits: 1 <= k <= 8192, 1 <= d <= 64 (so 2k d^2 fits the int entry
-// index of block_stats.cuh).
+// Limits: 1 <= k <= 8192, 1 <= d <= 128 (so 2k d^2 <= 2^28 fits the int
+// entry index of block_stats.cuh).
 #include <cuda_runtime.h>
 
 #include "block_stats.cuh"
@@ -70,7 +70,7 @@ extern "C" int suffstats_labels_launch(const float* x, int n, int d,
                                        float* sx2, float* sxx2,
                                        void* stream) {
   using namespace repro_torch;
-  if (n <= 0 || d <= 0 || d > 64 || K <= 0 || K > 8192)
+  if (n <= 0 || d <= 0 || d > 128 || K <= 0 || K > 8192)
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(int) * (2 * (size_t)STATS_BLOCK + 4 * (size_t)K + 1);
   cudaError_t err = cudaFuncSetAttribute(

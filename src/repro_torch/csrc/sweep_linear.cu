@@ -17,7 +17,8 @@
 // Design. The TPU grid (point blocks, phase, K tiles) ran in order and
 // carried the running (max, argmax) across K tiles in scratch. Here one
 // thread block owns one STATS_BLOCK of points and loops over K tiles of up
-// to 64 slots itself. d' runs to 20,000 (a vocabulary), so nothing of a
+// to 64 slots itself (step (e) is assign_tile.cuh's linear_assign, shared
+// with assign_linear.cu). d' runs to 20,000 (a vocabulary), so nothing of a
 // point is kept whole in registers: for each sub-tile of 256 points and
 // each K tile, chunks of 32 features of the points and of the tile's
 // active weight rows are copied to shared memory with cp.async, two
@@ -48,82 +49,11 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "assign_tile.cuh"
 #include "block_stats.cuh"
 #include "threefry.cuh"
 
 namespace repro_torch {
-
-constexpr int LIN_THREADS = 256;
-constexpr float NEG_INF = -1e30f;
-constexpr int PT = 256;        // points per sub-tile of step (e)
-constexpr int BK = 64;         // slots per K tile
-constexpr int DC = 32;         // features per staged chunk
-constexpr int FSTR = DC + 4;   // padded row stride (16-byte rows) of a chunk
-constexpr int TI = PT / 32;    // points per thread: ty + 32 i
-constexpr int TJ = BK / 8;     // slots per thread: tx + 8 j
-
-// Asynchronous copies global -> shared (sm_80+): ``bytes`` of ``size`` are
-// read and the rest of the destination is zero-filled.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Stage feature chunk [c0, c0 + DC) of points p0.. (PT rows) and of the
-// active weight rows ``act`` (na rows) into fsb / wsb, zero past the edges;
-// 16-byte copies when every row starts 16-byte aligned (``vec``).
-__device__ __forceinline__ void stage_chunk(
-    const float* __restrict__ fb, const float* __restrict__ w, int dp,
-    int np, int p0, int c0, const int* act, int na, bool vec, float* fsb,
-    float* wsb) {
-  if (vec) {
-    constexpr int Q = DC / 4;
-    for (int e = threadIdx.x; e < (PT + na) * Q; e += LIN_THREADS) {
-      const int r = e / Q, col = c0 + 4 * (e - r * Q);
-      const bool pt = r < PT;
-      const int row = pt ? p0 + r : act[r - PT];
-      const bool in = col < dp && (!pt || row < np);
-      const float* src = pt ? fb + (size_t)row * dp : w + (size_t)row * dp;
-      float* dst = (pt ? fsb + r * FSTR : wsb + (r - PT) * FSTR) + col - c0;
-      cp_async16(dst, in ? src + col : fb, in ? 16 : 0);
-    }
-  } else {
-    for (int e = threadIdx.x; e < (PT + na) * DC; e += LIN_THREADS) {
-      const int r = e / DC, col = c0 + (e - r * DC);
-      const bool pt = r < PT;
-      const int row = pt ? p0 + r : act[r - PT];
-      const bool in = col < dp && (!pt || row < np);
-      const float* src = pt ? fb + (size_t)row * dp : w + (size_t)row * dp;
-      float* dst = (pt ? fsb + r * FSTR : wsb + (r - PT) * FSTR) + col - c0;
-      cp_async4(dst, in ? src + col : fb, in ? 4 : 0);
-    }
-  }
-  cp_async_commit();
-}
-
-// (value, slot) pair order of the argmax: larger value, then smaller slot.
-__device__ __forceinline__ void take_best(float t, int c, float& bv,
-                                          int& bl) {
-  if (t > bv || (t == bv && c < bl)) {
-    bv = t;
-    bl = c;
-  }
-}
 
 // Two blocks per SM (at most 128 registers a thread): the latency-bound
 // step (f) and fold need the warps of both to hide their loads.
@@ -139,141 +69,28 @@ __global__ void __launch_bounds__(LIN_THREADS, 2) sweep_linear_kernel(
     float* __restrict__ n2, float* __restrict__ sf2) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = 2 * K;
-  float* fs = reinterpret_cast<float*>(smem);          // 2 * PT * FSTR
-  float* ws = fs + 2 * PT * FSTR;                      // 2 * BK * FSTR
-  float* best = ws + 2 * BK * FSTR;                    // STATS_BLOCK
+  float* words = reinterpret_cast<float*>(smem);       // linear_assign
+  float* best = words + linear_assign_words();         // STATS_BLOCK
   int* lab = reinterpret_cast<int*>(best + STATS_BLOCK);  // STATS_BLOCK
-  int* act = lab + STATS_BLOCK;                        // BK
-  int* inact = act + BK;                               // BK
-  int* cnt = inact + BK;                               // 2
-  int* seg = cnt + 2;                                  // STATS_BLOCK
+  int* seg = lab + STATS_BLOCK;                        // STATS_BLOCK
   int* idx = seg + STATS_BLOCK;                        // STATS_BLOCK
   int* start = idx + STATS_BLOCK;                      // S + 1
   int* cursor = start + S + 1;                         // S
 
   const int tid = threadIdx.x;
-  const int tx = tid & 7, ty = tid >> 3;
   const size_t base = (size_t)blockIdx.x * STATS_BLOCK;
   const long long rest = (long long)n - (long long)base;
   const int np = rest < STATS_BLOCK ? (int)rest : STATS_BLOCK;
   const float* fb = feats + base * dp;
-  const uint32_t kz0 = (uint32_t)key_z[0], kz1 = (uint32_t)key_z[1];
   const uint32_t kb0 = (uint32_t)key_zb[0], kb1 = (uint32_t)key_zb[1];
   const bool vec = (dp & 3) == 0 &&
                    (((uintptr_t)feats | (uintptr_t)w | (uintptr_t)subw) &
                     15) == 0;
 
-  for (int p = tid; p < np; p += LIN_THREADS) {
-    best[p] = NEG_INF;
-    lab[p] = 0;
-  }
-
-  // ---- step (e): running first-max over the K tiles ----------------------
-  for (int kt = 0; kt < K; kt += BK) {
-    const int bk = min(BK, K - kt);
-    __syncthreads();
-    if (tid == 0) {
-      int na = 0, ni = 0;
-      for (int kk = 0; kk < bk; ++kk) {
-        if (active[kt + kk] != 0)
-          act[na++] = kt + kk;
-        else
-          inact[ni++] = kt + kk;
-      }
-      cnt[0] = na;
-      cnt[1] = ni;
-    }
-    __syncthreads();
-    const int na = cnt[0], ni = cnt[1];
-    const int jmax = (na + 7) / 8;
-    for (int p0 = 0; p0 < np; p0 += PT) {
-      float acc[TI][TJ];
-#pragma unroll
-      for (int i = 0; i < TI; ++i)
-#pragma unroll
-        for (int j = 0; j < TJ; ++j) acc[i][j] = 0.f;
-      // double-buffered chunks: the copy of chunk ci + 1 runs while the
-      // products of chunk ci are summed, in feature order
-      const int nch = na > 0 ? (dp + DC - 1) / DC : 0;
-      if (nch > 0) {
-        __syncthreads();
-        stage_chunk(fb, w, dp, np, p0, 0, act, na, vec, fs, ws);
-      }
-      for (int ci = 0; ci < nch; ++ci) {
-        const int buf = ci & 1;
-        if (ci + 1 < nch) {
-          stage_chunk(fb, w, dp, np, p0, (ci + 1) * DC, act, na, vec,
-                      fs + (buf ^ 1) * PT * FSTR, ws + (buf ^ 1) * BK * FSTR);
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
-        }
-        __syncthreads();
-        const float* fsb = fs + buf * PT * FSTR;
-        const float* wsb = ws + buf * BK * FSTR;
-#pragma unroll 1
-        for (int c = 0; c < DC; c += 4) {
-          float4 a[TI];
-#pragma unroll
-          for (int i = 0; i < TI; ++i)
-            a[i] = *reinterpret_cast<const float4*>(fsb + (ty + 32 * i) * FSTR
-                                                    + c);
-#pragma unroll
-          for (int j = 0; j < TJ; ++j) {
-            if (j < jmax) {
-              const float4 b =
-                  *reinterpret_cast<const float4*>(wsb + (tx + 8 * j) * FSTR
-                                                   + c);
-#pragma unroll
-              for (int i = 0; i < TI; ++i) {
-                float v = fmaf(a[i].x, b.x, acc[i][j]);
-                v = fmaf(a[i].y, b.y, v);
-                v = fmaf(a[i].z, b.z, v);
-                acc[i][j] = fmaf(a[i].w, b.w, v);
-              }
-            }
-          }
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < TI; ++i) {
-        const int p = p0 + ty + 32 * i;
-        float bv = NEG_INF;
-        int bl = INT_MAX;
-        if (p < np) {
-          const uint32_t g = (uint32_t)gidx[base + p];
-#pragma unroll
-          for (int j = 0; j < TJ; ++j) {
-            const int pos = tx + 8 * j;
-            if (pos < na) {
-              const int c = act[pos];
-              float t = acc[i][j] + cst[c];
-              t = t + logw[c];
-              t = t + gumbel(kz0, kz1, g, (uint32_t)slots[c]);
-              take_best(t, c, bv, bl);
-            }
-          }
-          for (int pos = tx; pos < ni; pos += 8) {
-            const int c = inact[pos];
-            take_best(NEG_INF + gumbel(kz0, kz1, g, (uint32_t)slots[c]), c,
-                      bv, bl);
-          }
-        }
-#pragma unroll
-        for (int off = 1; off < 8; off <<= 1) {
-          const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-          const int ol = __shfl_xor_sync(0xffffffffu, bl, off);
-          take_best(ov, ol, bv, bl);
-        }
-        if (tx == 0 && p < np && bv > best[p]) {
-          best[p] = bv;
-          lab[p] = bl;
-        }
-      }
-    }
-  }
-  __syncthreads();
+  // ---- step (e): running first-max over the K tiles (assign_tile.cuh) ----
+  linear_assign(fb, np, dp, gidx + base, w, cst, logw, active, slots, K,
+                (uint32_t)key_z[0], (uint32_t)key_z[1], vec, words, best,
+                lab);
 
   // ---- step (f): one warp per point, own cluster's two sub-clusters -------
   // A warp takes its points 32 at a time: for each, the lanes stride the
@@ -365,9 +182,8 @@ extern "C" int sweep_linear_launch(
   if (n <= 0 || dp <= 0 || dp > 65536 || K <= 0 || K > 2048)
     return (int)cudaErrorInvalidValue;
   const size_t smem =
-      sizeof(float) * 2 * ((size_t)PT * FSTR + (size_t)BK * FSTR) +
-      sizeof(int) * (4 * (size_t)STATS_BLOCK + 2 * (size_t)BK + 2 +
-                     4 * (size_t)K + 1);
+      sizeof(float) * (linear_assign_words() + 4 * (size_t)STATS_BLOCK +
+                       4 * (size_t)K + 1);
   cudaError_t err = cudaFuncSetAttribute(
       sweep_linear_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

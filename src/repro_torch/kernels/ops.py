@@ -9,8 +9,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import assign as _assign
+from repro_torch.kernels import loglik as _loglik
+from repro_torch.kernels import matmul as _matmul
 from repro_torch.kernels import suffstats as _suffstats
 from repro_torch.kernels import sweep as _sweep
+from repro_torch.kernels.matmul import MATMUL_CROSSOVER
 
 
 def _route(x: torch.Tensor, cuda, plain):
@@ -58,11 +62,52 @@ def moments_labels(feats, labels, sublabels, valid, k: int):
     return fn(feats, labels, sublabels, valid, k)
 
 
+def loglik_gauss(x, mu, chol_prec, logdet_prec):
+    """(N, K) Gaussian log-likelihoods (``kernels/loglik.py``)."""
+    fn = _route(x, _loglik.loglik_cuda, _loglik.loglik_plain)
+    return fn(x, mu, chol_prec, logdet_prec)
+
+
+def assign_gauss(x, mu, chol_prec, logdet_prec, logw, active, gidx, key_z,
+                 slots):
+    """Step (e) alone, full-covariance Gaussian (``kernels/assign.py``)."""
+    fn = _route(x, _assign.assign_gauss_cuda, _assign.assign_gauss_plain)
+    return fn(x, mu, chol_prec, logdet_prec, logw, active, gidx, key_z,
+              slots)
+
+
+def assign_linear(feats, w, const, logw, active, gidx, key_z, slots):
+    """Step (e) alone, linear families (``kernels/assign.py``)."""
+    fn = _route(feats, _assign.assign_linear_cuda,
+                _assign.assign_linear_plain)
+    return fn(feats, w, const, logw, active, gidx, key_z, slots)
+
+
+def matmul(a, b):
+    """(M, K) @ (K, N) through the blocked kernel (``kernels/matmul.py``)."""
+    fn = _route(a, _matmul.matmul_cuda, _matmul.matmul_plain)
+    return fn(a.contiguous(), b.contiguous())
+
+
+def matmul_auto(a, b):
+    """The paper's size-dispatched product: the blocked kernel while the
+    left operand has fewer than ``MATMUL_CROSSOVER`` elements (its d N
+    measure), ``torch.matmul`` above, as
+    ``repro.kernels.ops.matmul_auto``."""
+    if a.shape[0] * a.shape[1] < MATMUL_CROSSOVER:
+        return matmul(a, b)
+    return torch.matmul(a, b)
+
+
 # every kernel wrapper, by kernel name
 _CUDA = {"sweep_gauss": _sweep.sweep_gauss_cuda,
          "suffstats_labels": _suffstats.suffstats_labels_cuda,
          "sweep_linear": _sweep.sweep_linear_cuda,
-         "moments_labels": _suffstats.moments_labels_cuda}
+         "moments_labels": _suffstats.moments_labels_cuda,
+         "loglik_gauss": _loglik.loglik_cuda,
+         "assign_gauss": _assign.assign_gauss_cuda,
+         "assign_linear": _assign.assign_linear_cuda,
+         "matmul": _matmul.matmul_cuda}
 
 
 def launch_counts() -> dict:

@@ -40,8 +40,9 @@ STATS_BLOCK = 1024
 # Floats of temporaries one chunk of the plain version may hold.
 CHUNK_FLOATS = 1 << 24
 MAX_K = 8192
-# The kernel indexes a block's 2k d^2 sxx entries with an int.
-MAX_D = 64
+# The kernel indexes a block's 2k d^2 sxx entries with an int (2^28 at
+# k = MAX_K); 128 is the reference kernel's own ceiling.
+MAX_D = 128
 # moments_labels: a block's 2k d' partial entries stay below 2^31 for
 # k <= MAX_K (its per-chunk entry index is an int; d' rows use 64-bit
 # offsets), and d' covers the 20newsgroups vocabulary with room.
@@ -163,7 +164,8 @@ def suffstats_labels_cuda(x: torch.Tensor, labels: torch.Tensor,
     if not 1 <= k <= MAX_K:
         raise ValueError(f"suffstats_labels: k={k} outside [1, {MAX_K}]")
     if not 1 <= d <= MAX_D:
-        raise ValueError(f"suffstats_labels: d={d} outside [1, {MAX_D}]")
+        raise ValueError(f"suffstats_labels: d={d} outside [1, {MAX_D}] "
+                         "(ROADMAP.md §3)")
     if n == 0:
         raise ValueError("suffstats_labels: no points")
     dev = x.device

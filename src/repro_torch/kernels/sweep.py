@@ -49,8 +49,10 @@ from repro_torch.kernels.suffstats import (CHUNK_FLOATS, MAX_DP,
 # Inactive-cluster mask of step (e), as in the reference kernels.
 NEG_INF = -1e30
 LOG_2PI = 1.8378770664093453
-# The kernel's register arrays hold one d-vector per point: d <= 64.
-MAX_D = 64
+# The kernel keeps a point's d-vectors in one thread's registers up to
+# d = 64 and spreads them over four lanes up to 128, the reference kernel's
+# own ceiling; above it the reference's jnp route is not ported.
+MAX_D = 128
 MAX_K = 2048
 
 SweepOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
@@ -178,8 +180,8 @@ def sweep_gauss_cuda(x, mu, chol_prec, logdet_prec, logw, active, sub_mu,
         raise ValueError("sweep_gauss_cuda takes CUDA tensors; the plain "
                          "version serves the CPU")
     if not 1 <= d <= MAX_D:
-        raise ValueError(f"sweep_gauss: d={d} outside [1, {MAX_D}] (the "
-                         "kernel keeps a d-vector per point in registers)")
+        raise ValueError(f"sweep_gauss: d={d} outside [1, {MAX_D}] "
+                         "(ROADMAP.md §3)")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"sweep_gauss: K={k} outside [1, {MAX_K}]")
     if n == 0:

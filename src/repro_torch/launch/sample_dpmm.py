@@ -2,7 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.sample_dpmm \
         --n 100000 --d 2 --k 10 --alpha 10 --iters 100 \
-        [--data-path x.npy] [--result-path out.json] [--device cuda]
+        [--data-path x.npy] [--result-path out.json] [--device cuda] \
+        [--checkpoint-path model.npz]
 
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given. ``--prior-type`` takes any family of the registry (gaussian,
@@ -11,7 +12,9 @@ diag_gaussian, multinomial, poisson) or the reference CLI's aliases
 data comes from the family's generator (``generate_gmm`` for the two
 Gaussian families, ``generate_pmm``, ``generate_mnmm``). The result JSON has the keys of ``repro.launch.sample_dpmm``'s for these
 flags: labels, weights, k, nmi, iter_times_s, device_bytes, config,
-dist, recoveries.
+dist, recoveries. ``--checkpoint-path`` writes the fitted model with
+``core/checkpoint.save_model`` (the reference's format v2), which
+``repro_torch.launch.serve_dpmm`` (or the JAX package's) serves.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import time
 import numpy as np
 
 from repro_torch.configs import DPMMConfig
+from repro_torch.core import checkpoint
 from repro_torch.core.family import available_families
 from repro_torch.core.sampler import DPMM
 from repro_torch.data.synthetic import (generate_gmm, generate_mnmm,
@@ -61,6 +65,8 @@ def main(argv=None):
     ap.add_argument("--result-path", "--result_path", default="")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (kernels, default) or 'cpu' (plain path)")
+    ap.add_argument("--checkpoint-path", "--checkpoint_path", default="",
+                    help="write the fitted ModelState npz here")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
 
@@ -86,6 +92,10 @@ def main(argv=None):
                     "peak_bytes_source": ("torch.cuda.max_memory_allocated"
                                           if result.peak_bytes is not None
                                           else None)}
+    if args.checkpoint_path:
+        path = checkpoint.save_model(args.checkpoint_path, result.state,
+                                     cfg.component)
+        print(f"wrote checkpoint {path}")
     if args.result_path:
         weights = np.exp(result.state.logweights.cpu().numpy())
         active = result.state.active.cpu().numpy()

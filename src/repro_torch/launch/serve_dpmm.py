@@ -1,0 +1,125 @@
+"""DPMM serving CLI of the PyTorch port: query a fitted model.
+
+    # 1. fit and write the model (either package's checkpoint serves):
+    PYTHONPATH=src python -m repro_torch.launch.sample_dpmm \
+        --n 100000 --d 8 --k 10 --iters 100 --checkpoint-path model.npz
+    # 2. serve queries against it:
+    PYTHONPATH=src python -m repro_torch.launch.serve_dpmm \
+        --checkpoint model.npz --queries q.npy --result-path out.json
+
+Runs on the card (``--device cuda``, the default) unless ``--device cpu``
+is given. ``--checkpoint`` takes a single npz or a rotation prefix (the
+newest member that verifies serves). ``--batch-sizes`` is the ladder of
+step sizes; each request routes to the smallest covering step
+(``serve/dpmm.py``). The JSON written to ``--result-path`` is exactly
+``ServeResult.to_json()``. ``--bench`` reports throughput and per-request
+latency percentiles instead. Without ``--queries`` a synthetic batch of
+the checkpoint's width is drawn.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+import warnings
+
+import numpy as np
+
+
+def _parse_sizes(text: str):
+    try:
+        return tuple(int(tok) for tok in text.split(",") if tok.strip())
+    except ValueError:
+        raise SystemExit(f"--batch-sizes expects comma-separated ints, "
+                         f"got {text!r}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--checkpoint", required=True,
+                    help="ModelState npz (or rotation prefix) written by "
+                         "either package's core/checkpoint.py")
+    ap.add_argument("--queries", default="",
+                    help=".npy (N, d) query rows; default: synthetic")
+    ap.add_argument("--n", type=int, default=10_000,
+                    help="synthetic query count when --queries is unset")
+    ap.add_argument("--batch-sizes", "--batch_sizes", default="",
+                    help="comma-separated ascending ladder, e.g. "
+                         "256,2048,8192 (ServeConfig default when unset)")
+    ap.add_argument("--batch-size", "--batch_size", type=int, default=None,
+                    help="DEPRECATED: single step size; use --batch-sizes")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sample", action="store_true",
+                    help="also draw a sampled (Gumbel) assignment per row")
+    ap.add_argument("--include-logprobs", action="store_true",
+                    help="include the (N, K_max) soft assignment in the "
+                         "result JSON")
+    ap.add_argument("--result-path", "--result_path", default="")
+    ap.add_argument("--bench", action="store_true",
+                    help="measure throughput/latency instead of dumping "
+                         "answers")
+    ap.add_argument("--bench-reps", type=int, default=20)
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (kernels, default) or 'cpu' (plain path)")
+    args = ap.parse_args(argv)
+
+    from repro_torch.serve.dpmm import DPMMEngine, ServeConfig
+
+    fields = {"seed": args.seed}
+    if args.batch_size is not None:
+        if args.batch_sizes:
+            raise SystemExit("pass --batch-sizes OR --batch-size, not both")
+        warnings.warn("--batch-size is deprecated; use --batch-sizes",
+                      DeprecationWarning)
+        fields["batch_sizes"] = (args.batch_size,)
+    elif args.batch_sizes:
+        fields["batch_sizes"] = _parse_sizes(args.batch_sizes)
+    cfg = ServeConfig(**fields)
+
+    t0 = time.time()
+    engine = DPMMEngine.from_checkpoint(args.checkpoint, cfg,
+                                        device=args.device)
+    print(f"engine up in {time.time() - t0:.2f}s: "
+          f"family={engine.family.name} d={engine.d} k_max={engine.k_max} "
+          f"ladder={engine.batch_sizes} device={engine.device}")
+
+    if args.queries:
+        xq = np.asarray(np.load(args.queries), np.float32)
+    else:
+        rng = np.random.default_rng(args.seed)
+        xq = rng.standard_normal((args.n, engine.d)).astype(np.float32)
+        print(f"no --queries: serving {args.n} synthetic rows")
+
+    if args.bench:
+        engine.query(xq[: engine.batch_sizes[0]])    # warm
+        lat = []
+        t0 = time.perf_counter()
+        for _ in range(args.bench_reps):
+            t1 = time.perf_counter()
+            engine.query(xq)
+            lat.append(time.perf_counter() - t1)
+        dt = (time.perf_counter() - t0) / args.bench_reps
+        qps = xq.shape[0] / dt
+        p50, p95, p99 = (float(np.percentile(lat, p) * 1e3)
+                         for p in (50, 95, 99))
+        print(f"throughput: {qps:,.0f} queries/s "
+              f"({dt * 1e3:.2f} ms per {xq.shape[0]}-row request; "
+              f"p50={p50:.2f} p95={p95:.2f} p99={p99:.2f} ms)")
+        return
+
+    t0 = time.perf_counter()
+    res = engine.query(xq, sample=args.sample, seed=args.seed)
+    dt = time.perf_counter() - t0
+    print(f"served {xq.shape[0]} queries in {dt * 1e3:.1f} ms "
+          f"({xq.shape[0] / dt:,.0f} q/s): "
+          f"{len(res.cluster_counts())} clusters hit, "
+          f"mean log p(x) = {res.log_predictive.mean():.3f}")
+    if args.result_path:
+        with open(args.result_path, "w") as f:
+            json.dump(res.to_json(include_logprobs=args.include_logprobs),
+                      f)
+        print(f"wrote {args.result_path}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (sweep_gauss, suffstats_labels, sweep_linear,
-moments_labels) against their plain versions, on the card.
+moments_labels, loglik_gauss, assign_gauss, assign_linear, matmul) against
+their plain versions, on the card.
 
 Marked ``cuda``; each test skips (from a fixture, at run time) where no
 CUDA device is available. Run on a GPU machine with
@@ -8,7 +9,9 @@ CUDA device is available. Run on a GPU machine with
 Rules: labels equal except mismatches proven to be near-ties (the two
 logits within 1e-4, relative; at most 0.1 % of the points), stats partials within rtol 1e-4 of each array's scale (long
 float32 sums in another order), counts exact; a repeat launch on the same
-inputs gives identical bits (no float atomics).
+inputs gives identical bits (no float atomics); log-likelihoods and
+products within rtol 1e-5 of each array's scale (fp32 sums in another
+order).
 """
 import numpy as np
 import pytest
@@ -17,7 +20,9 @@ import torch
 from repro_torch.configs import DPMMConfig
 from repro_torch.core.sampler import DPMM
 from repro_torch.data.synthetic import generate_gmm, generate_mnmm
-from repro_torch.kernels import ops, suffstats, sweep
+from repro_torch.core.family import get_family
+from repro_torch.core.niw import GaussParams
+from repro_torch.kernels import assign, loglik, matmul, ops, suffstats, sweep
 
 
 pytestmark = pytest.mark.cuda
@@ -57,7 +62,9 @@ def _close(got, want):
 
 
 @pytest.mark.parametrize("n,d,k", [(2500, 2, 8), (5000, 8, 16),
-                                   (3000, 20, 5), (2100, 64, 3)])
+                                   (3000, 20, 5), (2100, 64, 3),
+                                   (2100, 65, 3), (1500, 96, 4),
+                                   (1200, 128, 5)])
 def test_sweep_gauss_kernel_matches_plain(dev, n, d, k):
     a = _args(n, d, k, dev, seed=d)
     before = sweep.sweep_gauss_cuda.launches
@@ -73,7 +80,9 @@ def test_sweep_gauss_kernel_matches_plain(dev, n, d, k):
                                                      a[10], k))
 
 
-@pytest.mark.parametrize("n,d,k", [(2500, 2, 8), (4096, 32, 64)])
+@pytest.mark.parametrize("n,d,k", [(2500, 2, 8), (4096, 32, 64),
+                                   (2100, 65, 5), (2500, 96, 8),
+                                   (2048, 128, 16)])
 def test_suffstats_labels_kernel_matches_plain(dev, n, d, k):
     g = torch.Generator().manual_seed(n)
     x = (torch.randn(n, d, generator=g) * 4).to(dev)
@@ -141,10 +150,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         sweep.sweep_gauss_cuda(*bad)
     bad = list(a)
-    bad[0] = torch.randn(2048, 65, device=dev)
-    with pytest.raises(ValueError, match="d=65"):
+    bad[0] = torch.randn(2048, 129, device=dev)
+    with pytest.raises(ValueError, match="d=129"):
         sweep.sweep_gauss_cuda(*bad)
-    with pytest.raises(ValueError, match="d=65"):
+    with pytest.raises(ValueError, match="d=129"):
         suffstats.suffstats_labels_cuda(bad[0], a[5][:1].repeat(2048),
                                         a[5][:1].repeat(2048), a[10], 4)
     with pytest.raises(ValueError, match="contiguous"):
@@ -189,3 +198,98 @@ def test_multinomial_fit_on_the_card_runs_through_both_kernels(dev):
     assert counts["sweep_linear"] == 25 and counts["moments_labels"] > 0
     assert counts["sweep_gauss"] == counts["suffstats_labels"] == 0
     assert r.nmi(y) > 0.9
+
+
+def _assign_args(n, d, k, dev, seed=0):
+    """assign_gauss operands: the sweep's step-(e) operands."""
+    a = _args(n, d, k, dev, seed)
+    return a[:6] + (a[11], a[12], a[14])
+
+
+@pytest.mark.parametrize("n,d,k", [(3000, 2, 8), (5000, 32, 16),
+                                   (2100, 64, 3), (1700, 65, 4),
+                                   (1500, 96, 5), (1300, 128, 9)])
+def test_assign_gauss_kernel_matches_plain(dev, n, d, k):
+    a = _assign_args(n, d, k, dev, seed=d)
+    before = assign.assign_gauss_cuda.launches
+    got = ops.assign_gauss(*a)
+    assert torch.equal(got, ops.assign_gauss(*a))
+    assert assign.assign_gauss_cuda.launches == before + 2
+    mism, not_ties = assign.assign_mismatches(
+        True, a, got, assign.assign_gauss_plain(*a), rtol=1e-4)
+    assert not_ties == 0 and mism <= 1e-3 * n, (mism, not_ties)
+    # the sweep's step (e) is the same device code: the same labels
+    assert torch.equal(got, sweep.sweep_gauss_cuda(*_args(n, d, k, dev,
+                                                          seed=d))[0])
+
+
+@pytest.mark.parametrize("n,dp,k", [(2500, 8, 8), (5000, 128, 32),
+                                    (3000, 33, 70), (700, 20_000, 5)])
+def test_assign_linear_kernel_matches_plain(dev, n, dp, k):
+    la = _linear_args(n, dp, k, dev, seed=dp)
+    a = la[:5] + la[9:11] + (la[12],)
+    got = ops.assign_linear(*a)
+    assert torch.equal(got, ops.assign_linear(*a))
+    mism, not_ties = assign.assign_mismatches(
+        False, a, got, assign.assign_linear_plain(*a), rtol=1e-4)
+    assert not_ties == 0 and mism <= 1e-3 * n, (mism, not_ties)
+    assert torch.equal(got, sweep.sweep_linear_cuda(*la)[0])
+
+
+def _rel_close(got, want, rtol=1e-5):
+    assert got.shape == want.shape
+    assert bool(((got - want).abs()
+                 <= rtol * (want.abs() + want.abs().max())).all())
+
+
+@pytest.mark.parametrize("n,d,k", [(1000, 3, 7), (8192, 32, 16),
+                                   (700, 64, 33), (513, 65, 4),
+                                   (900, 96, 6), (1000, 128, 16)])
+def test_loglik_gauss_kernel_matches_plain(dev, n, d, k):
+    x, mu, f, ld = _args(n, d, k, dev, seed=d)[:4]
+    got = ops.loglik_gauss(x, mu, f, ld)
+    assert torch.equal(got, ops.loglik_gauss(x, mu, f, ld))
+    _rel_close(got, loglik.loglik_plain(x, mu, f, ld))
+    # a row's bits do not depend on the batch it came in
+    assert torch.equal(ops.loglik_gauss(x[5:300].contiguous(), mu, f, ld),
+                       got[5:300])
+
+
+@pytest.mark.parametrize("m,k,n", [(8192, 32, 32), (300, 33, 17),
+                                   (1, 1, 1), (4097, 128, 65)])
+def test_matmul_kernel_matches_plain(dev, m, k, n):
+    g = torch.Generator().manual_seed(m + n)
+    a = torch.randn(m, k, generator=g).to(dev)
+    b = torch.randn(k, n, generator=g).to(dev)
+    got = ops.matmul(a, b)
+    assert torch.equal(got, ops.matmul(a, b))
+    _rel_close(got, matmul.matmul_plain(a, b))
+    assert torch.equal(ops.matmul(a[:m // 2 + 1].contiguous(), b),
+                       got[:m // 2 + 1])
+
+
+def test_family_assign_and_loglik_launch_the_kernels(dev):
+    a = _args(2048, 6, 8, dev)
+    p = GaussParams(a[1], a[2], a[3])
+    ops.reset_launch_counts()
+    gauss = get_family("gaussian")
+    gauss.assign(a[0], p, a[4], a[5], a[11], a[12], a[14])
+    gauss.loglik(a[0], p)
+    diag = get_family("diag_gaussian")
+    zeros = torch.zeros(2048, dtype=torch.int32, device=dev)
+    stats = diag.stats_from_labels(a[0], a[10], zeros, zeros, 8)
+    dp = diag.expected_params(diag.build_prior(DPMMConfig(), a[0][:1]),
+                              diag.stats_cls(*(t.sum(1) for t in (
+                                  stats.n, stats.sx, stats.sxx))))
+    diag.loglik(a[0], dp)
+    diag.assign(a[0], dp, a[4], a[5], a[11], a[12], a[14])
+    counts = ops.launch_counts()
+    assert counts["assign_gauss"] == counts["loglik_gauss"] == 1
+    assert counts["matmul"] == 2 and counts["assign_linear"] == 1
+    get_family("multinomial").loglik(a[0].abs(), get_family(
+        "multinomial").params_cls(dp.mu))
+    assert ops.launch_counts()["matmul"] == 3
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gauss.sub_assign(a[0], GaussParams(a[6], a[7], a[8]), a[9],
+                         torch.zeros(2048, dtype=torch.int32, device=dev),
+                         a[11], a[13])

@@ -199,8 +199,10 @@ def test_ops_route_cpu_tensors_to_the_plain_versions():
                zip((lab, sub, n2, sx2, sxx2), ref))
     parts = ops.suffstats_labels(a[0], lab, sub, a[10], K)
     assert torch.equal(parts[2], sxx2)
-    assert ops.launch_counts() == {"sweep_gauss": 0, "suffstats_labels": 0,
-                                   "sweep_linear": 0, "moments_labels": 0}
+    assert ops.launch_counts() == {
+        "sweep_gauss": 0, "suffstats_labels": 0, "sweep_linear": 0,
+        "moments_labels": 0, "loglik_gauss": 0, "assign_gauss": 0,
+        "assign_linear": 0, "matmul": 0}
 
 
 def test_ops_refuse_other_devices_and_cuda_wrappers_refuse_cpu():

@@ -155,8 +155,12 @@ def test_linear_family_assign_and_sub_assign_are_the_sweep_steps():
         multinomial.loglik(feats, p), logw, act, gidx, kz, slots), lab)
     assert torch.equal(tsweep.sub_assign_linear_plain(
         *multinomial.assign_pack(feats, sp), sublogw, lab, gidx, kzb), sub)
+    assert torch.equal(MULTINOMIAL.assign(feats, p, logw, act, gidx, kz,
+                                          slots), lab)
+    assert torch.equal(tsweep.assign_linear_plain(
+        *multinomial.assign_pack(feats, p), logw, act, gidx, kz, slots), lab)
     with pytest.raises(NotImplementedError, match="gaussian family only"):
-        MULTINOMIAL.assign(feats, p, logw, act, gidx, kz, slots)
+        MULTINOMIAL.sub_assign(feats, sp, sublogw, lab, gidx, kzb)
 
 
 def test_label_mismatches_linear_proves_near_ties_in_float64():
