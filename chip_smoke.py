@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--profile TRACE.json]
 
-Builds the port's eight CUDA kernels from ``src/repro_torch/csrc`` and
+Builds the port's ten CUDA kernels from ``src/repro_torch/csrc`` and
 holds each against its plain PyTorch version on the card (phases
 ``kernel_check``: sweep_gauss, suffstats_labels; ``kernel_check_linear``:
 sweep_linear, moments_labels, at the multinomial fit's width, the diagonal
@@ -25,17 +25,37 @@ kernels against their plain versions at every linear fit's final state).
 A Gaussian fit at 200,000 x 128 (``fit_gaussian_d128``) runs the wide
 layout of the Gaussian kernels, and its final state holds sweep_gauss and
 suffstats_labels against their plain versions and times them
-(``kernels_d128``). The Gaussian,
-multinomial and diagonal-Gaussian fits are then served: each is written
-with ``save_model`` and loaded by ``DPMMEngine.from_checkpoint`` (default
+(``kernels_d128``). The three-pass sweep (``gibbs.sweep_tile`` with
+``fused=False``: ``assign``, ``sub_assign``, the stat fold) runs a
+200,000 x 128 multinomial and a 200,000 x 32 Gaussian fit beside the
+fused fits on the same data and seed (``fit_three_pass``: K trajectories,
+the first iteration whose labels part, NMI, ms/iter). A 400,000 x 256
+Gaussian fit (``fit_gaussian_d256``), past the one-read sweep's
+d <= 128, runs every sweep through ``sweep_ref`` (``assign_gauss``,
+``sub_assign_gauss``, ``suffstats_labels``); its final state, all its
+points, holds those kernels and ``loglik_gauss`` against their plain
+versions and times them (``kernels_d256``). The Gaussian,
+multinomial, diagonal-Gaussian and d = 256 Gaussian fits are then
+served: each is written with ``save_model`` and loaded by
+``DPMMEngine.from_checkpoint`` (default
 ladder 256/2048/8192), which answers 100,000 fresh rows of the fit's
 mixture as one request and as requests of 1 to 9,000 rows (bitwise equal
 to the same rows of the whole), is held against an engine on the kernels'
 plain versions on the same card, must reach NMI >= 0.9 for ``predict``,
 swaps to a redrawn model, and reports latency by request size
-(``serve_<family>``). ``kernel_times`` also times the serving kernels at
-one step, and ``matmul_crossover`` times ``matmul`` against
-``torch.matmul`` over a ladder of sizes. Each phase prints one JSON line;
+(``serve_<family>``, ``serve_gaussian_d256``). ``kernel_times`` also
+times the serving kernels at one step. ``kernel_check_three_pass`` holds
+``sub_assign_gauss`` (at the d = 32 fit's final state) and
+``sub_assign_linear`` (at the multinomial and diagonal-Gaussian fits'
+final states, the 20newsgroups width and the three-pass multinomial
+fit's final state) against their plain versions and the one-read sweeps'
+step (f), and the three-pass tile against the one-read tile on the same
+states, and times both kernels. The kernels line gives each step-(f)
+kernel's time at the final state of the fit whose launches it counts:
+``sub_assign_gauss`` the d = 256 fit's, ``sub_assign_linear`` the
+three-pass multinomial fit's.
+``matmul_crossover`` times ``matmul`` against ``torch.matmul`` over a
+ladder of sizes. Each phase prints one JSON line;
 any failed check raises, so the script exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -80,6 +100,18 @@ CHECK_N = 131_072
 # The Gaussian fit at the top of the paper's DPGMM grid (d = 128), cut to
 # a fifth of N like the poisson and diag_gaussian fits.
 D128_N, D128_D = 200_000, 128
+# The Gaussian fit past the one-read sweep's d <= 128, through the
+# three-pass sweep: twice the top of the DPGMM grid, N cut to 0.4. At a
+# tenth (6,250 points a cluster) the NIW evidence prefers merging every
+# pair of the 16 true clusters, so no sampler finds them; at 400,000 it
+# splits every pair (tools/split_evidence.py). Its kernels are held and
+# timed at its final state.
+D256_N, D256_D = 400_000, 256
+# The three-pass fits held against the fused fits on the same data and
+# seed: (component, generator, d), at a fifth of N.
+THREE_PASS_N = 200_000
+THREE_PASS_FITS = (("multinomial", "generate_mnmm", 128),
+                   ("gaussian", "generate_gmm", 32))
 # Serving: the default ladder's largest step, the compact slab of the
 # checks (17 live rows of 32), request sizes (a single row, ladder steps,
 # a ragged 300, and longer than the largest step) and query rows.
@@ -969,6 +1001,243 @@ def profile_fit(x_np, cfg, trace: str) -> dict:
             "trace": trace}
 
 
+# ---------------------------------------------------------------------------
+# The three-pass sweep: step (f) alone, and the tile and the fit through it
+# ---------------------------------------------------------------------------
+def sub_ties(assign, gauss: bool, args, got, want) -> int:
+    """Step-(f) mismatches of ``got`` against ``want``; raises unless each
+    is a float64-proven near-tie and they are few."""
+    bad, not_ties = assign.sub_assign_mismatches(gauss, args, got, want,
+                                                 TIE_RTOL)
+    if not_ties:
+        fail(f"{not_ties} step-(f) sub-label mismatches are not near-ties")
+    if bad > MAX_TIE_SHARE * args[0].shape[0] + 1:
+        fail(f"{bad} near-tie mismatches of {args[0].shape[0]} points")
+    return bad
+
+
+def gauss_sub_args(a, labels):
+    """``sub_assign_gauss`` operands from ``sweep_gauss`` operands ``a``."""
+    return (a[0], a[6], a[7], a[8], a[9], labels, a[11], a[13])
+
+
+def linear_sub_args(a, labels):
+    """``sub_assign_linear`` operands from ``sweep_linear`` operands."""
+    return (a[0], a[5], a[6], a[7], labels, a[9], a[11])
+
+
+def check_sub_assign(assign, gauss: bool, args, one_read=None) -> dict:
+    """A step-(f) kernel on ``args`` against its plain version: repeat
+    launches bitwise equal, sub-labels exact except near-ties. With
+    ``one_read`` (the fused sweep's sub-labels for the same labels) the
+    kernel, which runs the sweep's device code, must equal it bit for
+    bit."""
+    cuda = (assign.sub_assign_gauss_cuda if gauss
+            else assign.sub_assign_linear_cuda)
+    plain = (assign.sub_assign_gauss_plain if gauss
+             else assign.sub_assign_linear_plain)
+    got = cuda(*args)
+    again = cuda(*args)
+    torch.cuda.synchronize()
+    name = "sub_assign_gauss" if gauss else "sub_assign_linear"
+    if not torch.equal(got, again):
+        fail(f"{name}: two launches on the same inputs differ")
+    out = {"n": args[0].shape[0], "width": args[0].shape[1],
+           "k": args[1].shape[0],
+           "near_tie_mismatches": sub_ties(assign, gauss, args, got,
+                                           plain(*args)),
+           "repeat_bitwise": True}
+    if one_read is not None:
+        if not torch.equal(got, one_read):
+            fail(f"{name}: differs from the one-read sweep's step (f)")
+        out["equals_one_read_sweep"] = True
+    return out
+
+
+def check_three_pass_tile(fam, model, x, args, mismatches, gibbs) -> dict:
+    """``gibbs.sweep_tile(fused=False)`` against ``fused=True`` at a fit's
+    final state, on the compact slab and key words of ``args`` (the fused
+    kernel's operands, ``fit_sweep_args`` / ``fit_linear_args``). The
+    target is bitwise equal labels, sub-labels and stats; otherwise every
+    differing point must be a float64-proven near-tie and the stats of the
+    one-read labelling, folded by the three-pass fold, within STATS_RTOL.
+    Two three-pass runs must give the same bits."""
+    import dataclasses
+    from repro_torch.core.state import PointState
+    dev = x.device
+    n, d = x.shape
+    k_c = args[1].shape[0]
+    plan = gibbs.compaction_plan(model.active, k_c)
+    zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+    point = PointState(labels=zeros, sublabels=zeros,
+                       valid=torch.ones(n, device=dev))
+    gidx = gibbs.global_indices(n, dev)
+
+    def tile(fused):
+        return gibbs.sweep_tile(model, x, point, gidx,
+                                gibbs.empty_substats(fam, k_c, d, dev), fam,
+                                args[-3], args[-2], plan=plan, fused=fused)
+    one, acc1 = tile(True)
+    three, acc3 = tile(False)
+    again, acc3b = tile(False)
+    torch.cuda.synchronize()
+    fields = [f.name for f in dataclasses.fields(acc1)]
+    same = lambda a, b: all(torch.equal(getattr(a, f), getattr(b, f))
+                            for f in fields)
+    if not (torch.equal(three.labels, again.labels)
+            and torch.equal(three.sublabels, again.sublabels)
+            and same(acc3, acc3b)):
+        fail(f"{fam.name} three-pass tile: two runs on one state differ")
+    differ = int(((one.labels != three.labels)
+                  | (one.sublabels != three.sublabels)).sum())
+    bitwise = differ == 0 and same(acc1, acc3)
+    ties = 0
+    if differ:
+        compact = lambda lab: plan.compact_of_slot[lab.long()].to(
+            torch.int32)
+        ties = near_ties(mismatches, args,
+                         (compact(three.labels), three.sublabels),
+                         (compact(one.labels), one.sublabels))
+        acc3 = fam.stats_from_labels(x, point.valid, compact(one.labels),
+                                     one.sublabels, k_c)
+    err = stats_err([getattr(acc3, f) for f in fields],
+                    [getattr(acc1, f) for f in fields])
+    return {"n": n, "d": d, "k": k_c, "k_live": int(model.k_hat),
+            "bitwise": bitwise, "differing_points": differ,
+            "near_tie_mismatches": ties, "stats_max_abs_err": err,
+            "repeat_bitwise": True}
+
+
+def fit_three_pass(DPMM, cfg, x_np, y_np, gibbs) -> tuple:
+    """The fit through ``gibbs.sweep_tile(fused=False)`` (swapped in with
+    ``functools.partial``, as the reference's own tests do) against the
+    fused fit on the same data and seed, each with its launch counts set
+    to 0 just before and read just after, and the sweep's labels of every
+    iteration recorded. Returns the report, whose ``problems`` lists each
+    failed gate (NMI >= 0.9 for both; the three-pass fit reaches the fused
+    fit's K through its own kernels), the three-pass launches and the
+    three-pass fit's result."""
+    import functools
+    from repro_torch.kernels import ops
+    orig = gibbs.sweep_tile
+    runs = {}
+    for name, fused in (("fused", True), ("three_pass", False)):
+        seen = []
+        step = functools.partial(orig, fused=fused)
+
+        def recorded(*a, _step=step, _seen=seen, **kw):
+            point, acc = _step(*a, **kw)
+            _seen.append(point.labels.clone())
+            return point, acc
+        gibbs.sweep_tile = recorded
+        try:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = DPMM(cfg).fit(x_np)
+            wall = time.perf_counter() - t0
+            launches = ops.launch_counts()
+        finally:
+            gibbs.sweep_tile = orig
+        runs[name] = (res, launches, seen, wall)
+    (rf, lf, sf, _), (rt, lt, st, _) = runs["fused"], runs["three_pass"]
+    parted = next((i + 1 for i, (a, b) in enumerate(zip(sf, st))
+                   if not torch.equal(a, b)), "none")
+    report = {"component": cfg.component, "n": x_np.shape[0],
+              "d": x_np.shape[1], "first_iteration_labels_part": parted,
+              "final_labels_equal": bool(np.array_equal(rf.labels,
+                                                        rt.labels))}
+    for name, (res, launches, _, wall) in runs.items():
+        report[name] = {
+            "k_found": res.k, "nmi": res.nmi(y_np), "wall_s": wall,
+            "steady_ms_per_iter": 1e3 * float(np.mean(
+                res.iter_times_s[cfg.log_every:])),
+            "k_history": res.history["k"].tolist(),
+            "peak_bytes": res.peak_bytes, "launches": launches}
+    gauss = cfg.component == "gaussian"
+    fused_k, step_e, step_f, fold = (
+        ("sweep_gauss", "assign_gauss", "sub_assign_gauss",
+         "suffstats_labels") if gauss else
+        ("sweep_linear", "assign_linear", "sub_assign_linear",
+         "moments_labels"))
+    problems = [f"{name}: NMI {report[name]['nmi']:.4f} < 0.9"
+                for name in runs if report[name]["nmi"] < 0.9]
+    if not (lt[fused_k] == 0 and lt[step_e] == lt[step_f] == cfg.iters
+            and lt[fold] > 0 and lf[fused_k] == cfg.iters):
+        problems.append(f"launches {lt} / {lf}")
+    if rt.k != rf.k:
+        problems.append(f"K {rt.k} against the fused fit's {rf.k}")
+    report["problems"] = problems
+    return report, lt, rt
+
+
+def kernels_d256(res, launches, x_np, cfg, gibbs, sampler, assign,
+                 suffstats, loglik, dev) -> dict:
+    """``assign_gauss``, ``sub_assign_gauss``, ``suffstats_labels`` and
+    ``loglik_gauss`` at the d = 256 fit's final state (its compact slab,
+    all its points) against their plain versions, and timed, with the
+    bound of that work, the launches per iteration of the fit and the
+    phase's peak device memory."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    x = torch.as_tensor(x_np, device=dev)
+    a, k = fit_sweep_args(res.state, x, gibbs, sampler,
+                          torch.Generator(device=dev).manual_seed(6))
+    n, d = x.shape
+    live = int(a[5].sum())
+    e_args = a[:6] + (a[11], a[12], a[14])
+    lab = assign.assign_gauss_cuda(*e_args)
+    torch.cuda.synchronize()
+    if not torch.equal(lab, assign.assign_gauss_cuda(*e_args)):
+        fail("assign_gauss at d = 256: two launches differ")
+    e_ties = assign_ties(assign, True, e_args, lab,
+                         assign.assign_gauss_plain(*e_args))
+    f_args = gauss_sub_args(a, lab)
+    f_check = check_sub_assign(assign, True, f_args)
+    s_args = (x, lab, assign.sub_assign_gauss_cuda(*f_args), a[10], k)
+    s_k = suffstats.suffstats_labels_cuda(*s_args)
+    s_k2 = suffstats.suffstats_labels_cuda(*s_args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(u, v) for u, v in zip(s_k, s_k2)):
+        fail("suffstats_labels at d = 256: two launches differ")
+    del s_k2
+    s_err = stats_err(s_k, suffstats.suffstats_labels_plain(*s_args))
+    del s_k
+    ll_err = rel_err(loglik.loglik_cuda(*a[:4]),
+                     loglik.loglik_plain(*a[:4]), SERVE_RTOL,
+                     "loglik_gauss at d = 256")
+    work = {"assign_gauss": (2 * n * live * d * (d + 1),
+                             4 * n * d + 12 * n + 4 * k * (d * d + d + 4)),
+            "sub_assign_gauss": (4 * n * d * (d + 1),
+                                 4 * n * d + 16 * n
+                                 + 8 * k * (d * d + d + 2)),
+            "suffstats_labels": gauss_work(n, d, k, live,
+                                           k)["suffstats_labels"],
+            "loglik_gauss": (2 * n * k * d * (d + 1),
+                             4 * (n * d + k * (d * d + d + 1) + n * k))}
+    calls = {
+        "assign_gauss": (lambda: assign.assign_gauss_cuda(*e_args),
+                         lambda: assign.assign_gauss_plain(*e_args)),
+        "sub_assign_gauss": (lambda: assign.sub_assign_gauss_cuda(*f_args),
+                             lambda: assign.sub_assign_gauss_plain(*f_args)),
+        "suffstats_labels": (
+            lambda: suffstats.suffstats_labels_cuda(*s_args),
+            lambda: suffstats.suffstats_labels_plain(*s_args)),
+        "loglik_gauss": (lambda: loglik.loglik_cuda(*a[:4]),
+                         lambda: loglik.loglik_plain(*a[:4]))}
+    out = {}
+    for name, (kern, plain) in calls.items():
+        b, by = bound(*work[name])
+        out[name] = {"ms": cuda_ms(kern, 10), "plain_ms": cuda_ms(plain, 1),
+                     "bound_ms": b, "bound_by": by,
+                     "launches_per_iter": launches[name] / cfg.iters}
+    out["assign_gauss"]["near_tie_mismatches"] = e_ties
+    out["sub_assign_gauss"]["near_tie_mismatches"] = f_check[
+        "near_tie_mismatches"]
+    out["suffstats_labels"]["max_abs_err"] = s_err
+    out["loglik_gauss"]["max_abs_err"] = ll_err
+    return {"n": n, "d": d, "k": k, "k_live": live, "repeat_bitwise": True,
+            "peak_bytes": int(torch.cuda.max_memory_allocated(dev)), **out}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="TRACE", default="",
@@ -1151,6 +1420,38 @@ def main() -> None:
          k_stats=k_sm128, nvidia_smi=gpu, **d128)
     del x128, a128, out_k, out_p, lab128, s_args
 
+    # the three-pass sweep (gibbs.sweep_tile(fused=False)) against the
+    # fused one: a multinomial and a Gaussian fit on the same data and
+    # seed through both bodies
+    three, three_launch, three_fit = {}, {}, {}
+    for comp, gen_name, d_fit in THREE_PASS_FITS:
+        xt_np, yt_np = getattr(synthetic, gen_name)(THREE_PASS_N, d_fit,
+                                                    FIT_K, seed=0)
+        three[comp], three_launch[comp], res3 = fit_three_pass(
+            DPMM, DPMMConfig(component=comp, **FIT_CFG), xt_np, yt_np,
+            gibbs)
+        three_fit[comp] = (res3, xt_np)
+    emit("fit_three_pass", nvidia_smi=gpu, **three)
+    for comp, r in three.items():
+        if r["problems"]:
+            fail(f"fit_three_pass {comp}: {'; '.join(r['problems'])}")
+    del xt_np, yt_np, res3
+
+    # the Gaussian fit past the one-read sweep's d <= 128: every sweep
+    # declines to sweep_ref (assign_gauss, sub_assign_gauss and the
+    # suffstats_labels fold), and its kernels at the final state
+    x256_np, y256_np = generate_gmm(D256_N, D256_D, FIT_K, seed=0)
+    res256, launch256 = run_fit(
+        DPMM, cfg, x256_np, y256_np,
+        ("assign_gauss", "sub_assign_gauss", "suffstats_labels"), gpu,
+        "fit_gaussian_d256")
+    if not (launch256["sweep_gauss"] == 0 and launch256["assign_gauss"]
+            == launch256["sub_assign_gauss"] == cfg.iters):
+        fail(f"fit_gaussian_d256: launches {launch256}")
+    k256 = kernels_d256(res256, launch256, x256_np, cfg, gibbs, sampler,
+                        assign, suffstats, loglik, dev)
+    emit("kernels_d256", nvidia_smi=gpu, **k256)
+
     # serving: each fitted model through DPMMEngine, checkpoint first
     import tempfile
     xq, yq, engines, serve_launch = {}, {}, {}, {}
@@ -1160,7 +1461,9 @@ def main() -> None:
                 ("multinomial", lin["multinomial"][0], "multinomial",
                  lin["multinomial"][3], "generate_mnmm"),
                 ("diag_gaussian", lin["diag_gaussian"][0], "diag_gaussian",
-                 lin["diag_gaussian"][3], "generate_gmm")):
+                 lin["diag_gaussian"][3], "generate_gmm"),
+                ("gaussian_d256", res256, "gaussian", x256_np,
+                 "generate_gmm")):
             # fresh rows of the fit's own mixture: the generators draw the
             # mixture from the seed, so seed 0 at another N
             xq[name], yq[name] = getattr(synthetic, gen_name)(
@@ -1195,14 +1498,15 @@ def main() -> None:
     # the linear kernels at each linear fit's final state, as that fit's
     # next sweep and split/merge fold would run them; the multinomial
     # fit's (the widest) are kept for the times
-    fit_states = {}
+    fit_states, fit_args = {}, {}
     for comp, (lres, _, _, xl_np) in lin.items():
-        fit_states[comp], *operands = check_fit_state(
+        fit_states[comp], fit_args[comp], *operands = check_fit_state(
             get_family(comp), lres, torch.as_tensor(xl_np, device=dev),
             gibbs, sampler, gen, sweep, suffstats)
         if comp == "multinomial":
-            largs, llab, lsub, lk_sm = operands
+            llab, lsub, lk_sm = operands
         del operands
+    largs = fit_args["multinomial"]
     mlaunch, mcfg = lin["multinomial"][1], lin["multinomial"][2]
     err_lin = max(r["sweep_linear_max_abs_err"] for r in fit_states.values())
     err_mom = max(r["moments_labels_max_abs_err"]
@@ -1277,6 +1581,89 @@ def main() -> None:
                              "bound_ms": r["bound_ms"]} for r in rows},
          multinomial_fit_state=lin_times, news20=news_times,
          serve_step=serve_times, nvidia_smi=gpu)
+
+    # the three-pass path at the fits' final states: each step-(f) kernel
+    # against its plain version and the one-read sweep's step (f), and the
+    # three-pass tile against the one-read tile
+    lin_out = sweep.sweep_linear_cuda(*largs)
+    diag_args = fit_args["diag_gaussian"]
+    diag_out = sweep.sweep_linear_cuda(*diag_args)
+    x_mult = torch.as_tensor(lin["multinomial"][3], device=dev)
+    tp = {"sub_assign_gauss": check_sub_assign(
+              assign, True, gauss_sub_args(sargs, out_k[0]), out_k[1]),
+          "sub_assign_linear": {
+              "multinomial": check_sub_assign(
+                  assign, False, linear_sub_args(largs, lin_out[0]),
+                  lin_out[1]),
+              "diag_gaussian": check_sub_assign(
+                  assign, False, linear_sub_args(diag_args, diag_out[0]),
+                  diag_out[1]),
+              "news20": check_sub_assign(
+                  assign, False, linear_sub_args(news_args, news_lab[0]),
+                  news_lab[1])},
+          "sweep_tile_gaussian": check_three_pass_tile(
+              get_family("gaussian"), res.state, x, sargs,
+              sweep.label_mismatches, gibbs),
+          "sweep_tile_multinomial": check_three_pass_tile(
+              get_family("multinomial"), lin["multinomial"][0].state,
+              x_mult, largs, sweep.label_mismatches_linear, gibbs)}
+    g_args = gauss_sub_args(sargs, out_k[0])
+    l_args = linear_sub_args(largs, lin_out[0])
+    kc_l, dp = largs[1].shape[0], largs[0].shape[1]
+    tp_work = {"sub_assign_gauss": (4 * n * d * (d + 1),
+                                    4 * n * d + 16 * n
+                                    + 8 * k_c * (d * d + d + 2)),
+               "sub_assign_linear": (4 * n * dp,
+                                     4 * n * dp + 16 * n
+                                     + 8 * kc_l * (dp + 2))}
+    tp_times = {
+        "sub_assign_gauss": {
+            "ms": cuda_ms(lambda: assign.sub_assign_gauss_cuda(*g_args), 20),
+            "plain_ms": cuda_ms(
+                lambda: assign.sub_assign_gauss_plain(*g_args), 3)},
+        "sub_assign_linear": {
+            "ms": cuda_ms(lambda: assign.sub_assign_linear_cuda(*l_args),
+                          20),
+            "plain_ms": cuda_ms(
+                lambda: assign.sub_assign_linear_plain(*l_args), 3)}}
+    for name, r in tp_times.items():
+        r["bound_ms"], r["bound_by"] = bound(*tp_work[name])
+    # the kernels line's step-(f) rows: each kernel checked and timed at
+    # the final state of the fit whose launches the row shows (the d = 256
+    # fit's from kernels_d256; the three-pass multinomial fit's here)
+    res3, x3_np = three_fit["multinomial"]
+    a3, _ = fit_linear_args(get_family("multinomial"), res3.state,
+                            torch.as_tensor(x3_np, device=dev), gibbs,
+                            sampler, gen)
+    out3 = sweep.sweep_linear_cuda(*a3)
+    l3_args = linear_sub_args(a3, out3[0])
+    l3 = check_sub_assign(assign, False, l3_args, out3[1])
+    kc3, dp3 = a3[1].shape[0], a3[0].shape[1]
+    n3 = a3[0].shape[0]
+    l3.update(ms=cuda_ms(lambda: assign.sub_assign_linear_cuda(*l3_args),
+                         20),
+              plain_ms=cuda_ms(
+                  lambda: assign.sub_assign_linear_plain(*l3_args), 3))
+    l3["bound_ms"], l3["bound_by"] = bound(
+        4 * n3 * dp3, 4 * n3 * dp3 + 16 * n3 + 8 * kc3 * (dp3 + 2))
+    tp["sub_assign_linear"]["multinomial_three_pass_fit"] = l3
+    emit("kernel_check_three_pass", tie_rtol=TIE_RTOL,
+         stats_rtol=STATS_RTOL, times=tp_times, nvidia_smi=gpu, **tp)
+    for name, src, repl, t, runs in (
+            ("sub_assign_gauss", "src/repro_torch/csrc/sub_assign_gauss.cu",
+             "src/repro/kernels/assign.py:327", k256["sub_assign_gauss"],
+             launch256),
+            ("sub_assign_linear",
+             "src/repro_torch/csrc/sub_assign_linear.cu",
+             "src/repro/kernels/assign.py:290", l3,
+             three_launch["multinomial"])):
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": repl,
+            "launches": runs[name],
+            "launches_per_iter": runs[name] / cfg.iters,
+            "max_abs_err": float(t["near_tie_mismatches"]), "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
     emit("matmul_crossover", nvidia_smi=gpu,
          paper_crossover_dn=640_000, **matmul_crossover(matmul, dev))
     torch.cuda.synchronize()

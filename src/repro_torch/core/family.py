@@ -13,14 +13,24 @@ through this interface:
   three linear families pack their likelihood as ``feats @ w.T + const``
   (their ``sweep_pack``) and run ``kernels.ops.sweep_linear`` — the CUDA
   kernels on the card, their plain versions on the CPU;
+- ``sweep_ref``: the same three steps as three passes over the points
+  (``assign``, ``sub_assign``, ``stats_from_labels``). ``sweep`` runs it
+  whenever the family's fused sweep declines: the gaussian one declines
+  for d > ``kernels/sweep.py`` ``MAX_D`` (128), as the reference's
+  ``ops.sweep_gauss_pallas`` returns None outside its envelope; the
+  linear ones take every d' their kernels take. Like ``matmul_auto``'s
+  size rule below, the rule reads the shape only, is decided before any
+  launch and is the same on the CPU and on the card; it never catches a
+  kernel's failure;
 - ``stats_from_labels``: label-indexed sub-cluster stats
   (``ops.suffstats_labels`` for gaussian, ``ops.moments_labels`` through
   ``core/labelstats.py`` for the linear families);
-- ``assign``: step (e) alone (``DPMMEngine.sample``): ``ops.assign_gauss``
-  for gaussian, the module's ``assign_pack`` and ``ops.assign_linear`` for
-  the linear families;
-- ``sub_assign``: step (f) alone, the gaussian plain path on the CPU only
-  (its kernels are queued in ``ROADMAP.md`` §2);
+- ``assign``: step (e) alone (``DPMMEngine.sample``, ``sweep_ref``):
+  ``ops.assign_gauss`` for gaussian, the module's ``assign_pack`` and
+  ``ops.assign_linear`` for the linear families;
+- ``sub_assign``: step (f) alone (``sweep_ref``): ``ops.sub_assign_gauss``
+  for gaussian, ``assign_pack`` of the sub-parameters and
+  ``ops.sub_assign_linear`` for the linear families;
 - ``loglik``: (N, K) log-likelihoods (``DPMMEngine.query``), on the
   reference's fast route: ``ops.loglik_gauss`` for gaussian,
   ``diag_gaussian.loglik`` with ``ops.matmul_auto`` for diag_gaussian; the
@@ -33,14 +43,14 @@ through this interface:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
 from repro_torch.core import diag_gaussian, multinomial, niw, poisson
 from repro_torch.core.labelstats import fold_partials
 from repro_torch.kernels import ops
-from repro_torch.kernels.sweep import sub_assign_plain
+from repro_torch.kernels.sweep import MAX_D as SWEEP_GAUSS_MAX_D
 
 
 def fold_blocked(family: "ComponentFamily", k_max: int, body,
@@ -104,6 +114,23 @@ def _linear_assign(mod):
     return assign
 
 
+def _gauss_sub_assign(x, subparams, sublogw, labels, gidx, key_zb):
+    return ops.sub_assign_gauss(x, subparams.mu, subparams.chol_prec,
+                                subparams.logdet_prec, sublogw, labels, gidx,
+                                key_zb)
+
+
+def _linear_sub_assign(mod):
+    """Step (f) of a linear family: ``assign_pack`` of the (K, 2)
+    sub-parameters gives (feats, subw, subconst), ``sub_assign_linear``
+    the first-max sub-labels."""
+    def sub_assign(x, subparams, sublogw, labels, gidx, key_zb):
+        feats, w, const = mod.assign_pack(x, subparams)
+        return ops.sub_assign_linear(feats, w, const, sublogw, labels, gidx,
+                                     key_zb)
+    return sub_assign
+
+
 def _gauss_loglik(x, params):
     return ops.loglik_gauss(x, params.mu, params.chol_prec,
                             params.logdet_prec)
@@ -138,17 +165,27 @@ class ComponentFamily:
     labels_stats: Callable[..., Any]
     # (x, params, logw, active, gidx, key_z, slots) -> (N,) labels
     assign_step: Callable[..., torch.Tensor]
+    # (x, subparams, sublogw, labels, gidx, key_zb) -> (N,) sub-labels
+    sub_assign_step: Callable[..., torch.Tensor]
     # (x, params) -> (N, K) log-likelihoods
     loglik_fn: Callable[..., torch.Tensor]
     # stats field holding the first moment (sum x) — cluster means read it
     mean_field: str = "sx"
+    # widest d the fused sweep takes (None: every d); wider runs sweep_ref
+    fused_max_d: Optional[int] = None
 
     def sweep(self, x, valid, params, subparams, logw, sublogw, active,
               gidx, key_z, key_zb, k_max: int, acc, slots=None):
-        """Steps (e) + (f) + stat fold with x read once. ``params`` etc.
-        may be a compact slab; ``slots`` ((K,) int) then carries the dense
-        slot ids, the Gumbel counters of step (e). Returns ``(labels,
-        sublabels, acc')`` with labels in the slab's positions."""
+        """Steps (e) + (f) + stat fold with x read once, or through
+        ``sweep_ref`` when the fused sweep declines x's width. ``params``
+        etc. may be a compact slab; ``slots`` ((K,) int) then carries the
+        dense slot ids, the Gumbel counters of step (e). Returns
+        ``(labels, sublabels, acc')`` with labels in the slab's
+        positions."""
+        if self.fused_max_d is not None and x.shape[1] > self.fused_max_d:
+            return self.sweep_ref(x, valid, params, subparams, logw,
+                                  sublogw, active, gidx, key_z, key_zb,
+                                  k_max, acc, slots=slots)
         if slots is None:
             slots = torch.arange(k_max, device=x.device)
         labels, sublabels, part = self.fused_sweep(
@@ -156,6 +193,19 @@ class ComponentFamily:
             active.to(torch.int32), gidx, key_z, key_zb,
             slots.to(torch.int32))
         return labels, sublabels, self.add_stats(acc, part)
+
+    def sweep_ref(self, x, valid, params, subparams, logw, sublogw, active,
+                  gidx, key_z, key_zb, k_max: int, acc, slots=None):
+        """Steps (e), (f) and the stat fold as three passes over x:
+        ``assign``, ``sub_assign``, then ``fold_blocked`` with
+        ``stats_from_labels``; the same arguments and result as
+        ``sweep``."""
+        def body(xb, vb, gb):
+            lab = self.assign(xb, params, logw, active, gb, key_z, slots)
+            return lab, self.sub_assign(xb, subparams, sublogw, lab, gb,
+                                        key_zb)
+
+        return fold_blocked(self, k_max, body, x, valid, (gidx,), acc)
 
     def stats_from_labels(self, x, valid, labels, sublabels, k_max: int):
         """(k_max, 2) sub-cluster stats straight from int labels."""
@@ -173,19 +223,10 @@ class ComponentFamily:
 
     def sub_assign(self, x, subparams, sublogw, labels, gidx,
                    key_zb) -> torch.Tensor:
-        """Step (f) alone, plain path: (N,) sub-labels (gaussian, CPU)."""
-        if self.name != "gaussian":
-            raise NotImplementedError(
-                f"sub_assign alone is ported for the gaussian family only; "
-                f"the {self.name} family runs steps (e)-(f) through sweep")
-        if x.device.type == "cuda":
-            raise NotImplementedError(
-                "sub_assign has no kernel on the card yet: sub_assign_gauss "
-                "/ sub_assign_linear are queued in ROADMAP.md §2 (the "
-                "three-pass path); use sweep")
-        return sub_assign_plain(x, subparams.mu, subparams.chol_prec,
-                                subparams.logdet_prec, sublogw, labels,
-                                gidx, key_zb)
+        """Step (f) alone: (N,) sub-labels under each point's own cluster
+        ``labels`` (positions of the (K, 2) ``subparams`` slab)."""
+        return self.sub_assign_step(x, subparams, sublogw,
+                                    labels.to(torch.int32), gidx, key_zb)
 
     def loglik(self, x, params) -> torch.Tensor:
         """(N, K) log-likelihoods on the reference's fast route."""
@@ -212,6 +253,7 @@ def _linear_family(mod, name: str, params_cls, stats_cls,
     return _module_family(mod, name, params_cls, stats_cls,
                           fused_sweep=_linear_sweep(mod),
                           assign_step=_linear_assign(mod),
+                          sub_assign_step=_linear_sub_assign(mod),
                           loglik_fn=loglik_fn or _product_loglik(mod),
                           mean_field=mean_field)
 
@@ -219,7 +261,9 @@ def _linear_family(mod, name: str, params_cls, stats_cls,
 GAUSSIAN = _module_family(niw, "gaussian", niw.GaussParams, niw.GaussStats,
                           fused_sweep=_gauss_sweep,
                           assign_step=_gauss_assign,
-                          loglik_fn=_gauss_loglik)
+                          sub_assign_step=_gauss_sub_assign,
+                          loglik_fn=_gauss_loglik,
+                          fused_max_d=SWEEP_GAUSS_MAX_D)
 MULTINOMIAL = _linear_family(multinomial, "multinomial",
                              multinomial.MultParams, multinomial.MultStats,
                              mean_field="counts")

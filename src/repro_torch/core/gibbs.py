@@ -5,7 +5,10 @@ Port of ``repro.core.gibbs`` for one process and one chain:
 - ``sweep_model``: steps (a)-(d), the O(K) weight and parameter draws
   from the current sufficient statistics;
 - ``sweep_tile``: steps (e)/(f) and the stat fold over the points, in one
-  read of x (``ComponentFamily.sweep``);
+  read of x (``ComponentFamily.sweep``), or with ``fused=False`` in three
+  passes (``ComponentFamily.sweep_ref``: ``assign``, ``sub_assign``, the
+  label-stat fold), the reference's parity oracle: both give the same
+  labels and stats;
 - ``sweep``: both, with the active-set compaction around the tile.
 
 Per-point noise is the counter-based Threefry keyed on (key words, global
@@ -136,9 +139,16 @@ def sweep_model(model: ModelState, prior, family, alpha: float,
 
 def sweep_tile(model: ModelState, x: torch.Tensor, point: PointState,
                gidx: torch.Tensor, acc, family, key_z: torch.Tensor,
-               key_zb: torch.Tensor, plan: Optional[CompactionPlan] = None
-               ) -> Tuple[PointState, Any]:
+               key_zb: torch.Tensor, plan: Optional[CompactionPlan] = None,
+               fused: bool = True) -> Tuple[PointState, Any]:
     """Steps (e)/(f) + stat fold for one tile, reading x once.
+
+    ``fused=False`` runs the three-pass body instead
+    (``ComponentFamily.sweep_ref``): step (e) over the existing clusters,
+    step (f) under each point's own cluster, then the stat fold, each a
+    pass over x. Both bodies draw the same counter-based noise and fold
+    the same per-STATS_BLOCK partials, so they give the same labels and
+    stats (on the card: the same device code, bit for bit).
 
     With ``plan`` the tile runs on the gathered K_active-row slab, with
     the dense slot ids as Gumbel counters, so the noise is the dense
@@ -158,7 +168,8 @@ def sweep_tile(model: ModelState, x: torch.Tensor, point: PointState,
         sublogw = compact_gather(plan, model.sub_logweights)
         active = compact_gather(plan, model.active)
         slots = plan.slot_of_compact
-    labels, sublabels, acc = family.sweep(
+    body = family.sweep if fused else family.sweep_ref
+    labels, sublabels, acc = body(
         x, point.valid, params, subparams, logw, sublogw, active, gidx,
         key_z, key_zb, k_eff, acc, slots=slots)
     if plan is not None:

@@ -270,7 +270,12 @@ def split_merge_tile(plan: SplitMergePlan, x, point: PointState, acc,
     """Apply a planned move to the points and fold the consistency stats
     (paper §4.4). With ``compaction`` (built from the post-move active
     set) the fold runs on a compact ``acc``; returned labels stay dense
-    slot ids."""
+    slot ids.
+
+    It always has the three-pass shape: relabel the whole tile, then fold
+    its stats once (``fold_blocked``), so it needs no counterpart of the
+    reference's ``fused`` flag; ``gibbs.sweep_tile(fused=False)`` alone
+    selects the three-pass sweep."""
     if compaction is None:
         k_stat, label_map = plan.reset.shape[0], None
     else:

@@ -14,15 +14,20 @@
 // device code of the sweep's step (e) (assign_tile.cuh, gauss_assign_narrow
 // for d <= 64 and gauss_assign_wide for d <= 128): the same tile staging,
 // inactive-slot skip, Threefry counters and strict-`>` first max, so a
-// label equals the one the sweep would draw for the same inputs. The
+// label equals the one the sweep would draw for the same inputs. For
+// 128 < d <= 256, where a factor (up to 256 KiB) exceeds a block's shared
+// memory and there is no one-read sweep, gauss_assign_panel stages each
+// active slot's factor in 64-column panels for a block of 64 points. The
 // (N, K) logits never exist in device memory.
 //
 // What bounds it. 2 N K_live d^2 FLOP of fp32 FMA against N d 4 bytes of
 // points and K d^2 4 bytes of factors: at a serving step (N = 8192, 16
 // live slots, d = 32) 0.27 GFLOP, about 4 us at 67 TFLOP/s, so it is bound
 // by the CUDA cores' fp32 rate; at that size a launch is mostly latency.
+// At the d = 256 fit (N = 1e5, 17 live slots) it is 0.23 TFLOP, 3.4 ms at
+// 67 TFLOP/s.
 //
-// Limits: 1 <= d <= 128, 1 <= K.
+// Limits: 1 <= d <= 256, 1 <= K.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,6 +80,22 @@ __global__ void __launch_bounds__(WIDE_THREADS) assign_gauss_wide_kernel(
   for (int p = threadIdx.x; p < np; p += blockDim.x) labels[base + p] = lab[p];
 }
 
+__global__ void __launch_bounds__(PANEL_THREADS) assign_gauss_panel_kernel(
+    const float* __restrict__ x, int n, int d, const float* __restrict__ mu,
+    const float* __restrict__ chol, const float* __restrict__ logdet,
+    const float* __restrict__ logw, const int* __restrict__ active,
+    const int* __restrict__ slots, int K, const long long* __restrict__ gidx,
+    const long long* __restrict__ key_z, float half_d_log2pi,
+    int* __restrict__ labels) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const size_t base = (size_t)blockIdx.x * PANEL_PB;
+  const int np = min((long long)PANEL_PB, (long long)n - (long long)base);
+  gauss_assign_panel(x + base * d, np, d, gidx + base, mu, chol, logdet, logw,
+                     active, slots, K, (uint32_t)key_z[0], (uint32_t)key_z[1],
+                     half_d_log2pi, reinterpret_cast<float*>(smem),
+                     labels + base);
+}
+
 template <class Kernel>
 int launch(Kernel kernel, int dp, int threads, size_t extra_words,
            const float* x, int n, int d, const float* mu, const float* chol,
@@ -95,6 +116,24 @@ int launch(Kernel kernel, int dp, int threads, size_t extra_words,
   return (int)cudaGetLastError();
 }
 
+int launch_panel(const float* x, int n, int d, const float* mu,
+                 const float* chol, const float* logdet, const float* logw,
+                 const int* active, const int* slots, int K,
+                 const long long* gidx, const long long* key_z, int* labels,
+                 cudaStream_t stream) {
+  const size_t smem = sizeof(float) * panel_smem_floats();
+  cudaError_t err = cudaFuncSetAttribute(
+      assign_gauss_panel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (n + PANEL_PB - 1) / PANEL_PB;
+  const float half_d_log2pi = (float)(0.5 * d * 1.8378770664093453);
+  assign_gauss_panel_kernel<<<blocks, PANEL_THREADS, smem, stream>>>(
+      x, n, d, mu, chol, logdet, logw, active, slots, K, gidx, key_z,
+      half_d_log2pi, labels);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace repro_torch
 
 extern "C" int assign_gauss_launch(const float* x, int n, int d,
@@ -105,9 +144,12 @@ extern "C" int assign_gauss_launch(const float* x, int n, int d,
                                    const long long* key_z, int* labels,
                                    void* stream) {
   using namespace repro_torch;
-  if (n <= 0 || K <= 0 || d <= 0 || d > WIDE_D)
+  if (n <= 0 || K <= 0 || d <= 0 || d > PANEL_D)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > WIDE_D)
+    return launch_panel(x, n, d, mu, chol, logdet, logw, active, slots, K,
+                        gidx, key_z, labels, s);
 #define REPRO_ASSIGN_CASE(KERNEL, DP, THREADS, EXTRA)                       \
   return launch(KERNEL, DP, THREADS, EXTRA, x, n, d, mu, chol, logdet, logw, \
                 active, slots, K, gidx, key_z, labels, s)

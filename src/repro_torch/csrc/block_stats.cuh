@@ -112,7 +112,7 @@ __device__ void accumulate_moments(const float* __restrict__ f,
 
 // x, w: this block's points ((np, d) and (np,)); outputs: this block's
 // (S,), (S, d), (S, d, d) partial slices. The entry index runs to S d^2 in
-// an int: callers hold S <= 16384 and d <= 128 (S d^2 <= 2^28).
+// an int: callers hold S <= 16384 and d <= 256 (S d^2 <= 2^30).
 __device__ void accumulate_segments(const float* __restrict__ x,
                                     const float* __restrict__ w, int d, int S,
                                     const int* start, const int* idx,

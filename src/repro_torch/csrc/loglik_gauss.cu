@@ -13,17 +13,18 @@
 // and loops over tiles of clusters staged in shared memory, with the
 // whitening device code of the sweep's step (e) (assign_tile.cuh):
 // maha_narrow, one thread per point with its d-vectors in registers, for
-// d <= 64, and maha_wide, four lanes per point, for d <= 128. Every slot is
-// computed (the caller masks inactive ones), and a point's row does not
-// depend on the batch it came in, so a ragged request gets the bits of the
-// same rows in a larger one.
+// d <= 64, maha_wide, four lanes per point, for d <= 128, and maha_panel,
+// the factor staged in 64-column panels for 64 points, for d <= 256. Every
+// slot is computed (the caller masks inactive ones), and a point's row does
+// not depend on the batch it came in, so a ragged request gets the bits of
+// the same rows in a larger one.
 //
 // What bounds it. 2 N K d^2 FLOP of fp32 FMA against N d 4 + K d^2 4 bytes
 // read and N K 4 bytes written: at a serving step (N = 8192, K = 16,
 // d = 32) 0.27 GFLOP against 1.6 MB, so the CUDA cores' fp32 rate bounds
 // it (about 4 us at 67 TFLOP/s); at that size a launch is mostly latency.
 //
-// Limits: 1 <= d <= 128, 1 <= K.
+// Limits: 1 <= d <= 256, 1 <= K.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,6 +98,26 @@ __global__ void __launch_bounds__(WIDE_THREADS) loglik_gauss_wide_kernel(
   }
 }
 
+__global__ void __launch_bounds__(PANEL_THREADS) loglik_gauss_panel_kernel(
+    const float* __restrict__ x, int n, int d, const float* __restrict__ mu,
+    const float* __restrict__ chol, const float* __restrict__ logdet, int K,
+    float half_d_log2pi, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const PanelSmem sm(reinterpret_cast<float*>(smem));
+  const size_t base = (size_t)blockIdx.x * PANEL_PB;
+  const int np = min((long long)PANEL_PB, (long long)n - (long long)base);
+  stage_x_panel(x + base * d, np, d, sm.xs);
+  const int grp = threadIdx.x / PANEL_LANES, j = threadIdx.x % PANEL_LANES;
+  const float* xs = sm.xs + grp * PANEL_XSTRIDE;
+  for (int k = 0; k < K; ++k) {
+    const float maha = maha_panel(sm, xs, chol + (size_t)k * d * d,
+                                  mu + (size_t)k * d, d, j);
+    if (grp < np && j == 0)
+      out[(base + grp) * (size_t)K + k] =
+          0.5f * (__ldg(logdet + k) - maha) - half_d_log2pi;
+  }
+}
+
 template <class Kernel>
 int launch(Kernel kernel, int dp, int threads, size_t extra_words,
            const float* x, int n, int d, const float* mu, const float* chol,
@@ -114,6 +135,21 @@ int launch(Kernel kernel, int dp, int threads, size_t extra_words,
   return (int)cudaGetLastError();
 }
 
+int launch_panel(const float* x, int n, int d, const float* mu,
+                 const float* chol, const float* logdet, int K, float* out,
+                 cudaStream_t stream) {
+  const size_t smem = sizeof(float) * panel_smem_floats();
+  cudaError_t err = cudaFuncSetAttribute(
+      loglik_gauss_panel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (n + PANEL_PB - 1) / PANEL_PB;
+  const float half_d_log2pi = (float)(0.5 * d * 1.8378770664093453);
+  loglik_gauss_panel_kernel<<<blocks, PANEL_THREADS, smem, stream>>>(
+      x, n, d, mu, chol, logdet, K, half_d_log2pi, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace repro_torch
 
 extern "C" int loglik_gauss_launch(const float* x, int n, int d,
@@ -121,9 +157,10 @@ extern "C" int loglik_gauss_launch(const float* x, int n, int d,
                                    const float* logdet, int K, float* out,
                                    void* stream) {
   using namespace repro_torch;
-  if (n <= 0 || K <= 0 || d <= 0 || d > WIDE_D)
+  if (n <= 0 || K <= 0 || d <= 0 || d > PANEL_D)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > WIDE_D) return launch_panel(x, n, d, mu, chol, logdet, K, out, s);
 #define REPRO_LOGLIK_CASE(KERNEL, DP, THREADS, EXTRA)                   \
   return launch(KERNEL, DP, THREADS, EXTRA, x, n, d, mu, chol, logdet, K, \
                 out, s)

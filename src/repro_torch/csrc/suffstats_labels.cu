@@ -22,7 +22,11 @@
 // FMAs. At the fit's shapes (N = 1e6, d = 32, 2k = 128) the partial writes
 // dominate, so it is bound by device-memory bytes, not by arithmetic.
 //
-// Limits: 1 <= k <= 8192, 1 <= d <= 128 (so 2k d^2 <= 2^28 fits the int
+// At d = 256 (the three-pass fit past the one-read sweep's d <= 128) a
+// block's partials are 2k d^2 = 8.4 M floats at k = 64, so the partial
+// writes dominate there too (3.3 GB at N = 1e5).
+//
+// Limits: 1 <= k <= 8192, 1 <= d <= 256 (so 2k d^2 <= 2^30 fits the int
 // entry index of block_stats.cuh).
 #include <cuda_runtime.h>
 
@@ -70,7 +74,7 @@ extern "C" int suffstats_labels_launch(const float* x, int n, int d,
                                        float* sx2, float* sxx2,
                                        void* stream) {
   using namespace repro_torch;
-  if (n <= 0 || d <= 0 || d > 128 || K <= 0 || K > 8192)
+  if (n <= 0 || d <= 0 || d > 256 || K <= 0 || K > 8192)
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(int) * (2 * (size_t)STATS_BLOCK + 4 * (size_t)K + 1);
   cudaError_t err = cudaFuncSetAttribute(

@@ -108,38 +108,15 @@ __global__ void __launch_bounds__(SWEEP_THREADS) sweep_gauss_kernel(
                           (uint32_t)key_z[1], half_d_log2pi, tile, fs.best,
                           fs.lab);
 
-  // ---- step (f): own cluster's two sub-clusters ---------------------------
+  // ---- step (f): own cluster's two sub-clusters (assign_tile.cuh) --------
   for (int p = threadIdx.x; p < np; p += SWEEP_THREADS) {
     const int l = fs.lab[p];
     float xr[DP];
     load_row<DP>(xb + (size_t)p * d, d, xr);
-    const uint32_t g = (uint32_t)gidx[base + p];
-    float t2[2];
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const size_t ks = (size_t)l * 2 + s;
-      const float* f = sub_chol + ks * d * d;
-      const float* m = sub_mu + ks * d;
-      float y[DP];
-#pragma unroll
-      for (int c = 0; c < DP; ++c) y[c] = 0.f;
-#pragma unroll
-      for (int r = 0; r < DP; ++r) {
-        if (r < d) {
-          const float dv = xr[r] - __ldg(m + r);
-#pragma unroll
-          for (int c = 0; c < DP; ++c)
-            if (c < d) y[c] = fmaf(dv, __ldg(f + r * d + c), y[c]);
-        }
-      }
-      float maha = 0.f;
-#pragma unroll
-      for (int c = 0; c < DP; ++c) maha = fmaf(y[c], y[c], maha);
-      float t = 0.5f * (__ldg(sub_logdet + ks) - maha) - half_d_log2pi;
-      t = t + __ldg(sublogw + ks);
-      t2[s] = t + gumbel(kb0, kb1, g, (uint32_t)s);
-    }
-    const int zb = t2[1] > t2[0] ? 1 : 0;
+    const int zb = gauss_sub_narrow<DP>(xr, d, l, sub_mu, sub_chol,
+                                        sub_logdet, sublogw,
+                                        (uint32_t)gidx[base + p], kb0, kb1,
+                                        half_d_log2pi);
     labels[base + p] = l;
     sublabels[base + p] = zb;
     fs.seg[p] = valid[base + p] != 0.f ? 2 * l + zb : -1;
@@ -151,34 +128,6 @@ __global__ void __launch_bounds__(SWEEP_THREADS) sweep_gauss_kernel(
   const size_t blk = blockIdx.x;
   accumulate_segments(xb, valid + base, d, S, fs.start, fs.idx,
                       n2 + blk * S, sx2 + blk * S * d, sxx2 + blk * S * d * d);
-}
-
-// |F^T (x - m)|^2 of the wide layout for a factor in global memory (row
-// stride d, not padded): the lane's 32 columns 4j + 16t + q below d.
-__device__ __forceinline__ float maha_wide_global(const float* xs,
-                                                  const float* f,
-                                                  const float* m, int d,
-                                                  int j) {
-  float y[WIDE_COLS];
-#pragma unroll
-  for (int c = 0; c < WIDE_COLS; ++c) y[c] = 0.f;
-  for (int r = 0; r < d; ++r) {
-    const float dv = xs[r] - __ldg(m + r);
-    const float* fr = f + (size_t)r * d;
-#pragma unroll
-    for (int t = 0; t < WIDE_COLS / 4; ++t)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = 4 * j + 16 * t + q;
-        if (c < d) y[4 * t + q] = fmaf(dv, __ldg(fr + c), y[4 * t + q]);
-      }
-  }
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < WIDE_COLS; ++c) s = fmaf(y[c], y[c], s);
-  s += __shfl_xor_sync(0xffffffffu, s, 1);
-  s += __shfl_xor_sync(0xffffffffu, s, 2);
-  return s;
 }
 
 __global__ void __launch_bounds__(SWEEP_THREADS) sweep_gauss_wide_kernel(
@@ -222,20 +171,10 @@ __global__ void __launch_bounds__(SWEEP_THREADS) sweep_gauss_wide_kernel(
     stage_x_wide(xb, p, live, d, j, xs);
     __syncwarp();
     const int l = live ? fs.lab[p] : 0;
-    float t2[2];
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const size_t ks = (size_t)l * 2 + s;
-      const float maha = maha_wide_global(xs, sub_chol + ks * d * d,
-                                          sub_mu + ks * d, d, j);
-      float t = 0.5f * (__ldg(sub_logdet + ks) - maha) - half_d_log2pi;
-      t = t + __ldg(sublogw + ks);
-      t2[s] = live ? t + gumbel(kb0, kb1, (uint32_t)gidx[base + p],
-                                (uint32_t)s)
-                   : t;
-    }
+    const int zb = gauss_sub_wide(
+        xs, d, j, l, sub_mu, sub_chol, sub_logdet, sublogw, live,
+        live ? (uint32_t)gidx[base + p] : 0u, kb0, kb1, half_d_log2pi);
     if (live && j == 0) {
-      const int zb = t2[1] > t2[0] ? 1 : 0;
       labels[base + p] = l;
       sublabels[base + p] = zb;
       fs.seg[p] = valid[base + p] != 0.f ? 2 * l + zb : -1;

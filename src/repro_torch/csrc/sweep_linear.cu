@@ -30,7 +30,8 @@
 // into (max, smallest slot) pairs, eight lanes combine theirs with warp
 // shuffles, and the result replaces the point's running best only when it
 // is strictly larger: the first maximum wins, as in the reference.
-// Step (f) takes one warp per point: lanes stride the point's feature row
+// Step (f) takes one warp per point (assign_tile.cuh's linear_sub_assign,
+// shared with sub_assign_linear.cu): lanes stride the point's feature row
 // and its own cluster's two sub-weight rows (coalesced), and a shuffle-down
 // tree sums them, so the sum is the same on every launch; the Gumbel draws
 // and the choice then run for 32 points at once, one per lane. The fold sorts
@@ -55,6 +56,22 @@
 
 namespace repro_torch {
 
+// linear_sub_assign's output step in the sweep: the point's label and
+// sub-label, and its fold segment (-1 for an invalid point).
+struct PutSweep {
+  const int* lab;
+  const float* valid;
+  int* labels;
+  int* sublabels;
+  int* seg;
+  __device__ void operator()(int p, int zb) const {
+    const int l = lab[p];
+    labels[p] = l;
+    sublabels[p] = zb;
+    seg[p] = valid[p] != 0.f ? 2 * l + zb : -1;
+  }
+};
+
 // Two blocks per SM (at most 128 registers a thread): the latency-bound
 // step (f) and fold need the warps of both to hide their loads.
 __global__ void __launch_bounds__(LIN_THREADS, 2) sweep_linear_kernel(
@@ -77,7 +94,6 @@ __global__ void __launch_bounds__(LIN_THREADS, 2) sweep_linear_kernel(
   int* start = idx + STATS_BLOCK;                      // S + 1
   int* cursor = start + S + 1;                         // S
 
-  const int tid = threadIdx.x;
   const size_t base = (size_t)blockIdx.x * STATS_BLOCK;
   const long long rest = (long long)n - (long long)base;
   const int np = rest < STATS_BLOCK ? (int)rest : STATS_BLOCK;
@@ -92,74 +108,12 @@ __global__ void __launch_bounds__(LIN_THREADS, 2) sweep_linear_kernel(
                 (uint32_t)key_z[0], (uint32_t)key_z[1], vec, words, best,
                 lab);
 
-  // ---- step (f): one warp per point, own cluster's two sub-clusters -------
-  // A warp takes its points 32 at a time: for each, the lanes stride the
-  // row and a shuffle-down tree leaves the two sums in lane 0, which hands
-  // them to lane q of the batch; then every lane draws the Gumbel noise
-  // and picks the sub-label of its own point, all 32 at once.
-  const int warp = tid >> 5, lane = tid & 31;
-  constexpr int NWARPS = LIN_THREADS / 32;
-  for (int b0 = warp * 32; b0 < np; b0 += NWARPS * 32) {
-    float my0 = 0.f, my1 = 0.f;
-    const int nb = min(32, np - b0);
-    for (int q = 0; q < nb; ++q) {
-      const int p = b0 + q;
-      const int l = lab[p];
-      const float* fp = fb + (size_t)p * dp;
-      const float* w0 = subw + (size_t)(2 * l) * dp;
-      const float* w1 = w0 + dp;
-      float s0 = 0.f, s1 = 0.f;
-      if (vec) {
-#pragma unroll 2
-        for (int c = 4 * lane; c < dp; c += 128) {
-          const float4 v = *reinterpret_cast<const float4*>(fp + c);
-          const float4 a = __ldg(reinterpret_cast<const float4*>(w0 + c));
-          const float4 b = __ldg(reinterpret_cast<const float4*>(w1 + c));
-          s0 = fmaf(v.x, a.x, s0);
-          s0 = fmaf(v.y, a.y, s0);
-          s0 = fmaf(v.z, a.z, s0);
-          s0 = fmaf(v.w, a.w, s0);
-          s1 = fmaf(v.x, b.x, s1);
-          s1 = fmaf(v.y, b.y, s1);
-          s1 = fmaf(v.z, b.z, s1);
-          s1 = fmaf(v.w, b.w, s1);
-        }
-      } else {
-#pragma unroll 4
-        for (int c = lane; c < dp; c += 32) {
-          const float v = fp[c];
-          s0 = fmaf(v, __ldg(w0 + c), s0);
-          s1 = fmaf(v, __ldg(w1 + c), s1);
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        s0 += __shfl_down_sync(0xffffffffu, s0, off);
-        s1 += __shfl_down_sync(0xffffffffu, s1, off);
-      }
-      s0 = __shfl_sync(0xffffffffu, s0, 0);
-      s1 = __shfl_sync(0xffffffffu, s1, 0);
-      if (lane == q) {
-        my0 = s0;
-        my1 = s1;
-      }
-    }
-    if (lane < nb) {
-      const int p = b0 + lane;
-      const int l = lab[p];
-      const uint32_t g = (uint32_t)gidx[base + p];
-      float t0 = my0 + subconst[2 * l];
-      t0 = t0 + sublogw[2 * l];
-      t0 = t0 + gumbel(kb0, kb1, g, 0u);
-      float t1 = my1 + subconst[2 * l + 1];
-      t1 = t1 + sublogw[2 * l + 1];
-      t1 = t1 + gumbel(kb0, kb1, g, 1u);
-      const int zb = t1 > t0 ? 1 : 0;
-      labels[base + p] = l;
-      sublabels[base + p] = zb;
-      seg[p] = valid[base + p] != 0.f ? 2 * l + zb : -1;
-    }
-  }
+  // ---- step (f): one warp per point (assign_tile.cuh), which writes the
+  // labels, sub-labels and fold segments as it picks each sub-label ------
+  linear_sub_assign<false>(fb, np, dp, gidx + base, lab, K, subw, subconst,
+                           sublogw, kb0, kb1, vec,
+                           PutSweep{lab, valid + base, labels + base,
+                                    sublabels + base, seg});
   __syncthreads();
 
   // ---- first-moment fold of this STATS_BLOCK -----------------------------

@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("sweep_gauss", "suffstats_labels", "sweep_linear",
            "moments_labels", "loglik_gauss", "assign_gauss", "assign_linear",
-           "matmul")
+           "matmul", "sub_assign_gauss", "sub_assign_linear")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -21,12 +21,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.suffstats import _check_cuda
+from repro_torch.kernels.suffstats import MAX_D, _check_cuda
 
 LOG_2PI = 1.8378770664093453
-# The wide layout of the kernel spreads a point over four lanes of 32
-# columns each: d <= 128, the reference kernel's own ceiling.
-MAX_D = 128
 
 
 def loglik_plain(x, mu, chol_prec, logdet_prec) -> torch.Tensor:

@@ -83,6 +83,22 @@ def assign_linear(feats, w, const, logw, active, gidx, key_z, slots):
     return fn(feats, w, const, logw, active, gidx, key_z, slots)
 
 
+def sub_assign_gauss(x, sub_mu, sub_chol_prec, sub_logdet_prec, sublogw,
+                     labels, gidx, key_zb):
+    """Step (f) alone, full-covariance Gaussian (``kernels/assign.py``)."""
+    fn = _route(x, _assign.sub_assign_gauss_cuda,
+                _assign.sub_assign_gauss_plain)
+    return fn(x, sub_mu, sub_chol_prec, sub_logdet_prec, sublogw, labels,
+              gidx, key_zb)
+
+
+def sub_assign_linear(feats, subw, subconst, sublogw, labels, gidx, key_zb):
+    """Step (f) alone, linear families (``kernels/assign.py``)."""
+    fn = _route(feats, _assign.sub_assign_linear_cuda,
+                _assign.sub_assign_linear_plain)
+    return fn(feats, subw, subconst, sublogw, labels, gidx, key_zb)
+
+
 def matmul(a, b):
     """(M, K) @ (K, N) through the blocked kernel (``kernels/matmul.py``)."""
     fn = _route(a, _matmul.matmul_cuda, _matmul.matmul_plain)
@@ -107,7 +123,9 @@ _CUDA = {"sweep_gauss": _sweep.sweep_gauss_cuda,
          "loglik_gauss": _loglik.loglik_cuda,
          "assign_gauss": _assign.assign_gauss_cuda,
          "assign_linear": _assign.assign_linear_cuda,
-         "matmul": _matmul.matmul_cuda}
+         "matmul": _matmul.matmul_cuda,
+         "sub_assign_gauss": _assign.sub_assign_gauss_cuda,
+         "sub_assign_linear": _assign.sub_assign_linear_cuda}
 
 
 def launch_counts() -> dict:

@@ -40,9 +40,12 @@ STATS_BLOCK = 1024
 # Floats of temporaries one chunk of the plain version may hold.
 CHUNK_FLOATS = 1 << 24
 MAX_K = 8192
-# The kernel indexes a block's 2k d^2 sxx entries with an int (2^28 at
-# k = MAX_K); 128 is the reference kernel's own ceiling.
-MAX_D = 128
+# The Gaussian kernels' widest d (suffstats_labels here, assign_gauss,
+# sub_assign_gauss, loglik_gauss): the reference kernels stop at 128 and
+# leave wider d to its jnp route, the port's kernels go on to 256 (a
+# factor staged in column panels or read from L2). suffstats_labels
+# indexes a block's 2k d^2 sxx entries with an int: 2^30 at k = MAX_K.
+MAX_D = 256
 # moments_labels: a block's 2k d' partial entries stay below 2^31 for
 # k <= MAX_K (its per-chunk entry index is an int; d' rows use 64-bit
 # offsets), and d' covers the 20newsgroups vocabulary with room.

@@ -51,7 +51,8 @@ NEG_INF = -1e30
 LOG_2PI = 1.8378770664093453
 # The kernel keeps a point's d-vectors in one thread's registers up to
 # d = 64 and spreads them over four lanes up to 128, the reference kernel's
-# own ceiling; above it the reference's jnp route is not ported.
+# own ceiling. Wider d declines to the three-pass ``sweep_ref``
+# (``core/family.py``), whose kernels go on to ``suffstats.MAX_D``.
 MAX_D = 128
 MAX_K = 2048
 
@@ -90,14 +91,21 @@ def assign_plain(x, mu, chol_prec, logdet_prec, logw, active, gidx, key_z,
 
 def sub_assign_plain(x, sub_mu, sub_chol_prec, sub_logdet_prec, sublogw,
                      labels, gidx, key_zb) -> torch.Tensor:
-    """Step (f): (N,) sub-labels under each point's own cluster."""
-    d = x.shape[1]
-    lab = labels.to(torch.int64)
-    diff = x[:, None, :] - sub_mu[lab]                     # (m, 2, d)
-    y = torch.einsum("msd,msde->mse", diff, sub_chol_prec[lab])
-    maha = (y * y).sum(dim=-1)
-    t = 0.5 * (sub_logdet_prec[lab] - maha) - 0.5 * d * LOG_2PI
-    return pick_subcluster(t, sublogw[lab], gidx, key_zb)
+    """Step (f): (N,) sub-labels under each point's own cluster, in chunks
+    of points whose gathered (m, 2, d, d) factors hold at most
+    CHUNK_FLOATS (a point's two factors are 512 KiB at d = 256)."""
+    n, d = x.shape
+    out = torch.empty((n,), device=x.device, dtype=torch.int32)
+    step = max(1, CHUNK_FLOATS // (2 * d * d + 4 * d))
+    for a in range(0, n, step):
+        sl = slice(a, a + step)
+        lab = labels[sl].to(torch.int64)
+        diff = x[sl, None, :] - sub_mu[lab]                # (m, 2, d)
+        y = torch.einsum("msd,msde->mse", diff, sub_chol_prec[lab])
+        maha = (y * y).sum(dim=-1)
+        t = 0.5 * (sub_logdet_prec[lab] - maha) - 0.5 * d * LOG_2PI
+        out[sl] = pick_subcluster(t, sublogw[lab], gidx[sl], key_zb)
+    return out
 
 
 def sweep_gauss_plain(x, mu, chol_prec, logdet_prec, logw, active, sub_mu,

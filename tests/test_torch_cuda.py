@@ -1,6 +1,7 @@
 """The port's CUDA kernels (sweep_gauss, suffstats_labels, sweep_linear,
-moments_labels, loglik_gauss, assign_gauss, assign_linear, matmul) against
-their plain versions, on the card.
+moments_labels, loglik_gauss, assign_gauss, assign_linear, matmul,
+sub_assign_gauss, sub_assign_linear) against their plain versions, and the
+three-pass sweep against the one-read sweep, on the card.
 
 Marked ``cuda``; each test skips (from a fixture, at run time) where no
 CUDA device is available. Run on a GPU machine with
@@ -11,16 +12,20 @@ logits within 1e-4, relative; at most 0.1 % of the points), stats partials withi
 float32 sums in another order), counts exact; a repeat launch on the same
 inputs gives identical bits (no float atomics); log-likelihoods and
 products within rtol 1e-5 of each array's scale (fp32 sums in another
-order).
+order). The three-pass sweep runs the one-read sweep's device code for
+steps (e), (f) and the fold, so on the card the two give the same bits.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import DPMMConfig
+from repro_torch.core import gibbs
 from repro_torch.core.sampler import DPMM
+from repro_torch.core.state import PointState
 from repro_torch.data.synthetic import generate_gmm, generate_mnmm
 from repro_torch.core.family import get_family
+from repro_torch.core.multinomial import MultParams
 from repro_torch.core.niw import GaussParams
 from repro_torch.kernels import assign, loglik, matmul, ops, suffstats, sweep
 
@@ -82,7 +87,8 @@ def test_sweep_gauss_kernel_matches_plain(dev, n, d, k):
 
 @pytest.mark.parametrize("n,d,k", [(2500, 2, 8), (4096, 32, 64),
                                    (2100, 65, 5), (2500, 96, 8),
-                                   (2048, 128, 16)])
+                                   (2048, 128, 16), (2100, 129, 5),
+                                   (1500, 200, 4), (2048, 256, 8)])
 def test_suffstats_labels_kernel_matches_plain(dev, n, d, k):
     g = torch.Generator().manual_seed(n)
     x = (torch.randn(n, d, generator=g) * 4).to(dev)
@@ -153,9 +159,22 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     bad[0] = torch.randn(2048, 129, device=dev)
     with pytest.raises(ValueError, match="d=129"):
         sweep.sweep_gauss_cuda(*bad)
-    with pytest.raises(ValueError, match="d=129"):
-        suffstats.suffstats_labels_cuda(bad[0], a[5][:1].repeat(2048),
+    # the other Gaussian kernels stop at 256, with the ROADMAP hint
+    wide = torch.randn(2048, 257, device=dev)
+    with pytest.raises(ValueError, match=r"d=257 .*ROADMAP.md §3"):
+        suffstats.suffstats_labels_cuda(wide, a[5][:1].repeat(2048),
                                         a[5][:1].repeat(2048), a[10], 4)
+    zeros = lambda *s: torch.zeros(s, device=dev)
+    with pytest.raises(ValueError, match=r"d=257 .*ROADMAP.md §3"):
+        loglik.loglik_cuda(wide, zeros(4, 257), zeros(4, 257, 257),
+                           zeros(4))
+    with pytest.raises(ValueError, match=r"d=257 .*ROADMAP.md §3"):
+        assign.assign_gauss_cuda(wide, zeros(4, 257), zeros(4, 257, 257),
+                                 *a[3:6], a[11], a[12], a[14])
+    with pytest.raises(ValueError, match=r"d=257 .*ROADMAP.md §3"):
+        assign.sub_assign_gauss_cuda(wide, zeros(4, 2, 257),
+                                     zeros(4, 2, 257, 257), a[8], a[9],
+                                     a[5][:1].repeat(2048), a[11], a[13])
     with pytest.raises(ValueError, match="contiguous"):
         suffstats.suffstats_labels_cuda(
             a[0].t().contiguous().t(), a[5][:1].repeat(2048),
@@ -208,7 +227,9 @@ def _assign_args(n, d, k, dev, seed=0):
 
 @pytest.mark.parametrize("n,d,k", [(3000, 2, 8), (5000, 32, 16),
                                    (2100, 64, 3), (1700, 65, 4),
-                                   (1500, 96, 5), (1300, 128, 9)])
+                                   (1500, 96, 5), (1300, 128, 9),
+                                   (1100, 129, 5), (700, 200, 6),
+                                   (600, 256, 7)])
 def test_assign_gauss_kernel_matches_plain(dev, n, d, k):
     a = _assign_args(n, d, k, dev, seed=d)
     before = assign.assign_gauss_cuda.launches
@@ -219,8 +240,9 @@ def test_assign_gauss_kernel_matches_plain(dev, n, d, k):
         True, a, got, assign.assign_gauss_plain(*a), rtol=1e-4)
     assert not_ties == 0 and mism <= 1e-3 * n, (mism, not_ties)
     # the sweep's step (e) is the same device code: the same labels
-    assert torch.equal(got, sweep.sweep_gauss_cuda(*_args(n, d, k, dev,
-                                                          seed=d))[0])
+    if d <= sweep.MAX_D:
+        assert torch.equal(got, sweep.sweep_gauss_cuda(*_args(n, d, k, dev,
+                                                              seed=d))[0])
 
 
 @pytest.mark.parametrize("n,dp,k", [(2500, 8, 8), (5000, 128, 32),
@@ -244,7 +266,9 @@ def _rel_close(got, want, rtol=1e-5):
 
 @pytest.mark.parametrize("n,d,k", [(1000, 3, 7), (8192, 32, 16),
                                    (700, 64, 33), (513, 65, 4),
-                                   (900, 96, 6), (1000, 128, 16)])
+                                   (900, 96, 6), (1000, 128, 16),
+                                   (700, 129, 5), (500, 200, 3),
+                                   (600, 256, 6)])
 def test_loglik_gauss_kernel_matches_plain(dev, n, d, k):
     x, mu, f, ld = _args(n, d, k, dev, seed=d)[:4]
     got = ops.loglik_gauss(x, mu, f, ld)
@@ -289,7 +313,110 @@ def test_family_assign_and_loglik_launch_the_kernels(dev):
     get_family("multinomial").loglik(a[0].abs(), get_family(
         "multinomial").params_cls(dp.mu))
     assert ops.launch_counts()["matmul"] == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gauss.sub_assign(a[0], GaussParams(a[6], a[7], a[8]), a[9],
-                         torch.zeros(2048, dtype=torch.int32, device=dev),
-                         a[11], a[13])
+    lab = torch.zeros(2048, dtype=torch.int32, device=dev)
+    gauss.sub_assign(a[0], GaussParams(a[6], a[7], a[8]), a[9], lab, a[11],
+                     a[13])
+    mult = get_family("multinomial")
+    mult.sub_assign(a[0].abs(), MultParams(a[6].abs()), a[9], lab, a[11],
+                    a[13])
+    counts = ops.launch_counts()
+    assert counts["sub_assign_gauss"] == counts["sub_assign_linear"] == 1
+
+
+@pytest.mark.parametrize("n,d,k", [(3000, 4, 8), (5000, 32, 16),
+                                   (1300, 128, 9), (1100, 129, 5),
+                                   (900, 200, 6), (700, 256, 7)])
+def test_sub_assign_gauss_kernel_matches_plain(dev, n, d, k):
+    a = _args(n, d, k, dev, seed=d)
+    if d <= sweep.MAX_D:
+        sw = sweep.sweep_gauss_cuda(*a)
+        labels = sw[0]
+    else:
+        g = torch.Generator().manual_seed(d)
+        labels = torch.randint(0, k, (n,), generator=g).to(dev, torch.int32)
+    args = (a[0], a[6], a[7], a[8], a[9], labels, a[11], a[13])
+    before = assign.sub_assign_gauss_cuda.launches
+    got = ops.sub_assign_gauss(*args)
+    assert torch.equal(got, ops.sub_assign_gauss(*args))
+    assert assign.sub_assign_gauss_cuda.launches == before + 2
+    mism, not_ties = assign.sub_assign_mismatches(
+        True, args, got, assign.sub_assign_gauss_plain(*args), rtol=1e-4)
+    assert not_ties == 0 and mism <= 1e-3 * n, (mism, not_ties)
+    assert 0 < int(got.sum()) < n
+    # the sweep's step (f) is the same device code: the same sub-labels
+    if d <= sweep.MAX_D:
+        assert torch.equal(got, sw[1])
+
+
+@pytest.mark.parametrize("n,dp,k", [(2500, 8, 8), (5000, 128, 32),
+                                    (700, 20_000, 5)])
+def test_sub_assign_linear_kernel_matches_plain(dev, n, dp, k):
+    la = _linear_args(n, dp, k, dev, seed=dp)
+    sw = sweep.sweep_linear_cuda(*la)
+    args = (la[0], la[5], la[6], la[7], sw[0], la[9], la[11])
+    before = assign.sub_assign_linear_cuda.launches
+    got = ops.sub_assign_linear(*args)
+    assert torch.equal(got, ops.sub_assign_linear(*args))
+    assert assign.sub_assign_linear_cuda.launches == before + 2
+    mism, not_ties = assign.sub_assign_mismatches(
+        False, args, got, assign.sub_assign_linear_plain(*args), rtol=1e-4)
+    assert not_ties == 0 and mism <= 1e-3 * n, (mism, not_ties)
+    # the sweep's step (f) is the same device code: the same sub-labels
+    assert torch.equal(got, sw[1])
+
+
+@pytest.mark.parametrize("component,gen,d", [
+    ("gaussian", generate_gmm, 6), ("multinomial", generate_mnmm, 24)])
+def test_three_pass_sweep_tile_is_the_one_read_tile_on_the_card(
+        dev, component, gen, d):
+    x_np, _ = gen(12_000, d, 4, seed=3)
+    r = DPMM(DPMMConfig(component=component, iters=12, burnout=4)).fit(x_np)
+    model, fam = r.state, get_family(component)
+    x = torch.as_tensor(x_np, device=dev)
+    n = x.shape[0]
+    point = PointState(
+        labels=torch.as_tensor(r.labels, device=dev),
+        sublabels=torch.zeros(n, dtype=torch.int32, device=dev),
+        valid=torch.ones(n, device=dev))
+    key_z = torch.tensor([123, 4000000001], device=dev)
+    key_zb = torch.tensor([77, 5], device=dev)
+    gidx = gibbs.global_indices(n, dev)
+    k_max = model.active.shape[0]
+    for plan in (None, gibbs.compaction_plan(model.active, 8)):
+        k_eff = k_max if plan is None else 8
+
+        def tile(fused):
+            return gibbs.sweep_tile(
+                model, x, point, gidx,
+                gibbs.empty_substats(fam, k_eff, d, dev), fam, key_z,
+                key_zb, plan=plan, fused=fused)
+
+        ops.reset_launch_counts()
+        three, acc3 = tile(False)
+        counts = ops.launch_counts()
+        one, acc1 = tile(True)
+        assert torch.equal(three.labels, one.labels)
+        assert torch.equal(three.sublabels, one.sublabels)
+        assert all(torch.equal(getattr(acc3, f), getattr(acc1, f))
+                   for f in vars(acc1))
+        step_e, step_f, fold, fused = (
+            ("assign_gauss", "sub_assign_gauss", "suffstats_labels",
+             "sweep_gauss") if component == "gaussian" else
+            ("assign_linear", "sub_assign_linear", "moments_labels",
+             "sweep_linear"))
+        assert counts[step_e] == counts[step_f] == counts[fold] == 1
+        assert counts[fused] == 0
+
+
+def test_gaussian_fit_past_d128_runs_the_three_pass_kernels(dev):
+    # 10,000 points a cluster: at d = 160 the NIW evidence favours
+    # splitting every pair of true clusters, which it does not at 4,000 a
+    # cluster (tools/split_evidence.py)
+    x, y = generate_gmm(40_000, 160, 4, seed=0)
+    ops.reset_launch_counts()
+    r = DPMM(DPMMConfig(iters=30, burnout=5)).fit(x)
+    counts = ops.launch_counts()
+    assert counts["sweep_gauss"] == 0
+    assert counts["assign_gauss"] == counts["sub_assign_gauss"] == 30
+    assert counts["suffstats_labels"] > 30
+    assert r.nmi(y) > 0.9, (r.nmi(y), r.history["k"])

@@ -159,8 +159,8 @@ def test_linear_family_assign_and_sub_assign_are_the_sweep_steps():
                                           slots), lab)
     assert torch.equal(tsweep.assign_linear_plain(
         *multinomial.assign_pack(feats, p), logw, act, gidx, kz, slots), lab)
-    with pytest.raises(NotImplementedError, match="gaussian family only"):
-        MULTINOMIAL.sub_assign(feats, sp, sublogw, lab, gidx, kzb)
+    assert torch.equal(MULTINOMIAL.sub_assign(feats, sp, sublogw, lab, gidx,
+                                              kzb), sub)
 
 
 def test_label_mismatches_linear_proves_near_ties_in_float64():
