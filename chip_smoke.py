@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--profile TRACE.json]
 
-Builds the port's ten CUDA kernels from ``src/repro_torch/csrc`` and
+Builds the port's twelve CUDA kernels from ``src/repro_torch/csrc`` and
 holds each against its plain PyTorch version on the card (phases
 ``kernel_check``: sweep_gauss, suffstats_labels; ``kernel_check_linear``:
 sweep_linear, moments_labels, at the multinomial fit's width, the diagonal
@@ -55,7 +55,27 @@ kernel's time at the final state of the fit whose launches it counts:
 ``sub_assign_gauss`` the d = 256 fit's, ``sub_assign_linear`` the
 three-pass multinomial fit's.
 ``matmul_crossover`` times ``matmul`` against ``torch.matmul`` over a
-ladder of sizes. Each phase prints one JSON line;
+ladder of sizes.
+
+Every stat fold of every fit runs through ``fold_partials`` (the per-block
+partials added to the running accumulator left to right); ``fold_check``
+holds it bitwise against the plain loop of adds at the d = 32 fit's final
+state. The tiled (out-of-core) plane: ``fit_tiled`` fits the ``fit``
+phase's data and seed from a .npy file through ``HostTiledSource.from_npy``
+in 65,536-row tiles, and must give the resident fit's labels, K/score
+history and stats bit for bit; ``fit_tiled_multinomial`` does the same
+for ``fit_multinomial``; ``fit_tiled_faults`` runs ``fit_tiled`` through
+seeded read faults (``FaultInjectingSource``: io, nan, short) and must give
+the same labels and list every fault; ``fit_tiled_large`` fits 10^7 x 32
+points kept in host memory (NMI >= 0.9, device bytes at most 1.5x
+``fit_tiled``'s and under a quarter of x's). Each reports ms/iter, the
+device bytes above those at the fit's start, the reference's estimate and
+the share of the fit the compute stream waited on tile copies.
+``kernel_check_dense`` holds the dense ``suffstats`` oracle (its entry
+point ``ops.suffstats``) against its plain version at the d = 32 and d =
+128 fits' final states, a ragged shape, d = 256 and the reference's §4.2
+shapes, and against ``suffstats_labels`` on the segments' one-hot, and
+times it beside the library route. Each phase prints one JSON line;
 any failed check raises, so the script exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -134,6 +154,21 @@ STATS_RTOL = 1e-4
 # while a 1 % bias in the chi-square draws at the fit's state is ~30 z.
 DRAWS = 256
 Z_MAX = 6.5
+# Kernels every fit path launches, by family route.
+GAUSS_PATH = ("sweep_gauss", "suffstats_labels", "fold_partials")
+LINEAR_PATH = ("sweep_linear", "moments_labels", "fold_partials")
+# The tiled plane: rows of a tile (64 fold blocks, the reference's
+# default; 16 tiles at N = 10^6), the 10^7-point fit (1.28 GB of x in host
+# memory) cut to 20 iterations to keep it under a minute, and the seeded
+# read faults (no hangs) of fit_tiled_faults.
+TILE = 65_536
+LARGE_N = 10_000_000
+LARGE_CFG = dict(k_max=64, iters=20, burnout=10, log_every=10)
+FAULTS = dict(seed=5, p_io=0.05, p_nan=0.05, p_short=0.05)
+# The dense suffstats oracle: its soft rows, and the reference's own §4.2
+# comparison shapes (N, K, d) (benchmarks/bench_kernels.py).
+DENSE_REF_SHAPES = ((2_000, 16, 16), (10_000, 32, 32))
+DENSE_D256_N = 100_000
 
 
 def emit(phase: str, **fields) -> None:
@@ -1238,6 +1273,175 @@ def kernels_d256(res, launches, x_np, cfg, gibbs, sampler, assign,
             "peak_bytes": int(torch.cuda.max_memory_allocated(dev)), **out}
 
 
+# ---------------------------------------------------------------------------
+# The stat fold, the dense suffstats oracle and the tiled plane
+# ---------------------------------------------------------------------------
+def fold_check(fold, parts, acc) -> dict:
+    """``fold_partials`` on the fit's per-block partials (the fields of one
+    stat fold) from a nonzero accumulator: two launches bitwise equal and
+    bitwise the plain loop of adds on the card; each field's fold timed
+    against the loop and against ``acc + parts.sum(0)`` (another order, so
+    not the same function: shown, not the library yardstick)."""
+    out = {}
+    for name in ("n", "sx", "sxx"):
+        a, p = getattr(acc, name).contiguous(), getattr(parts, name)
+        got = fold.fold_partials_cuda(a, p)
+        again = fold.fold_partials_cuda(a, p)
+        want = fold.fold_partials_plain(a, p)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, again) and torch.equal(got, want)):
+            fail(f"fold_partials ({name}) is not bitwise the loop of adds")
+        t = {"blocks": p.shape[0], "elements": a.numel(), "bitwise": True,
+             "block_sum_first_differs": not torch.equal(got,
+                                                        a + p.sum(dim=0)),
+             "max_abs_err": 0.0,
+             "ms": cuda_ms(lambda: fold.fold_partials_cuda(a, p), 20),
+             "plain_ms": cuda_ms(lambda: fold.fold_partials_plain(a, p), 3),
+             "block_sum_first_ms": cuda_ms(lambda: a + p.sum(dim=0), 20)}
+        t["bound_ms"], t["bound_by"] = bound(
+            p.numel(), 4 * (p.numel() + 2 * a.numel()))
+        out[name] = t
+    return out
+
+
+def dense_work(n, k, d):
+    """(FLOP, bytes) of the dense suffstats: 2 N K d^2 + 2 N K d
+    operations; x and resp read once, n, sx and sxx written once."""
+    return (2 * n * k * d * d + 2 * n * k * d,
+            4 * (n * d + n * k + k + k * d + k * d * d))
+
+
+def dense_case(suffstats, x, resp, first, one_hot: bool) -> dict:
+    """The dense kernel's result ``first`` (from the entry point) on (x,
+    resp): a second launch bitwise equal, its plain version within
+    STATS_RTOL (counts exact when resp is one-hot), and the times of the
+    kernel, the plain version and the library route (``resp.sum(0)``,
+    ``resp.T @ x``, the einsum; TF32 off) beside the bound."""
+    again = suffstats.suffstats_cuda(x, resp)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        fail("suffstats: two launches on the same inputs differ")
+    want = suffstats.suffstats_plain(x, resp)
+    if one_hot:
+        err = stats_err(first, want)
+    else:
+        err = max(rel_err(g, w, STATS_RTOL, "suffstats")
+                  for g, w in zip(first, want))
+    n, d = x.shape
+    k = resp.shape[1]
+    out = {"n": n, "k": k, "d": d, "one_hot": one_hot, "max_abs_err": err,
+           "repeat_bitwise": True,
+           "ms": cuda_ms(lambda: suffstats.suffstats_cuda(x, resp), 10),
+           "plain_ms": cuda_ms(lambda: suffstats.suffstats_plain(x, resp),
+                               3),
+           "library_ms": cuda_ms(lambda: (
+               resp.sum(dim=0), resp.T @ x,
+               torch.einsum("nk,nd,ne->kde", resp, x, x)), 3)}
+    out["bound_ms"], out["bound_by"] = bound(*dense_work(n, k, d))
+    return out
+
+
+def dense_against_labels(suffstats, fam, x, lab, sub, k: int) -> dict:
+    """The dense kernel on the one-hot of segments 2 label + sub against
+    ``suffstats_labels`` folded (the family's ``stats_from_labels``): n
+    exact, sx and sxx within STATS_RTOL. Labels >= k add nothing to
+    either."""
+    seg = (2 * lab + sub).long().clamp(max=2 * k)
+    resp = torch.nn.functional.one_hot(seg, 2 * k + 1)[:, :2 * k].to(
+        torch.float32)
+    got = suffstats.suffstats_cuda(x, resp)
+    st = fam.stats_from_labels(x, torch.ones(x.shape[0], device=x.device),
+                               lab, sub, k)
+    want = (st.n.reshape(2 * k), st.sx.reshape(2 * k, -1),
+            st.sxx.reshape(2 * k, x.shape[1], x.shape[1]))
+    return {"segments": 2 * k, "max_abs_err": stats_err(got, want)}
+
+
+def kernel_check_dense(ops, suffstats, cases) -> tuple:
+    """The dense oracle at the fits' states, a ragged shape, d = 256 and
+    the reference's §4.2 shapes. ``cases``: name -> (x, resp, one_hot).
+    Its path is the entry point ``ops.suffstats``: one call per case with
+    the counts set to 0 just before, read just after (0 on every fit
+    path); the comparisons and timings come after."""
+    ops.reset_launch_counts()
+    first = {name: ops.suffstats(x, resp) for name, (x, resp, _) in
+             cases.items()}
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["suffstats"]
+    if launches != len(cases):
+        fail(f"kernel_check_dense: {launches} launches for {len(cases)} "
+             "calls of ops.suffstats")
+    return launches, {name: dense_case(suffstats, x, resp, first[name], oh)
+                      for name, (x, resp, oh) in cases.items()}
+
+
+def same_chain(a, b) -> dict:
+    """Which of labels, K/score history and final stats of two fits are
+    bitwise equal."""
+    return {"labels": bool(np.array_equal(a.labels, b.labels)),
+            "history": all(np.array_equal(a.history[k], b.history[k])
+                           for k in a.history),
+            "stats": all(torch.equal(getattr(a.state.stats, f),
+                                     getattr(b.state.stats, f))
+                         and torch.equal(getattr(a.state.substats, f),
+                                         getattr(b.state.substats, f))
+                         for f in a.state.stats.__dataclass_fields__)}
+
+
+def run_tiled(DPMM, cfg, src, y_np, kernels, gpu, phase: str,
+              resident=None, after=None):
+    """``DPMM(cfg).fit(src)`` on the tiled plane with every launch count
+    set to 0 just before and read just after; emits ``phase`` (ms/iter,
+    the device bytes above those at the fit's start, the estimate, the
+    share of the fit the compute stream waited on tile copies) and raises
+    unless NMI >= 0.9, each of ``kernels`` launched and, given the
+    ``resident`` fit of the same data and seed, labels, history and stats
+    are bitwise its. ``after(res, report)`` may add fields to the report
+    and returns a list of failed checks."""
+    from repro_torch.kernels import ops
+    model = DPMM(cfg)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = model.fit(src)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    nmi = res.nmi(y_np)
+    steady = res.iter_times_s[cfg.log_every:]
+    report = dict(
+        component=cfg.component, n=src.n, d=src.d, tiles=-(-src.n //
+                                                            res.tile_size),
+        tile_size=res.tile_size, mode=res.mode, k_found=res.k, nmi=nmi,
+        iters=cfg.iters, wall_s=wall,
+        steady_ms_per_iter=1e3 * float(np.mean(steady)),
+        peak_bytes=res.peak_bytes, start_bytes=res.start_bytes,
+        peak_above_start=res.peak_bytes - res.start_bytes,
+        est_peak_bytes=res.est_peak_bytes, copy_wait_s=res.copy_wait_s,
+        copy_wait_share=res.copy_wait_s / wall, read_s=res.read_s,
+        launches=launches, recoveries=len(res.recoveries),
+        k_history=res.history["k"].tolist(), nvidia_smi=gpu)
+    if resident is not None:
+        report["bitwise_resident"] = same_chain(res, resident)
+        report["resident_steady_ms_per_iter"] = 1e3 * float(np.mean(
+            resident.iter_times_s[cfg.log_every:]))
+        report["resident_peak_above_start"] = (resident.peak_bytes
+                                               - resident.start_bytes)
+    problems = after(res, report) if after is not None else []
+    emit(phase, **report)
+    if problems:
+        fail(f"{phase}: {'; '.join(problems)}")
+    if res.mode != "tiled" or res.labels.shape != (src.n,):
+        fail(f"{phase}: not a tiled fit of every point")
+    if nmi < 0.9:
+        fail(f"{phase}: NMI {nmi:.4f} < 0.9")
+    for name in kernels:
+        if launches[name] == 0:
+            fail(f"{phase}: kernel {name} was never launched by the fit")
+    if resident is not None and not all(report["bitwise_resident"].values()):
+        fail(f"{phase}: the tiled chain parts from the resident chain: "
+             f"{report['bitwise_resident']}")
+    return res, report
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="TRACE", default="",
@@ -1253,8 +1457,10 @@ def main() -> None:
     from repro_torch.core.family import get_family
     from repro_torch.core.sampler import DPMM
     from repro_torch.data import synthetic
+    from repro_torch.data.faults import FaultInjectingSource
+    from repro_torch.data.source import HostTiledSource
     from repro_torch.data.synthetic import generate_gmm
-    from repro_torch.kernels import (assign, build, loglik, matmul, ops,
+    from repro_torch.kernels import (assign, build, fold, loglik, matmul, ops,
                                      suffstats, sweep)
 
     dev = torch.device("cuda")
@@ -1333,8 +1539,7 @@ def main() -> None:
     # (5) the main path: DPMM.fit on the card through the kernels
     x_np, y_np = generate_gmm(FIT_N, FIT_D, FIT_K, seed=0)
     cfg = DPMMConfig(**FIT_CFG)
-    res, launches = run_fit(DPMM, cfg, x_np, y_np,
-                            ("sweep_gauss", "suffstats_labels"), gpu, "fit")
+    res, launches = run_fit(DPMM, cfg, x_np, y_np, GAUSS_PATH, gpu, "fit")
 
     if opts.profile:
         emit("profile", nvidia_smi=gpu, **profile_fit(x_np, cfg,
@@ -1349,7 +1554,76 @@ def main() -> None:
          d=FIT_D, max_abs_z={where: check_model_draws(
              st.active, st.stats, st.substats, prior, cfg.alpha, where)
              for where in ("cuda", "cpu")})
-    del x
+
+    # the stat fold: the sweep's per-block partials at the fit's final
+    # state, from a nonzero accumulator (the final sub-cluster stats)
+    fargs, fk_c = fit_sweep_args(res.state, x, gibbs, sampler,
+                                 torch.Generator(device=dev).manual_seed(6))
+    fout = sweep.sweep_gauss_cuda(*fargs)
+    facc = gibbs.compact_gather(gibbs.compaction_plan(res.state.active, fk_c),
+                                res.state.substats)
+    folds = fold_check(fold, niw.GaussStats(*fout[2:]), facc)
+    emit("fold_check", points=FIT_N, d=FIT_D, k=fk_c, nvidia_smi=gpu,
+         fields=folds)
+    del x, fargs, fout, facc
+
+    # the tiled plane: the fit phase's data and seed from a .npy file in
+    # TILE-row tiles, bitwise the resident chain; the same through read
+    # faults; then ten times the points, kept in host memory
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "x.npy"
+        np.save(path, x_np)
+        tcfg = DPMMConfig(tile_size=TILE, **FIT_CFG)
+        res_t, rep_t = run_tiled(DPMM, tcfg, HostTiledSource.from_npy(path),
+                                 y_np, GAUSS_PATH, gpu, "fit_tiled",
+                                 resident=res)
+        faulty = FaultInjectingSource(HostTiledSource.from_npy(path),
+                                      hang_s=0.0, **FAULTS)
+
+        def fault_checks(r, report):
+            faults = [e for e in r.recoveries
+                      if e["kind"] == "tile_read_fault"]
+            report["injected"] = len(faulty.injected)
+            report["injected_kinds"] = sorted({f["kind"]
+                                               for f in faulty.injected})
+            report["labels_equal_fit_tiled"] = bool(
+                np.array_equal(r.labels, res_t.labels))
+            problems = []
+            if not faulty.injected:
+                problems.append("no fault was injected")
+            if [e["rows"] for e in faults] != [f["rows"] for f in
+                                               faulty.injected]:
+                problems.append("recoveries do not list the injected faults")
+            if not report["labels_equal_fit_tiled"]:
+                problems.append("labels differ from fit_tiled's")
+            return problems
+
+        run_tiled(DPMM, DPMMConfig(tile_size=TILE, io_retries=6,
+                                   io_backoff_s=0.001, **FIT_CFG),
+                  faulty, y_np, GAUSS_PATH, gpu, "fit_tiled_faults",
+                  resident=res, after=fault_checks)
+        del faulty
+    t0 = time.perf_counter()
+    xbig_np, ybig_np = generate_gmm(LARGE_N, FIT_D, FIT_K, seed=0)
+    gen_s = time.perf_counter() - t0
+
+    def large_checks(r, report):
+        report["generate_s"] = gen_s
+        report["x_bytes"] = xbig_np.nbytes
+        report["fit_tiled_peak_above_start"] = rep_t["peak_above_start"]
+        problems = []
+        if report["peak_above_start"] > 1.5 * rep_t["peak_above_start"]:
+            problems.append("device bytes grew with N: above 1.5x "
+                            "fit_tiled's")
+        if report["peak_above_start"] >= xbig_np.nbytes / 4:
+            problems.append("device bytes not under a quarter of x's")
+        return problems
+
+    run_tiled(DPMM, DPMMConfig(tile_size=TILE, **LARGE_CFG),
+              HostTiledSource(xbig_np), ybig_np, GAUSS_PATH, gpu,
+              "fit_tiled_large", after=large_checks)
+    del xbig_np, ybig_np
 
     # the linear families' paths: each fit with the counts set to 0 just
     # before it and read just after
@@ -1359,9 +1633,13 @@ def main() -> None:
                                                     seed=0)
         lcfg = DPMMConfig(component=comp, **FIT_CFG)
         lres, llaunch = run_fit(DPMM, lcfg, xl_np, yl_np,
-                                ("sweep_linear", "moments_labels"), gpu,
-                                f"fit_{comp}")
+                                LINEAR_PATH, gpu, f"fit_{comp}")
         lin[comp] = (lres, llaunch, lcfg, xl_np)
+        if comp == "multinomial":
+            run_tiled(DPMM, DPMMConfig(component=comp, tile_size=TILE,
+                                       **FIT_CFG),
+                      HostTiledSource(xl_np), yl_np, LINEAR_PATH, gpu,
+                      "fit_tiled_multinomial", resident=lres)
         if opts.profile and comp == "multinomial":
             trace = Path(opts.profile)
             emit("profile_multinomial", nvidia_smi=gpu, **profile_fit(
@@ -1381,9 +1659,8 @@ def main() -> None:
     # the Gaussian fit at d = 128 (the wide layout of both kernels), and
     # sweep_gauss against its plain version on its final state
     x128_np, y128_np = generate_gmm(D128_N, D128_D, FIT_K, seed=0)
-    res128, launch128 = run_fit(DPMM, cfg, x128_np, y128_np,
-                                ("sweep_gauss", "suffstats_labels"), gpu,
-                                "fit_gaussian_d128")
+    res128, launch128 = run_fit(DPMM, cfg, x128_np, y128_np, GAUSS_PATH,
+                                gpu, "fit_gaussian_d128")
     x128 = torch.as_tensor(x128_np, device=dev)
     a128, k128 = fit_sweep_args(res128.state, x128, gibbs, sampler,
                                 torch.Generator(device=dev).manual_seed(4))
@@ -1443,14 +1720,63 @@ def main() -> None:
     x256_np, y256_np = generate_gmm(D256_N, D256_D, FIT_K, seed=0)
     res256, launch256 = run_fit(
         DPMM, cfg, x256_np, y256_np,
-        ("assign_gauss", "sub_assign_gauss", "suffstats_labels"), gpu,
-        "fit_gaussian_d256")
+        ("assign_gauss", "sub_assign_gauss", "suffstats_labels",
+         "fold_partials"), gpu, "fit_gaussian_d256")
     if not (launch256["sweep_gauss"] == 0 and launch256["assign_gauss"]
             == launch256["sub_assign_gauss"] == cfg.iters):
         fail(f"fit_gaussian_d256: launches {launch256}")
     k256 = kernels_d256(res256, launch256, x256_np, cfg, gibbs, sampler,
                         assign, suffstats, loglik, dev)
     emit("kernels_d256", nvidia_smi=gpu, **k256)
+
+    # the dense suffstats oracle through its entry point (ops.suffstats),
+    # at the fits' final states (resp the one-hot of the compact labels, or
+    # Dirichlet(1) rows), a ragged shape, d = 256 and the reference's
+    # §4.2 shapes; and against suffstats_labels on the segments' one-hot
+    gd = torch.Generator(device=dev).manual_seed(8)
+
+    def compact32(r, n=None):
+        if r.k > 32:
+            fail(f"kernel_check_dense: {r.k} live clusters exceed 32 slots")
+        lab = torch.as_tensor(r.labels[:n], device=dev).long()
+        return gibbs.compaction_plan(r.state.active, 32).compact_of_slot[lab]
+
+    def one_hot(lab, k):
+        # a label outside the k slots (a point in an inactive slot past the
+        # compact slab: the Threefry top bin) gets an all-zero row
+        return torch.nn.functional.one_hot(lab.long().clamp(max=k), k + 1
+                                           )[:, :k].to(torch.float32)
+
+    def soft(n, k):
+        g = torch._standard_gamma(torch.ones(n, k, device=dev), generator=gd)
+        return g / g.sum(dim=1, keepdim=True)
+
+    x = torch.as_tensor(x_np, device=dev)
+    lab32 = compact32(res)
+    dense_cases = {
+        "fit_d32_one_hot": (x, one_hot(lab32, 32), True),
+        "fit_d32_soft": (x, soft(FIT_N, 32), False),
+        "fit_d128_one_hot": (torch.as_tensor(x128_np, device=dev),
+                             one_hot(compact32(res128), 32), True),
+        "ragged": (torch.randn(1003, 7, device=dev, generator=gd),
+                   soft(1003, 5), False),
+        "d256": (torch.as_tensor(x256_np[:DENSE_D256_N], device=dev),
+                 one_hot(compact32(res256, DENSE_D256_N), 32), True)}
+    for n_r, k_r, d_r in DENSE_REF_SHAPES:
+        dense_cases[f"ref_{n_r}x{k_r}x{d_r}"] = (
+            torch.randn(n_r, d_r, device=dev, generator=gd),
+            one_hot(torch.randint(0, k_r, (n_r,), device=dev, generator=gd),
+                    k_r), True)
+    dense_launches, dense = kernel_check_dense(ops, suffstats, dense_cases)
+    sub32 = torch.randint(0, 2, (FIT_N,), device=dev, generator=gd,
+                          dtype=torch.int32)
+    emit("kernel_check_dense", stats_rtol=STATS_RTOL,
+         entry_point_launches=dense_launches,
+         against_suffstats_labels=dense_against_labels(
+             suffstats, get_family("gaussian"), x,
+             lab32.to(torch.int32), sub32, 32),
+         nvidia_smi=gpu, **dense)
+    del x, dense_cases, lab32, sub32
 
     # serving: each fitted model through DPMMEngine, checkpoint first
     import tempfile
@@ -1664,6 +1990,30 @@ def main() -> None:
             "max_abs_err": float(t["near_tie_mismatches"]), "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
+    # the stat fold (every fit path; times at the d = 32 fit's sweep sxx
+    # partials) and the dense oracle (its entry point only; times at the
+    # d = 32 fit's final state, one-hot)
+    fx = folds["sxx"]
+    rows.append({
+        "name": "fold_partials", "route": "cuda",
+        "source": "src/repro_torch/csrc/fold_partials.cu",
+        "replaces": "src/repro/core/family.py:225",
+        "launches": launches["fold_partials"],
+        "launches_per_iter": launches["fold_partials"] / cfg.iters,
+        "max_abs_err": 0.0, "ms": fx["ms"], "plain_ms": fx["plain_ms"],
+        "bound_ms": fx["bound_ms"], "bound_by": fx["bound_by"],
+        "library_ms": None})
+    dx = dense["fit_d32_one_hot"]
+    rows.append({
+        "name": "suffstats", "route": "cuda",
+        "source": "src/repro_torch/csrc/suffstats_dense.cu",
+        "replaces": "src/repro/kernels/suffstats.py:127",
+        "launches": dense_launches, "launches_fit_paths": launches[
+            "suffstats"],
+        "max_abs_err": max(r["max_abs_err"] for r in dense.values()),
+        "ms": dx["ms"], "plain_ms": dx["plain_ms"],
+        "bound_ms": dx["bound_ms"], "bound_by": dx["bound_by"],
+        "library_ms": dx["library_ms"]})
     emit("matmul_crossover", nvidia_smi=gpu,
          paper_crossover_dn=640_000, **matmul_crossover(matmul, dev))
     torch.cuda.synchronize()

@@ -1,14 +1,16 @@
 """Configuration of the port's DPMM sampler.
 
 The port's own copy of the fields of ``repro.configs.base.DPMMConfig`` that
-the resident fit reads, with the same names and defaults, for the four
-component families (gaussian, diag_gaussian, multinomial, poisson). There
-is no ``use_pallas``: on the card the hand-written kernels are the path.
+the resident and tiled fits read, with the same names, defaults and
+validation, for the four component families (gaussian, diag_gaussian,
+multinomial, poisson). There is no ``use_pallas``: on the card the
+hand-written kernels are the path.
 """
 from __future__ import annotations
 
 import dataclasses
 import numbers
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +42,19 @@ class DPMMConfig:
     # clusters (O(K_active) per-point work instead of O(k_max))
     compact: bool = True
     k_block: int = 8                  # least compact slab size
+    # data plane: None = resident (points on the device for the whole
+    # fit); an int streams the points from the DataSource in tiles of about
+    # this many rows (rounded up to STATS_BLOCK): device memory is
+    # O(k_max + tile_size). Chains are bitwise equal across planes and
+    # tile sizes.
+    tile_size: Optional[int] = None
+    # tiled reads: transient IOError / short-read and, with guard_tiles,
+    # NaN/Inf-row faults of DataSource.read_block are retried up to
+    # io_retries times with io_backoff_s exponential backoff, then raise
+    # TileReadError with the tile's rows
+    io_retries: int = 3
+    io_backoff_s: float = 0.05
+    guard_tiles: bool = True
     seed: int = 0
 
     def __post_init__(self):
@@ -56,6 +71,8 @@ class DPMMConfig:
         for name in ("k_max", "init_clusters", "log_every", "k_block",
                      "subreset_every"):
             positive(name, getattr(self, name))
+        if self.tile_size is not None:
+            positive("tile_size", self.tile_size)
         if self.init_clusters > self.k_max:
             raise ValueError(
                 f"DPMMConfig.init_clusters ({self.init_clusters}) exceeds "
@@ -64,3 +81,7 @@ class DPMMConfig:
             raise ValueError(
                 f"DPMMConfig.iters/burnout must be >= 0, got "
                 f"iters={self.iters} burnout={self.burnout}")
+        if self.io_retries < 0 or self.io_backoff_s < 0:
+            raise ValueError(
+                f"DPMMConfig.io_retries/io_backoff_s must be >= 0, got "
+                f"{self.io_retries}/{self.io_backoff_s}")

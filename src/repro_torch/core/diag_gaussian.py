@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.labelstats import moments_from_labels
+from repro_torch.core.labelstats import fold_stats, moments_from_labels
 
 LOG_2PI = 1.8378770664093453
 
@@ -73,15 +73,25 @@ def features(x: torch.Tensor) -> torch.Tensor:
 
 
 def stats_from_moments(n2: torch.Tensor, sf2: torch.Tensor) -> DiagStats:
-    """Stats from the folded [x, x^2] moments."""
+    """Stats from [x, x^2] moment sums, folded or per block."""
     d = sf2.shape[-1] // 2
     return DiagStats(n=n2, sx=sf2[..., :d], sxx=sf2[..., d:])
 
 
+def partials_from_labels(x, valid, labels, sublabels,
+                         k_max: int) -> DiagStats:
+    """Per-STATS_BLOCK (nsb, k_max, 2) sub-cluster stat partials from int
+    labels."""
+    return stats_from_moments(*moments_from_labels(features(x), valid, labels,
+                                                   sublabels, k_max))
+
+
 def stats_from_labels(x, valid, labels, sublabels, k_max: int) -> DiagStats:
-    """(k_max, 2) sub-cluster stats straight from int labels."""
-    return stats_from_moments(*moments_from_labels(features(x), valid,
-                                                   labels, sublabels, k_max))
+    """(k_max, 2) sub-cluster stats straight from int labels: the partials
+    folded left to right."""
+    return fold_stats(empty_stats((k_max, 2), x.shape[1], x.device),
+                      partials_from_labels(x, valid, labels, sublabels,
+                                           k_max))
 
 
 def _pack_linear(params: DiagParams, d: int):

@@ -24,7 +24,12 @@ through this interface:
   kernel's failure;
 - ``stats_from_labels``: label-indexed sub-cluster stats
   (``ops.suffstats_labels`` for gaussian, ``ops.moments_labels`` through
-  ``core/labelstats.py`` for the linear families);
+  ``core/labelstats.py`` for the linear families), folded into a running
+  accumulator. Every stat fold (``sweep``, ``fold_blocked``) adds the
+  kernels' per-STATS_BLOCK partials to the accumulator left to right in
+  point order (``labelstats.fold_stats``), as the reference does, so the
+  sums continue across tiles and a tiled fit is the resident fit bit for
+  bit;
 - ``assign``: step (e) alone (``DPMMEngine.sample``, ``sweep_ref``):
   ``ops.assign_gauss`` for gaussian, the module's ``assign_pack`` and
   ``ops.assign_linear`` for the linear families;
@@ -48,7 +53,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from repro_torch.core import diag_gaussian, multinomial, niw, poisson
-from repro_torch.core.labelstats import fold_partials
+from repro_torch.core.labelstats import fold_stats
 from repro_torch.kernels import ops
 from repro_torch.kernels.sweep import MAX_D as SWEEP_GAUSS_MAX_D
 
@@ -58,7 +63,7 @@ def fold_blocked(family: "ComponentFamily", k_max: int, body,
                  acc, label_map=None):
     """Run the per-point ``body`` over the whole tile, then fold its
     labels' sub-cluster stats into ``acc`` with one ``stats_from_labels``
-    call (per-STATS_BLOCK partials, one fixed-order reduction).
+    call (its per-STATS_BLOCK partials added to ``acc`` left to right).
 
     ``body(x, valid, *extras) -> (labels, sublabels)``. ``label_map``
     ((k_dense,) int) re-indexes labels for the stat fold only — the
@@ -67,9 +72,8 @@ def fold_blocked(family: "ComponentFamily", k_max: int, body,
     """
     labels, sublabels = body(x, valid, *extras)
     stat_lab = labels if label_map is None else label_map[labels.long()]
-    part = family.stats_from_labels(x, valid, stat_lab.to(torch.int32),
-                                    sublabels, k_max)
-    return labels, sublabels, family.add_stats(acc, part)
+    return labels, sublabels, family.stats_from_labels(
+        x, valid, stat_lab.to(torch.int32), sublabels, k_max, acc=acc)
 
 
 def _gauss_sweep(x, valid, params, subparams, logw, sublogw, active, gidx,
@@ -78,14 +82,14 @@ def _gauss_sweep(x, valid, params, subparams, logw, sublogw, active, gidx,
     labels, sublabels, n2, sx2, sxx2 = ops.sweep_gauss(
         x, mu, f, ld, logw, active, smu, sf, sld, sublogw, valid, gidx,
         key_z, key_zb, slots)
-    return labels, sublabels, niw.stats_from_partials(n2, sx2, sxx2)
+    return labels, sublabels, niw.GaussStats(n2, sx2, sxx2)
 
 
 def _linear_sweep(mod):
     """The fused sweep of a linear family: its ``sweep_pack`` builds the
     shared feature block once, ``sweep_linear`` runs steps (e) + (f) and
-    the first-moment fold, and ``stats_from_moments`` unpacks the folded
-    partials into the family's stats."""
+    the first-moment partials, and ``stats_from_moments`` unpacks the
+    per-block partials into the family's stats."""
     def sweep(x, valid, params, subparams, logw, sublogw, active, gidx,
               key_z, key_zb, slots):
         feats, w, const, subw, subconst = mod.sweep_pack(x, params,
@@ -93,8 +97,7 @@ def _linear_sweep(mod):
         labels, sublabels, n2, sf2 = ops.sweep_linear(
             feats, w, const, logw, active, subw, subconst, sublogw, valid,
             gidx, key_z, key_zb, slots)
-        return labels, sublabels, mod.stats_from_moments(
-            fold_partials(n2), fold_partials(sf2))
+        return labels, sublabels, mod.stats_from_moments(n2, sf2)
     return sweep
 
 
@@ -159,10 +162,11 @@ class ComponentFamily:
     params_cls: type
     stats_cls: type
     # (x, valid, params, subparams, logw, sublogw, active, gidx, key_z,
-    #  key_zb, slots) -> (labels, sublabels, (k, 2) sub-cluster stats)
+    #  key_zb, slots) -> (labels, sublabels, (nsb, k, 2) per-STATS_BLOCK
+    #  sub-cluster stat partials)
     fused_sweep: Callable[..., Tuple]
-    # (x, valid, labels, sublabels, k_max) -> (k_max, 2) stats
-    labels_stats: Callable[..., Any]
+    # (x, valid, labels, sublabels, k_max) -> (nsb, k_max, 2) partials
+    labels_partials: Callable[..., Any]
     # (x, params, logw, active, gidx, key_z, slots) -> (N,) labels
     assign_step: Callable[..., torch.Tensor]
     # (x, subparams, sublogw, labels, gidx, key_zb) -> (N,) sub-labels
@@ -188,11 +192,11 @@ class ComponentFamily:
                                   k_max, acc, slots=slots)
         if slots is None:
             slots = torch.arange(k_max, device=x.device)
-        labels, sublabels, part = self.fused_sweep(
+        labels, sublabels, parts = self.fused_sweep(
             x, valid, params, subparams, logw, sublogw,
             active.to(torch.int32), gidx, key_z, key_zb,
             slots.to(torch.int32))
-        return labels, sublabels, self.add_stats(acc, part)
+        return labels, sublabels, fold_stats(acc, parts)
 
     def sweep_ref(self, x, valid, params, subparams, logw, sublogw, active,
                   gidx, key_z, key_zb, k_max: int, acc, slots=None):
@@ -207,9 +211,14 @@ class ComponentFamily:
 
         return fold_blocked(self, k_max, body, x, valid, (gidx,), acc)
 
-    def stats_from_labels(self, x, valid, labels, sublabels, k_max: int):
-        """(k_max, 2) sub-cluster stats straight from int labels."""
-        return self.labels_stats(x, valid, labels, sublabels, k_max)
+    def stats_from_labels(self, x, valid, labels, sublabels, k_max: int,
+                          acc=None):
+        """(k_max, 2) sub-cluster stats straight from int labels, added to
+        ``acc`` (zeros by default) block by block in point order."""
+        if acc is None:
+            acc = self.empty_stats((k_max, 2), x.shape[1], x.device)
+        return fold_stats(acc, self.labels_partials(x, valid, labels,
+                                                    sublabels, k_max))
 
     def assign(self, x, params, logw, active, gidx, key_z,
                slots=None) -> torch.Tensor:
@@ -245,7 +254,7 @@ def _module_family(mod, name: str, params_cls, stats_cls,
         add_stats=mod.add_stats, log_marginal=mod.log_marginal,
         sample_posterior=mod.sample_posterior,
         expected_params=mod.expected_params, params_cls=params_cls,
-        stats_cls=stats_cls, labels_stats=mod.stats_from_labels, **kw)
+        stats_cls=stats_cls, labels_partials=mod.partials_from_labels, **kw)
 
 
 def _linear_family(mod, name: str, params_cls, stats_cls,

@@ -9,7 +9,10 @@ Port of ``repro.core.gibbs`` for one process and one chain:
   passes (``ComponentFamily.sweep_ref``: ``assign``, ``sub_assign``, the
   label-stat fold), the reference's parity oracle: both give the same
   labels and stats;
-- ``sweep``: both, with the active-set compaction around the tile.
+- ``sweep``: both, with the active-set compaction around the tile. A
+  streamed (tiled) fit runs its halves itself: ``sweep_begin`` (the key
+  words and steps (a)-(d)), ``sweep_compaction``, then ``sweep_tile`` on
+  every tile with a running accumulator, then ``sweep_end``.
 
 Per-point noise is the counter-based Threefry keyed on (key words, global
 point index, dense slot id) (``kernels/prng.py``); the key words of an
@@ -29,9 +32,10 @@ from repro_torch.kernels import prng
 from repro_torch.kernels.sweep import NEG_INF
 
 
-def global_indices(n: int, device) -> torch.Tensor:
-    """(n,) int64 global point indices of the resident points."""
-    return torch.arange(n, dtype=torch.int64, device=device)
+def global_indices(n: int, device, offset: int = 0) -> torch.Tensor:
+    """(n,) int64 global point indices of the points ``offset`` to
+    ``offset + n`` (a tile's; all the resident points from 0)."""
+    return torch.arange(offset, offset + n, dtype=torch.int64, device=device)
 
 
 def sample_weights(generator: Optional[torch.Generator],
@@ -178,33 +182,61 @@ def sweep_tile(model: ModelState, x: torch.Tensor, point: PointState,
                                sublabels=sublabels), acc
 
 
+def sweep_begin(model: ModelState, prior, family, alpha: float,
+                generator: Optional[torch.Generator]
+                ) -> Tuple[ModelState, torch.Tensor, torch.Tensor]:
+    """The iteration's two key words (steps (e), (f)), then steps
+    (a)-(d), drawn from ``generator`` in that order."""
+    dev = model.active.device
+    key_z = prng.key_words(generator, dev)
+    key_zb = prng.key_words(generator, dev)
+    return (sweep_model(model, prior, family, alpha, generator), key_z,
+            key_zb)
+
+
+def sweep_compaction(model: ModelState, k_compact: Optional[int]
+                     ) -> Optional[CompactionPlan]:
+    """The compact slab of ``k_compact`` rows when the live cluster count
+    fits in it — a host check of ``k_hat`` (the reference does it on the
+    device with ``lax.cond``) — else None: the dense slab."""
+    if (k_compact is not None and k_compact < model.active.shape[0]
+            and int(model.k_hat) <= k_compact):
+        return compaction_plan(model.active, k_compact)
+    return None
+
+
+def sweep_acc(model: ModelState, family, plan: Optional[CompactionPlan],
+              d: int):
+    """The zero accumulator of a sweep's tiles on ``plan``'s slab."""
+    k_eff = (model.active.shape[0] if plan is None
+             else plan.slot_of_compact.shape[0])
+    return empty_substats(family, k_eff, d, model.active.device)
+
+
+def sweep_end(model: ModelState, acc, plan: Optional[CompactionPlan]
+              ) -> ModelState:
+    """The swept stats: cluster stats from the folded sub-cluster stats,
+    scattered back to the dense slab after a compact sweep."""
+    stats, substats = finalize_substats(acc)
+    if plan is not None:
+        k_max = model.active.shape[0]
+        stats = compact_scatter(plan, k_max, stats)
+        substats = compact_scatter(plan, k_max, substats)
+    return model.replace(stats=stats, substats=substats)
+
+
 def sweep(model: ModelState, point: PointState, x: torch.Tensor, prior,
           family, alpha: float, generator: Optional[torch.Generator], *,
           k_compact: Optional[int] = None
           ) -> Tuple[ModelState, PointState]:
-    """One restricted Gibbs sweep (steps a-f) over the resident points.
-
-    Draws the iteration's two key words, then steps (a)-(d), from
-    ``generator``. ``k_compact``: run the tile on a compact slab of this
-    many rows when the live cluster count fits in it — a host check of
-    ``k_hat`` once per iteration (the reference does it on the device
-    with ``lax.cond``) — else on the dense slab.
-    """
-    key_z = prng.key_words(generator, x.device)
-    key_zb = prng.key_words(generator, x.device)
-    model = sweep_model(model, prior, family, alpha, generator)
-    gidx = global_indices(x.shape[0], x.device)
-    k_max = model.active.shape[0]
-    plan = None
-    if (k_compact is not None and k_compact < k_max
-            and int(model.k_hat) <= k_compact):
-        plan = compaction_plan(model.active, k_compact)
-    k_eff = k_max if plan is None else k_compact
-    acc = empty_substats(family, k_eff, x.shape[1], x.device)
-    point, acc = sweep_tile(model, x, point, gidx, acc, family, key_z,
-                            key_zb, plan=plan)
-    stats, substats = finalize_substats(acc)
-    if plan is not None:
-        stats = compact_scatter(plan, k_max, stats)
-        substats = compact_scatter(plan, k_max, substats)
-    return model.replace(stats=stats, substats=substats), point
+    """One restricted Gibbs sweep (steps a-f) over the resident points, on
+    the compact slab of ``k_compact`` rows when the live clusters fit in
+    it (``sweep_compaction``)."""
+    model, key_z, key_zb = sweep_begin(model, prior, family, alpha,
+                                       generator)
+    plan = sweep_compaction(model, k_compact)
+    acc = sweep_acc(model, family, plan, x.shape[1])
+    point, acc = sweep_tile(model, x, point,
+                            global_indices(x.shape[0], x.device), acc,
+                            family, key_z, key_zb, plan=plan)
+    return sweep_end(model, acc, plan), point

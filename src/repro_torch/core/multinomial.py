@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.labelstats import moments_from_labels
+from repro_torch.core.labelstats import fold_stats, moments_from_labels
 
 
 @dataclasses.dataclass
@@ -55,15 +55,25 @@ def add_stats(a: MultStats, b: MultStats) -> MultStats:
 
 
 def stats_from_moments(n2: torch.Tensor, sf2: torch.Tensor) -> MultStats:
-    """Stats from folded moments: the features are x, so the moment sums
-    are the counts."""
+    """Stats from moment sums, folded or per block: the features are x,
+    so the moment sums are the counts."""
     return MultStats(n=n2, counts=sf2)
 
 
-def stats_from_labels(x, valid, labels, sublabels, k_max: int) -> MultStats:
-    """(k_max, 2) sub-cluster stats straight from int labels."""
+def partials_from_labels(x, valid, labels, sublabels,
+                         k_max: int) -> MultStats:
+    """Per-STATS_BLOCK (nsb, k_max, 2) sub-cluster stat partials from int
+    labels."""
     return stats_from_moments(*moments_from_labels(x, valid, labels,
                                                    sublabels, k_max))
+
+
+def stats_from_labels(x, valid, labels, sublabels, k_max: int) -> MultStats:
+    """(k_max, 2) sub-cluster stats straight from int labels: the partials
+    folded left to right."""
+    return fold_stats(empty_stats((k_max, 2), x.shape[1], x.device),
+                      partials_from_labels(x, valid, labels, sublabels,
+                                           k_max))
 
 
 def assign_pack(x: torch.Tensor, params: MultParams):

@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.labelstats import fold_stats
 from repro_torch.kernels import ops
 
 
@@ -81,22 +82,24 @@ def add_stats(a: GaussStats, b: GaussStats) -> GaussStats:
     return GaussStats(a.n + b.n, a.sx + b.sx, a.sxx + b.sxx)
 
 
-def stats_from_partials(n2: torch.Tensor, sx2: torch.Tensor,
-                        sxx2: torch.Tensor) -> GaussStats:
-    """Fold (nsb, k, 2, ...) per-STATS_BLOCK partials into (k, 2) stats:
-    one reduction over the block axis, in a fixed order for a given shape
-    and device."""
-    return GaussStats(n=n2.sum(dim=0), sx=sx2.sum(dim=0),
-                      sxx=sxx2.sum(dim=0))
+def partials_from_labels(x: torch.Tensor, valid: torch.Tensor,
+                         labels: torch.Tensor, sublabels: torch.Tensor,
+                         k_max: int) -> GaussStats:
+    """Per-STATS_BLOCK (nsb, k_max, 2) sub-cluster stat partials from int
+    labels: the ``suffstats_labels`` kernel (its plain version on the
+    CPU)."""
+    return GaussStats(*ops.suffstats_labels(
+        x, labels.to(torch.int32), sublabels.to(torch.int32), valid, k_max))
 
 
 def stats_from_labels(x: torch.Tensor, valid: torch.Tensor,
                       labels: torch.Tensor, sublabels: torch.Tensor,
                       k_max: int) -> GaussStats:
-    """(k_max, 2) sub-cluster stats straight from int labels: the
-    ``suffstats_labels`` kernel (its plain version on the CPU), folded."""
-    return stats_from_partials(*ops.suffstats_labels(
-        x, labels.to(torch.int32), sublabels.to(torch.int32), valid, k_max))
+    """(k_max, 2) sub-cluster stats straight from int labels: the partials
+    folded left to right."""
+    return fold_stats(empty_stats((k_max, 2), x.shape[1], x.device),
+                      partials_from_labels(x, valid, labels, sublabels,
+                                           k_max))
 
 
 def sweep_pack(params: GaussParams, subparams: GaussParams):

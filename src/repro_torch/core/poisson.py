@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.labelstats import moments_from_labels
+from repro_torch.core.labelstats import fold_stats, moments_from_labels
 
 
 @dataclasses.dataclass
@@ -54,14 +54,25 @@ def add_stats(a: PoisStats, b: PoisStats) -> PoisStats:
 
 
 def stats_from_moments(n2: torch.Tensor, sf2: torch.Tensor) -> PoisStats:
-    """Stats from folded moments (the features are x)."""
+    """Stats from moment sums, folded or per block (the features are
+    x)."""
     return PoisStats(n=n2, sx=sf2)
 
 
-def stats_from_labels(x, valid, labels, sublabels, k_max: int) -> PoisStats:
-    """(k_max, 2) sub-cluster stats straight from int labels."""
+def partials_from_labels(x, valid, labels, sublabels,
+                         k_max: int) -> PoisStats:
+    """Per-STATS_BLOCK (nsb, k_max, 2) sub-cluster stat partials from int
+    labels."""
     return stats_from_moments(*moments_from_labels(x, valid, labels,
                                                    sublabels, k_max))
+
+
+def stats_from_labels(x, valid, labels, sublabels, k_max: int) -> PoisStats:
+    """(k_max, 2) sub-cluster stats straight from int labels: the partials
+    folded left to right."""
+    return fold_stats(empty_stats((k_max, 2), x.shape[1], x.device),
+                      partials_from_labels(x, valid, labels, sublabels,
+                                           k_max))
 
 
 def assign_pack(x: torch.Tensor, params: PoisParams):

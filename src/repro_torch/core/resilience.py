@@ -1,15 +1,98 @@
-"""Health check of a model state before it goes live.
+"""Tile-read retry for streamed fits, and the health check of a model.
 
-Port of ``repro.core.resilience.model_health`` (the rest of that module —
-tile-read retry and rollback — is not ported yet: ROADMAP.md §1 item 9).
+Port of ``repro.core.resilience``'s ``TileReadError``, ``RetryPolicy``,
+``read_block_checked`` (the tiled fit reads every tile through it, with the
+reference's event records ``tile_read_fault`` and ``io_retry``) and
+``model_health``. Divergence rollback and ``fit(resume=True)`` are not
+ported yet (ROADMAP.md §1 item 9).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.state import ModelState
+
+
+class TileReadError(RuntimeError):
+    """A streamed tile read failed past the retry budget. The message
+    carries full provenance: global row range, attempts, last failure."""
+
+
+@dataclasses.dataclass(frozen=True)
+class RetryPolicy:
+    """Bounded retry-with-backoff for streamed tile reads.
+
+    ``max_retries`` is the number of *re*-attempts after the first try
+    (so ``max_retries=3`` means at most 4 reads of the block). Backoff
+    sleeps ``backoff_s * backoff_mult**i`` before retry i — transient
+    faults (NFS hiccup, loaded disk) get breathing room, while the bound
+    keeps a dead source from hanging the fit. ``guard_nonfinite`` treats
+    NaN/Inf rows in a tile as a retryable fault too: a re-read of a
+    bit-flipped buffer is clean, and a *persistently* non-finite tile
+    (really-broken data) fails loudly instead of poisoning the chain.
+    """
+    max_retries: int = 3
+    backoff_s: float = 0.05
+    backoff_mult: float = 2.0
+    guard_nonfinite: bool = True
+
+
+def read_block_checked(source, start: int, stop: int,
+                       policy: RetryPolicy,
+                       on_event: Optional[Callable[[dict], None]] = None
+                       ) -> np.ndarray:
+    """``source.read_block(start, stop)`` under ``policy``.
+
+    Validates every read: row count must match (short reads retry) and,
+    with ``policy.guard_nonfinite``, all values must be finite. Each
+    failed attempt is reported to ``on_event`` (the fits append these
+    records to ``FitResult.recoveries``); exhaustion raises
+    :class:`TileReadError` with the tile's provenance.
+    """
+    want = stop - start
+    last = "no attempt made"
+    for attempt in range(policy.max_retries + 1):
+        if attempt:
+            delay = policy.backoff_s * policy.backoff_mult ** (attempt - 1)
+            if delay > 0:
+                time.sleep(delay)
+        try:
+            rows = source.read_block(start, stop)
+        except (IOError, OSError) as e:
+            last = f"{type(e).__name__}: {e}"
+        else:
+            if rows.shape[0] != want:
+                last = (f"short read: got {rows.shape[0]} rows, "
+                        f"want {want}")
+            elif (policy.guard_nonfinite
+                  and not np.isfinite(rows).all()):
+                bad = np.flatnonzero(~np.isfinite(rows).all(axis=1))
+                last = (f"non-finite values in {bad.size} row(s), first "
+                        f"at global row {start + int(bad[0])}")
+            else:
+                if attempt and on_event is not None:
+                    # recovered after retries: leave an audit trail, not
+                    # just the per-attempt fault records (a fit that only
+                    # succeeded on re-reads should say so in recoveries)
+                    on_event({"kind": "io_retry",
+                              "rows": [int(start), int(stop)],
+                              "attempts": attempt + 1,
+                              "detail": f"recovered after {attempt} "
+                                        f"retr{'y' if attempt == 1 else 'ies'}"
+                                        f"; last failure: {last}"})
+                return rows
+        if on_event is not None:
+            on_event({"kind": "tile_read_fault",
+                      "rows": [int(start), int(stop)],
+                      "attempt": attempt + 1, "detail": last})
+    raise TileReadError(
+        f"read_block rows [{start}, {stop}) failed after "
+        f"{policy.max_retries + 1} attempt(s); last failure: {last}")
 
 
 def model_health(model: ModelState) -> torch.Tensor:

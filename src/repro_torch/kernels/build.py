@@ -30,7 +30,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("sweep_gauss", "suffstats_labels", "sweep_linear",
            "moments_labels", "loglik_gauss", "assign_gauss", "assign_linear",
-           "matmul", "sub_assign_gauss", "sub_assign_linear")
+           "matmul", "sub_assign_gauss", "sub_assign_linear",
+           "fold_partials", "suffstats_dense")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -111,16 +112,18 @@ def load(name: str) -> ctypes.CDLL:
 
 def c_function(name: str, symbol: str, signature: str):
     """``symbol`` of library ``name`` with its ctypes signature: one letter
-    per argument, ``p`` for a pointer or the stream (``c_void_p``) and
-    ``i`` for an int (``c_int``). The C function returns its
-    ``cudaGetLastError()``; the returned callable raises when that is not
-    0, so a refused launch never passes silently."""
+    per argument, ``p`` for a pointer or the stream (``c_void_p``), ``i``
+    for an int (``c_int``) and ``l`` for a 64-bit int (``c_longlong``).
+    The C function returns its ``cudaGetLastError()``; the returned
+    callable raises when that is not 0, so a refused launch never passes
+    silently."""
     key = f"{name}:{symbol}"
     if key in _functions:
         return _functions[key]
     lib = load(name)
     fn = getattr(lib, symbol)
-    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int,
+             "l": ctypes.c_longlong}
     fn.argtypes = [kinds[c] for c in signature]
     fn.restype = ctypes.c_int
     err_str = lib.repro_error_string

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import assign as _assign
+from repro_torch.kernels import fold as _fold
 from repro_torch.kernels import loglik as _loglik
 from repro_torch.kernels import matmul as _matmul
 from repro_torch.kernels import suffstats as _suffstats
@@ -60,6 +61,20 @@ def moments_labels(feats, labels, sublabels, valid, k: int):
     fn = _route(feats, _suffstats.moments_labels_cuda,
                 _suffstats.moments_labels_plain)
     return fn(feats, labels, sublabels, valid, k)
+
+
+def fold_partials(acc, parts):
+    """``acc`` plus the (nb, *acc.shape) partials, added left to right in
+    block order (``kernels/fold.py``)."""
+    fn = _route(acc, _fold.fold_partials_cuda, _fold.fold_partials_plain)
+    return fn(acc, parts.contiguous())
+
+
+def suffstats(x, resp):
+    """n, sx, sxx from dense (N, K) responsibilities, the oracle of
+    ``repro.kernels.ops.suffstats_pallas`` (``kernels/suffstats.py``)."""
+    fn = _route(x, _suffstats.suffstats_cuda, _suffstats.suffstats_plain)
+    return fn(x, resp)
 
 
 def loglik_gauss(x, mu, chol_prec, logdet_prec):
@@ -125,7 +140,9 @@ _CUDA = {"sweep_gauss": _sweep.sweep_gauss_cuda,
          "assign_linear": _assign.assign_linear_cuda,
          "matmul": _matmul.matmul_cuda,
          "sub_assign_gauss": _assign.sub_assign_gauss_cuda,
-         "sub_assign_linear": _assign.sub_assign_linear_cuda}
+         "sub_assign_linear": _assign.sub_assign_linear_cuda,
+         "fold_partials": _fold.fold_partials_cuda,
+         "suffstats": _suffstats.suffstats_cuda}
 
 
 def launch_counts() -> dict:

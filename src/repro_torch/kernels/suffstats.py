@@ -1,7 +1,8 @@
-"""Label-indexed sub-cluster statistics per STATS_BLOCK of points.
+"""Cluster statistics: label-indexed per STATS_BLOCK of points, and the
+dense-responsibility oracle.
 
-Port of ``repro.kernels.suffstats.suffstats_labels`` and
-``moments_labels``. For points (N, d), int32 labels / sublabels (N,) and
+Port of ``repro.kernels.suffstats.suffstats_labels``, ``moments_labels``
+and ``suffstats``. For points (N, d), int32 labels / sublabels (N,) and
 the valid mask (N,), they return for every block b of ``STATS_BLOCK``
 consecutive points the partials
 
@@ -13,7 +14,12 @@ over segments 2 * label + sublabel; points whose label is outside [0, k)
 add nothing. ``moments_labels`` is the first-moment half, for the linear
 families: its per-point features are x (multinomial, poisson) or the
 stacked [x, x^2] (diag_gaussian), of any width d'. The caller folds the
-nsb partials (``core.family``, ``core.labelstats``).
+nsb partials (``core.labelstats.fold_stats``).
+
+``suffstats`` is the dense oracle: x (N, d) and responsibilities resp
+(N, K), both float32, give n (K,) = sum_i r_ik, sx (K, d) = resp^T x and
+sxx (K, d, d) = sum_i (r_ik x_i) x_i^T. No sampler path calls it; it is
+the paper's §4.2 kernel comparison and the tests' yardstick.
 
 Two versions of each function:
 
@@ -25,6 +31,10 @@ Two versions of each function:
   plain PyTorch, chunked per STATS_BLOCK so no (N, 2k) one-hot exists
   whole. The CPU path and the tests use them; on the card only the
   comparison in ``chip_smoke.py`` does.
+
+and ``suffstats_cuda`` (``csrc/suffstats_dense.cu``) beside
+``suffstats_plain`` (the reference's jnp route: a sum, a product and an
+einsum, over chunks of points).
 
 ``kernels.ops`` picks between them by the tensor's device.
 """
@@ -50,6 +60,8 @@ MAX_D = 256
 # k <= MAX_K (its per-chunk entry index is an int; d' rows use 64-bit
 # offsets), and d' covers the 20newsgroups vocabulary with room.
 MAX_DP = 1 << 16
+# csrc/suffstats_dense.cu: threads a block, points staged a step
+DENSE_THREADS, DENSE_P = 256, 32
 
 Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -58,54 +70,55 @@ def n_blocks(n: int) -> int:
     return -(-n // STATS_BLOCK)
 
 
-def _pad_blocks(a: torch.Tensor, nb: int) -> torch.Tensor:
-    """(m, ...) -> (nb, STATS_BLOCK, ...), zero rows past m."""
-    pad = nb * STATS_BLOCK - a.shape[0]
-    if pad:
-        a = torch.cat([a, a.new_zeros((pad,) + a.shape[1:])])
-    return a.reshape((nb, STATS_BLOCK) + a.shape[1:])
+def _segment_rows(labels: torch.Tensor, sublabels: torch.Tensor,
+                  valid: torch.Tensor, k: int) -> torch.Tensor:
+    """(m,) row of each point in the (nb * 2k + 1)-row partial table: its
+    block's segment 2 * label + sublabel, or the last (dropped) row for an
+    invalid point or an out-of-range label."""
+    m = labels.shape[0]
+    inside = ((labels >= 0) & (labels < k) & (sublabels >= 0)
+              & (sublabels <= 1) & (valid != 0))
+    blk = torch.arange(m, device=labels.device) // STATS_BLOCK
+    rows = blk * (2 * k) + labels.long() * 2 + sublabels.long()
+    return torch.where(inside, rows, n_blocks(m) * 2 * k)
 
 
-def _segment_onehot(labels: torch.Tensor, sublabels: torch.Tensor,
-                    valid: torch.Tensor, k: int, nb: int,
-                    dtype: torch.dtype) -> torch.Tensor:
-    """(nb, 2k, STATS_BLOCK) valid-weighted one-hot over segments
-    2 * label + sublabel; out-of-range labels give an all-zero column."""
-    inside = (labels >= 0) & (labels < k) & (sublabels >= 0) & (sublabels <= 1)
-    seg = torch.where(inside, labels * 2 + sublabels, -1)
-    cols = torch.arange(2 * k, device=labels.device)
-    r = ((seg[:, None] == cols[None, :]).to(dtype)
-         * valid.to(dtype)[:, None])                      # (m, 2k)
-    return _pad_blocks(r, nb).transpose(1, 2)
+def _segment_sums(rows: torch.Tensor, vals: torch.Tensor,
+                  nrows: int) -> torch.Tensor:
+    """Per-row sums of ``vals`` ((m, ...)) by ``rows``, each row's points
+    added in point order (``index_add_`` runs over the points in order on
+    the CPU), so a block's sums do not depend on k, on how many blocks
+    share a call, or on the tile the block came in."""
+    out = vals.new_zeros((nrows + 1,) + tuple(vals.shape[1:]))
+    return out.index_add_(0, rows, vals)[:nrows]
 
 
 def block_moments(feats: torch.Tensor, labels: torch.Tensor,
                   sublabels: torch.Tensor, valid: torch.Tensor, k: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """n / first-moment partials of ``ceil(m / STATS_BLOCK)`` blocks of m
-    points, as one batch: the weighted one-hot times the features."""
+    points, as one batch of segment sums."""
     nb = n_blocks(feats.shape[0])
-    r = _segment_onehot(labels, sublabels, valid, k, nb, feats.dtype)
-    n2 = r.sum(dim=2).reshape(nb, k, 2)
-    sf2 = torch.bmm(r, _pad_blocks(feats, nb)).reshape(nb, k, 2, -1)
-    return n2, sf2
+    rows = _segment_rows(labels, sublabels, valid, k)
+    w = valid.to(feats.dtype)
+    n2 = _segment_sums(rows, w, nb * 2 * k).reshape(nb, k, 2)
+    sf2 = _segment_sums(rows, w[:, None] * feats, nb * 2 * k)
+    return n2, sf2.reshape(nb, k, 2, -1)
 
 
 def block_partials(x: torch.Tensor, labels: torch.Tensor,
                    sublabels: torch.Tensor, valid: torch.Tensor,
                    k: int) -> Partials:
     """Partials of ``ceil(m / STATS_BLOCK)`` blocks of m points, as one
-    batch: a (nb, STATS_BLOCK, 2k) weighted one-hot times x and times the
-    flattened per-point outer products."""
+    batch of segment sums of the weights, the weighted points and their
+    flattened outer products (w x) x^T."""
     d = x.shape[1]
-    nb = n_blocks(x.shape[0])
-    r = _segment_onehot(labels, sublabels, valid, k, nb, x.dtype)
-    xb = _pad_blocks(x, nb)                                # (nb, SB, d)
-    outer = _pad_blocks((x[:, :, None] * x[:, None, :]).reshape(-1, d * d),
-                        nb)
-    n2 = r.sum(dim=2).reshape(nb, k, 2)
-    sx2 = torch.bmm(r, xb).reshape(nb, k, 2, d)
-    sxx2 = torch.bmm(r, outer).reshape(nb, k, 2, d, d)
+    n2, sx2 = block_moments(x, labels, sublabels, valid, k)
+    nb = n2.shape[0]
+    rows = _segment_rows(labels, sublabels, valid, k)
+    wx = valid.to(x.dtype)[:, None] * x
+    outer = (wx[:, :, None] * x[:, None, :]).reshape(-1, d * d)
+    sxx2 = _segment_sums(rows, outer, nb * 2 * k).reshape(nb, k, 2, d, d)
     return n2, sx2, sxx2
 
 
@@ -228,3 +241,74 @@ def moments_labels_cuda(feats: torch.Tensor, labels: torch.Tensor,
 
 
 moments_labels_cuda.launches = 0
+
+
+def dense_chunks(n: int, d: int, k: int) -> int:
+    """Point chunks of ``csrc/suffstats_dense.cu`` for (n, d, k): enough
+    thread blocks of DENSE_THREADS (k, 4 x 4 tile) items for about two
+    waves of 132 SMs, each chunk about DENSE_P points or more. It depends
+    on the shape only, so two launches fold the same chunks."""
+    dq = -(-d // 4)
+    gx = -(-(k * dq * dq) // DENSE_THREADS)
+    return max(1, min(-(-2 * 132 * 4 // gx), n // DENSE_P))
+
+
+def suffstats_plain(x: torch.Tensor, resp: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """n, sx, sxx of ``resp``-weighted points, as the reference's
+    ``kernels/ref.suffstats``: a sum, ``resp^T x`` and an einsum, over
+    chunks of points whose (m, K, d) temporary holds CHUNK_FLOATS, added
+    in order."""
+    n, d = x.shape
+    k = resp.shape[1]
+    cnt = x.new_zeros((k,))
+    sx = x.new_zeros((k, d))
+    sxx = x.new_zeros((k, d, d))
+    step = max(1, CHUNK_FLOATS // max(1, k * d))
+    for a in range(0, n, step):
+        xs, rs = x[a:a + step], resp[a:a + step]
+        cnt = cnt + rs.sum(dim=0)
+        sx = sx + rs.T @ xs
+        sxx = sxx + torch.einsum("nk,nd,ne->kde", rs, xs, xs)
+    return cnt, sx, sxx
+
+
+def suffstats_cuda(x: torch.Tensor, resp: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One call of ``csrc/suffstats_dense.cu`` on the current stream (the
+    chunk kernel and its left-to-right fold), counted once in
+    ``suffstats_cuda.launches``."""
+    if x.device.type != "cuda":
+        raise ValueError("suffstats_cuda takes CUDA tensors; the plain "
+                         "version serves the CPU")
+    if x.ndim != 2 or resp.ndim != 2 or resp.shape[0] != x.shape[0]:
+        raise ValueError(f"suffstats: x {tuple(x.shape)} and resp "
+                         f"{tuple(resp.shape)} are not (N, d) and (N, K)")
+    n, d = x.shape
+    k = resp.shape[1]
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"suffstats: d={d} outside [1, {MAX_D}] "
+                         "(ROADMAP.md §3)")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"suffstats: K={k} outside [1, {MAX_K}]")
+    if not 1 <= n < 2 ** 31:
+        raise ValueError(f"suffstats: N={n} outside [1, 2^31)")
+    dev = x.device
+    _check_cuda("x", x, torch.float32, (n, d), dev)
+    _check_cuda("resp", resp, torch.float32, (n, k), dev)
+    nc = dense_chunks(n, d, k)
+    m = k * (1 + d + d * d)
+    part = torch.empty((nc, m), device=dev, dtype=torch.float32)
+    out = torch.empty((m,), device=dev, dtype=torch.float32)
+    fn = build.c_function("suffstats_dense", "suffstats_dense_launch",
+                          "ppiiiippp")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        fn(x.data_ptr(), resp.data_ptr(), n, d, k, nc, part.data_ptr(),
+           out.data_ptr(), stream)
+    suffstats_cuda.launches += 1
+    return (out[:k], out[k:k + k * d].view(k, d),
+            out[k + k * d:].view(k, d, d))
+
+
+suffstats_cuda.launches = 0

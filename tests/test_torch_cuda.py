@@ -1,7 +1,8 @@
 """The port's CUDA kernels (sweep_gauss, suffstats_labels, sweep_linear,
 moments_labels, loglik_gauss, assign_gauss, assign_linear, matmul,
-sub_assign_gauss, sub_assign_linear) against their plain versions, and the
-three-pass sweep against the one-read sweep, on the card.
+sub_assign_gauss, sub_assign_linear, fold_partials, suffstats) against
+their plain versions, the three-pass sweep against the one-read sweep,
+and a tiled fit against the resident fit, on the card.
 
 Marked ``cuda``; each test skips (from a fixture, at run time) where no
 CUDA device is available. Run on a GPU machine with
@@ -14,6 +15,10 @@ inputs gives identical bits (no float atomics); log-likelihoods and
 products within rtol 1e-5 of each array's scale (fp32 sums in another
 order). The three-pass sweep runs the one-read sweep's device code for
 steps (e), (f) and the fold, so on the card the two give the same bits.
+``fold_partials`` is bitwise its plain loop of adds (the same IEEE adds in
+the same order); the dense ``suffstats`` kernel sums in another order than
+its plain version (rtol 1e-4 of each array's scale, counts within it too:
+the responsibilities are fractions).
 """
 import numpy as np
 import pytest
@@ -27,7 +32,9 @@ from repro_torch.data.synthetic import generate_gmm, generate_mnmm
 from repro_torch.core.family import get_family
 from repro_torch.core.multinomial import MultParams
 from repro_torch.core.niw import GaussParams
-from repro_torch.kernels import assign, loglik, matmul, ops, suffstats, sweep
+from repro_torch.data.source import HostTiledSource
+from repro_torch.kernels import (assign, fold, loglik, matmul, ops, suffstats,
+                                 sweep)
 
 
 pytestmark = pytest.mark.cuda
@@ -420,3 +427,64 @@ def test_gaussian_fit_past_d128_runs_the_three_pass_kernels(dev):
     assert counts["assign_gauss"] == counts["sub_assign_gauss"] == 30
     assert counts["suffstats_labels"] > 30
     assert r.nmi(y) > 0.9, (r.nmi(y), r.history["k"])
+
+
+@pytest.mark.parametrize("nb,shape", [(977, (64,)), (977, (32, 2, 32)),
+                                      (3, (5, 2, 7, 7)), (0, (4,)),
+                                      (40, (70_001,))])
+def test_fold_partials_kernel_is_the_loop_bitwise(dev, nb, shape):
+    g = torch.Generator().manual_seed(nb)
+    acc = (torch.randn(shape, generator=g) * 1e5).to(dev)
+    parts = (torch.randn((nb,) + shape, generator=g) * 1e5).to(dev)
+    got = fold.fold_partials_cuda(acc, parts)
+    again = fold.fold_partials_cuda(acc, parts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, fold.fold_partials_plain(acc, parts))
+    with pytest.raises(ValueError, match="do not lead"):
+        fold.fold_partials_cuda(acc, parts[..., :1].contiguous())
+
+
+@pytest.mark.parametrize("n,k,d", [(1003, 5, 7), (20_000, 32, 32),
+                                   (5000, 16, 16), (3000, 4, 128),
+                                   (2000, 3, 256), (70, 300, 2)])
+def test_dense_suffstats_kernel_matches_plain(dev, n, k, d):
+    g = torch.Generator().manual_seed(d)
+    x = (torch.randn(n, d, generator=g) * 3).to(dev)
+    gam = torch._standard_gamma(torch.ones(n, k), generator=g)
+    resp = (gam / gam.sum(dim=1, keepdim=True)).to(dev)
+    resp[::7] = torch.nn.functional.one_hot(
+        torch.randint(0, k, (resp[::7].shape[0],), generator=g), k
+    ).float().to(dev)
+    got = suffstats.suffstats_cuda(x, resp)
+    again = suffstats.suffstats_cuda(x, resp)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = suffstats.suffstats_plain(x, resp)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert bool(((a - b).abs() <= 1e-4 * (b.abs() + b.abs().max()))
+                    .all())
+    with pytest.raises(ValueError, match="d=257"):
+        suffstats.suffstats_cuda(torch.zeros(4, 257, device=dev),
+                                 torch.zeros(4, 2, device=dev))
+
+
+@pytest.mark.parametrize("component,gen,d", [("gaussian", generate_gmm, 4),
+                                             ("multinomial", generate_mnmm,
+                                              32)])
+def test_tiled_fit_on_the_card_is_the_resident_fit(dev, component, gen, d):
+    x, y = gen(20_000, d, 4, seed=0)
+    cfg = dict(component=component, iters=25, burnout=5)
+    res = DPMM(DPMMConfig(**cfg)).fit(x)
+    ops.reset_launch_counts()
+    tiled = DPMM(DPMMConfig(tile_size=4096, **cfg)).fit(HostTiledSource(x))
+    assert ops.launch_counts()["fold_partials"] > 0
+    assert tiled.mode == "tiled" and tiled.copy_wait_s >= 0.0
+    np.testing.assert_array_equal(tiled.labels, res.labels)
+    for key in res.history:
+        np.testing.assert_array_equal(tiled.history[key], res.history[key])
+    for name in res.state.stats.__dataclass_fields__:
+        assert torch.equal(getattr(tiled.state.stats, name),
+                           getattr(res.state.stats, name))
+    assert tiled.nmi(y) > 0.9

@@ -203,7 +203,7 @@ def test_ops_route_cpu_tensors_to_the_plain_versions():
         "sweep_gauss": 0, "suffstats_labels": 0, "sweep_linear": 0,
         "moments_labels": 0, "loglik_gauss": 0, "assign_gauss": 0,
         "assign_linear": 0, "matmul": 0, "sub_assign_gauss": 0,
-        "sub_assign_linear": 0}
+        "sub_assign_linear": 0, "fold_partials": 0, "suffstats": 0}
 
 
 def test_ops_refuse_other_devices_and_cuda_wrappers_refuse_cpu():
