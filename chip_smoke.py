@@ -55,7 +55,8 @@ kernel's time at the final state of the fit whose launches it counts:
 ``sub_assign_gauss`` the d = 256 fit's, ``sub_assign_linear`` the
 three-pass multinomial fit's.
 ``matmul_crossover`` times ``matmul`` against ``torch.matmul`` over a
-ladder of sizes.
+ladder of sizes and at the serving products (8192 and 256 rows, K = 32
+and 128, 16 slots).
 
 Every stat fold of every fit runs through ``fold_partials`` (the per-block
 partials added to the running accumulator left to right); ``fold_check``
@@ -75,7 +76,10 @@ the share of the fit the compute stream waited on tile copies.
 point ``ops.suffstats``) against its plain version at the d = 32 and d =
 128 fits' final states, a ragged shape, d = 256 and the reference's §4.2
 shapes, and against ``suffstats_labels`` on the segments' one-hot, and
-times it beside the library route. Each phase prints one JSON line;
+times it beside the library route. ``matmul`` and the dense oracle are
+timed two ways: the median single-call time (``cuda_ms``, host time
+included: what one caller sees) and the per-launch device time of a run
+of back-to-back calls (``run_ms``). Each phase prints one JSON line;
 any failed check raises, so the script exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -200,6 +204,34 @@ def cuda_ms(fn, runs: int) -> float:
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return float(np.median(times))
+
+
+def run_ms(fn, runs: int) -> tuple:
+    """(per-launch device ms, per-call host ms) of ``runs`` back-to-back
+    calls, after a warm-up. The host time is the enqueue time of the calls
+    by the host clock. For the device time the calls are queued behind a
+    spin kernel that outlasts their enqueue, so that the card runs them
+    back to back: one event before them, one after, divided by ``runs``.
+    ``cuda_ms`` of a call whose host time exceeds its device time reads
+    the host time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / runs
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    # 2e6 cycles a ms: above the card's top SM clock, so the spin lasts at
+    # least twice the enqueue
+    torch.cuda._sleep(int(2e6 * (2 * host_ms * runs + 1)))
+    e0.record()
+    for _ in range(runs):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / runs, host_ms
 
 
 def stats_err(got, want) -> float:
@@ -956,6 +988,10 @@ def time_serve_kernels(engines, xq, assign, loglik, matmul, dev) -> dict:
         flop=2 * m * kk * n, bytes=4 * (m * kk + kk * n + m * n),
         library_ms=cuda_ms(lambda: torch.matmul(a, b), 50),
         shape=f"({m}, {kk}) @ ({kk}, {n})",
+        **dict(zip(("device_ms", "host_ms"),
+                   run_ms(lambda: matmul.matmul_cuda(a, b), 100))),
+        **dict(zip(("library_device_ms", "library_host_ms"),
+                   run_ms(lambda: torch.matmul(a, b), 100))),
         max_abs_err=rel_err(matmul.matmul_cuda(a, b),
                             matmul.matmul_plain(a, b), SERVE_RTOL,
                             "matmul at the serve step"))
@@ -968,14 +1004,15 @@ def matmul_crossover(matmul, dev) -> dict:
     """The blocked kernel against ``torch.matmul`` over a ladder of row
     counts N for (N, d) @ (d, 16) at d = 32 and 128: the least d N at
     which the library is faster (``ops.matmul_auto``'s size test; the
-    reference keeps the paper's 640,000). Also whether the library's
-    first 256 rows of an 8192-row product equal a 256-row product's, the
-    property the serving ladder needs of a row (the kernel's hold by
-    construction)."""
+    reference keeps the paper's 640,000), by single-call time (what a
+    caller sees) and by per-launch device time (``run_ms``). Also whether
+    the library's first 256 rows of an 8192-row product equal a 256-row
+    product's, the property the serving ladder needs of a row (the
+    kernel's hold by construction)."""
     out = {}
     g = torch.Generator(device=dev).manual_seed(7)
     for d in (32, 128):
-        rows, first = [], None
+        rows, first, first_dev = [], None, None
         b = torch.randn(d, 16, device=dev, generator=g)
         a = torch.randn(SERVE_B, d, device=dev, generator=g)
         invariant = {
@@ -989,12 +1026,37 @@ def matmul_crossover(matmul, dev) -> dict:
             a = torch.randn(n, d, device=dev, generator=g)
             ms_k = cuda_ms(lambda: matmul.matmul_cuda(a, b), 20)
             ms_l = cuda_ms(lambda: torch.matmul(a, b), 20)
+            dev_k, host_k = run_ms(lambda: matmul.matmul_cuda(a, b), 100)
+            dev_l, host_l = run_ms(lambda: torch.matmul(a, b), 100)
             rows.append({"n": n, "dn": d * n, "kernel_ms": ms_k,
-                         "torch_matmul_ms": ms_l})
+                         "torch_matmul_ms": ms_l, "kernel_device_ms": dev_k,
+                         "torch_matmul_device_ms": dev_l,
+                         "kernel_host_ms": host_k,
+                         "torch_matmul_host_ms": host_l})
             if first is None and ms_l < ms_k:
                 first = d * n
+            if first_dev is None and dev_l < dev_k:
+                first_dev = d * n
         out[f"d{d}"] = {"rows": rows, "first_dn_library_faster": first,
+                        "first_dn_library_faster_device": first_dev,
                         "cublas_rows_batch_invariant": invariant}
+    # the serving products at the ladder's top and bottom step (N = 16
+    # slots): the diagonal x^2 prec^T (K = 32) and the multinomial x W^T
+    # (K = d' = 128)
+    serving = {}
+    for m, k in ((SERVE_B, 32), (SERVE_B, 128), (256, 32), (256, 128)):
+        a = torch.randn(m, k, device=dev, generator=g)
+        b = torch.randn(k, 16, device=dev, generator=g)
+        r = {"kernel_ms": cuda_ms(lambda: matmul.matmul_cuda(a, b), 50),
+             "torch_matmul_ms": cuda_ms(lambda: torch.matmul(a, b), 50)}
+        r["kernel_device_ms"], r["kernel_host_ms"] = run_ms(
+            lambda: matmul.matmul_cuda(a, b), 100)
+        r["torch_matmul_device_ms"], r["torch_matmul_host_ms"] = run_ms(
+            lambda: torch.matmul(a, b), 100)
+        r["bound_ms"], r["bound_by"] = bound(
+            2 * m * k * 16, 4 * (m * k + k * 16 + m * 16))
+        serving[f"{m}x{k}x16"] = r
+    out["serving"] = serving
     return out
 
 
@@ -1305,9 +1367,12 @@ def fold_check(fold, parts, acc) -> dict:
 
 
 def dense_work(n, k, d):
-    """(FLOP, bytes) of the dense suffstats: 2 N K d^2 + 2 N K d
-    operations; x and resp read once, n, sx and sxx written once."""
-    return (2 * n * k * d * d + 2 * n * k * d,
+    """(FLOP, bytes) of the dense suffstats: the symmetric sxx needs
+    d (d + 1) / 2 products a point and cluster, so N K d (d + 1) + 2 N K d
+    operations (the kernel does all d^2, and is held to the work the
+    function needs); x and resp read once, n, sx and the whole sxx written
+    once."""
+    return (n * k * d * (d + 1) + 2 * n * k * d,
             4 * (n * d + n * k + k + k * d + k * d * d))
 
 
@@ -1329,14 +1394,21 @@ def dense_case(suffstats, x, resp, first, one_hot: bool) -> dict:
                   for g, w in zip(first, want))
     n, d = x.shape
     k = resp.shape[1]
+
+    def kern():
+        return suffstats.suffstats_cuda(x, resp)
+
+    def library():
+        return (resp.sum(dim=0), resp.T @ x,
+                torch.einsum("nk,nd,ne->kde", resp, x, x))
+
     out = {"n": n, "k": k, "d": d, "one_hot": one_hot, "max_abs_err": err,
-           "repeat_bitwise": True,
-           "ms": cuda_ms(lambda: suffstats.suffstats_cuda(x, resp), 10),
+           "repeat_bitwise": True, "ms": cuda_ms(kern, 10),
            "plain_ms": cuda_ms(lambda: suffstats.suffstats_plain(x, resp),
                                3),
-           "library_ms": cuda_ms(lambda: (
-               resp.sum(dim=0), resp.T @ x,
-               torch.einsum("nk,nd,ne->kde", resp, x, x)), 3)}
+           "library_ms": cuda_ms(library, 10)}
+    out["device_ms"], out["host_ms"] = run_ms(kern, 10)
+    out["library_device_ms"], out["library_host_ms"] = run_ms(library, 10)
     out["bound_ms"], out["bound_by"] = bound(*dense_work(n, k, d))
     return out
 
@@ -1898,7 +1970,9 @@ def main() -> None:
             "launches": sum(v[name] for v in serve_launch.values()),
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            **{key: t[key] for key in ("device_ms", "host_ms",
+                                        "library_device_ms") if key in t}})
     emit("kernel_times", n=n, d=d, k_sweep=k_c, k_live=n_act,
          k_stats=k_sm, near_tie_mismatches=ties_fit,
          linear_fit_states=fit_states,
@@ -2013,7 +2087,9 @@ def main() -> None:
         "max_abs_err": max(r["max_abs_err"] for r in dense.values()),
         "ms": dx["ms"], "plain_ms": dx["plain_ms"],
         "bound_ms": dx["bound_ms"], "bound_by": dx["bound_by"],
-        "library_ms": dx["library_ms"]})
+        "library_ms": dx["library_ms"], "device_ms": dx["device_ms"],
+        "host_ms": dx["host_ms"],
+        "library_device_ms": dx["library_device_ms"]})
     emit("matmul_crossover", nvidia_smi=gpu,
          paper_crossover_dn=640_000, **matmul_crossover(matmul, dev))
     torch.cuda.synchronize()

@@ -31,8 +31,11 @@ with ``cfg.seed``, in a fixed order, so a seed reproduces a chain on a
 given device. The resident plane copies the history rows to the host once
 per ``log_every`` chunk; the compaction check and the merge matching read
 a few O(K) values on the host each iteration. The tiled plane reads the
-history row, and so the live count its compaction is sized by, every
-iteration, as the reference's tiled plane does.
+live count its compact slab is sized by once per ``log_every`` chunk,
+with headroom 2, as the resident plane does, and not every iteration as
+the reference's tiled plane does: the slab is part of the chain (the
+Threefry top bin, ROADMAP.md §3), so the two planes' chains agree bit for
+bit only with one rule.
 
 Example::
 

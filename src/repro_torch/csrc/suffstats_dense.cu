@@ -12,116 +12,352 @@
 //
 // into one buffer laid out as n (K), sx (K, d), sxx (K, d, d).
 //
-// Design. The TPU kernel kept a (bk, d, d) output tile in VMEM and
-// revisited it over the point axis in grid order, on the matrix unit. Here
-// a thread owns one cluster k and a 4 x 4 tile (a, b) of its sxx, in
-// registers (threads whose b tile is 0 also keep sx, the thread of tile
-// (0, 0) also n); 256 consecutive (k, a tile, b tile) items make a thread
-// block. The block walks a chunk of points, P at a time staged in shared
-// memory (x rows zero-padded to a multiple of 4 columns, and the r columns
-// of the block's clusters), each thread adding its 16 products per point
-// in point order with fmaf. The point axis is cut into chunks (grid.y) so
-// that the card fills when K d^2 is small; every chunk writes its own
-// partial, and a second kernel folds the chunks left to right, one thread
-// per output element. The chunk count depends on (N, K, d) only and no
-// float atomics are used, so two launches give the same bits.
+// What bounds it. The function needs N K d (d + 1) + 2 N K d operations
+// (sxx is symmetric: d (d + 1) / 2 products a point and cluster) against
+// 4 (N d + N K + K + K d + K d^2) bytes: at N = 10^6, d = 32, K = 32 about
+// 36 GFLOP against 260 MB, bound by fp32 arithmetic (no tensor cores and
+// no TF32: the reference sums in fp32). This kernel does all d^2 products
+// (it does not mirror), about twice the operations the bound counts; the
+// design keeps the FMA units fed.
 //
-// What bounds it. 2 N K d^2 + 2 N K d operations against 4 (N d + N K + K
-// + K d + K d^2) bytes: at N = 10^6, d = 32, K = 32 about 65 GFLOP against
-// 260 MB, bound by fp32 arithmetic (no tensor cores: the reference sums in
-// fp32). Each point's staged row is read from shared memory once per
-// thread tile, 8 floats for 16 FMAs.
+// Design. The work is one product per point chunk: rows (k, a) of the
+// a-side factor r_ik x_ia against columns b of x_ib, summed over points.
+// Each cluster owns W rows of that row space, W = d rounded up to the
+// column tile BN (16, 32, 64 or 128, from d; W = ceil(d / 128) * 128 above
+// 64), and a thread block owns a BM x BN tile of it (BM = 16384 / BN):
+// for d <= 64 the whole d x d of 64, 16 or 4 clusters, above 64 one
+// 128 x 128 tile of one cluster's sxx, so a cluster's x rows are staged
+// ceil(d / 128)^2 times (4 at d = 256). Each of the 256 threads keeps an
+// 8 x 8 register tile (two groups of 4 rows BM / 2 apart, two of 4
+// columns BN / 2 apart, so a warp's float4 reads of shared memory do not
+// conflict): for every staged point it reads 16 floats and does 64 FMAs,
+// fmaf(w x_a, x_b, acc) in point order. W and BN are template parameters,
+// so every shared-memory offset of the unrolled slab is an immediate.
 //
-// Limits: 1 <= d <= 256 (the staged rows and the int tile index), K <=
-// 8192, N < 2^31.
+// The a-side factor w x_a is formed once a slab for the block's BM rows
+// (__fmul_rn, the one rounding of every product's a-side) into a shared
+// P x BM array, not by each of the BN / 8 threads that share a row: that
+// takes 8 multiplies and 2 loads out of every 80 issue slots of the FMA
+// loop. The same pass adds it, in point order, to sx (the Gram column of
+// ones: fmaf(w x_a, 1, acc) is the single rounding __fadd_rn(acc, w x_a))
+// and w to n, in the blocks of the first column tile. Index arithmetic
+// divides by compile-time constants wherever it can (a runtime integer
+// division is some 20 instructions).
+//
+// Copies in flight: a block walks its point chunk in slabs of P points;
+// each slab's x rows (16-byte cp.async where d % 4 == 0 and x is aligned,
+// 4-byte otherwise) and its clusters' r values (4-byte cp.async) go into a
+// ring of STAGES shared buffers, so slabs s + 1 and s + 2 are copied while
+// slab s is multiplied. Points past the chunk are zero-filled by the copy
+// and add nothing. Shared bytes: 4 (STAGES P (W + clusters a block) + P
+// BM) (DenseTile), at most 161,792 (d <= 16) and 115,072 at d = 256; two
+// blocks a SM above d = 16. The wrapper (kernels/suffstats.py dense_plan)
+// chooses the tile and the chunks; the launcher takes them as given.
+//
+// Order. The point axis is cut into chunks (grid.y) so that the card
+// fills; every chunk writes its own partial, and a second kernel folds the
+// chunks left to right, one thread per output element. The chunk count
+// depends on (N, d, K) only and no float atomics are used, so two
+// launches give the same bits.
+//
+// Limits: 1 <= d <= 256, K <= 8192, N < 2^31.
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace repro_torch {
 
 constexpr int DENSE_THREADS = 256;
-constexpr int DENSE_P = 32;          // points staged per step
+constexpr int DENSE_TILE = 16384;    // Gram elements a block: 256 x 8 x 8
+constexpr int DENSE_P = 32;          // points a slab
+constexpr int DENSE_STAGES = 3;      // slabs in the shared ring
 constexpr int FOLD_THREADS = 256;
+constexpr int SMEM_LIMIT = 232448;   // a Hopper block's dynamic shared bytes
 
-__global__ void __launch_bounds__(DENSE_THREADS) suffstats_dense_kernel(
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// One slab: points [p0, p0 + P) of the chunk ending at p_end, x columns
+// [0, d) into rows of W floats, r columns [k_lo, k_lo + nk) into rows of
+// NCL floats. Points at or past p_end are zero-filled. Where d == W and nk
+// == NCL (every full-width block) the element indices divide by
+// compile-time constants: a runtime division costs some 20 instructions a
+// copy, a tenth of the slab's FMA issue slots at d = 256.
+template <int W, int NCL>
+__device__ __forceinline__ void load_slab(
+    const float* __restrict__ x, const float* __restrict__ r, int d, int K,
+    int k_lo, int nk, int p0, int p_end, bool vec, float* xd, float* rd) {
+  const int tid = threadIdx.x;
+  const int left = p_end - p0;   // points of the chunk from p0 (p0 + p
+                                 // may pass 2^31 - 1 at the last slab)
+  if (vec && d == W) {
+    constexpr int Q = W / 4, E = DENSE_P * Q;
+#pragma unroll
+    for (int i = 0; i < (E + DENSE_THREADS - 1) / DENSE_THREADS; ++i) {
+      const int e = tid + i * DENSE_THREADS;
+      if (E % DENSE_THREADS == 0 || e < E) {
+        const int p = e / Q, c = e % Q;
+        const bool ok = p < left;
+        cp_async16(xd + p * W + 4 * c,
+                   ok ? x + (size_t)(p0 + p) * W + 4 * c : x, ok ? 16 : 0);
+      }
+    }
+  } else if (vec) {
+    const int d4 = d >> 2;
+    for (int e = tid; e < DENSE_P * d4; e += DENSE_THREADS) {
+      const int p = e / d4, c = e - p * d4;
+      const bool ok = p < left;
+      cp_async16(xd + p * W + 4 * c,
+                 ok ? x + (size_t)(p0 + p) * d + 4 * c : x, ok ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < DENSE_P * d; e += DENSE_THREADS) {
+      const int p = e / d, c = e - p * d;
+      const bool ok = p < left;
+      cp_async4(xd + p * W + c, ok ? x + (size_t)(p0 + p) * d + c : x,
+                ok ? 4 : 0);
+    }
+  }
+  if (nk == NCL) {
+    constexpr int E = DENSE_P * NCL;
+#pragma unroll
+    for (int i = 0; i < (E + DENSE_THREADS - 1) / DENSE_THREADS; ++i) {
+      const int e = tid + i * DENSE_THREADS;
+      if (E % DENSE_THREADS == 0 || e < E) {
+        const int p = e / NCL, c = e % NCL;
+        const bool ok = p < left;
+        cp_async4(rd + p * NCL + c,
+                  ok ? r + (size_t)(p0 + p) * K + k_lo + c : r, ok ? 4 : 0);
+      }
+    }
+  } else {
+    for (int e = tid; e < DENSE_P * nk; e += DENSE_THREADS) {
+      const int p = e / nk, c = e - p * nk;
+      const bool ok = p < left;
+      cp_async4(rd + p * NCL + c,
+                ok ? r + (size_t)(p0 + p) * K + k_lo + c : r, ok ? 4 : 0);
+    }
+  }
+}
+
+// The block tile of column tile BN and cluster width W, and its shared
+// layout: a ring of STAGES slabs of P points (W x floats and NCL r values
+// a point), then the slab's a-side factors, P x BM floats.
+template <int BN, int W>
+struct DenseTile {
+  static constexpr int BM = DENSE_TILE / BN;          // Gram rows a block
+  static constexpr int NBT = W / BN;                  // column tiles
+  static constexpr int NCL = BM / W > 0 ? BM / W : 1; // clusters a block
+  static constexpr int SMEM = (int)sizeof(float) *
+      (DENSE_STAGES * DENSE_P * (W + NCL) + DENSE_P * BM);
+  static_assert(W % BN == 0 && (NCL == 1 || BM % W == 0), "tile");
+  static_assert(SMEM <= SMEM_LIMIT, "a Hopper block's shared memory");
+};
+
+template <int BN, int W>
+__global__ void __launch_bounds__(DENSE_THREADS, 2) suffstats_dense_kernel(
     const float* __restrict__ x, const float* __restrict__ r, int n, int d,
-    int K, int chunk, float* __restrict__ part) {
+    int K, int chunk, int vec, float* __restrict__ part) {
+  using T = DenseTile<BN, W>;
+  constexpr int BM = T::BM, NBT = T::NBT, NCL = T::NCL;
+  constexpr int TXN = BN / 8;                    // threads along columns
+  constexpr int RPT = (BM + DENSE_THREADS - 1) / DENSE_THREADS;
+  // two threads a row in the a-side pass: faster at d > 128 (10.2 against
+  // 10.8 ms at 10^5 x 256, K = 32), slower at d <= 128 (4.95 against 4.83
+  // ms at 2 10^5 x 128, where every block also sums sx), on an H100 80GB
+  // HBM3 at 700 W
+  constexpr bool SPLIT = 2 * BM == DENSE_THREADS && NBT > 1;
   extern __shared__ __align__(16) float smem_f[];
-  const int dq = (d + 3) / 4, d4 = 4 * dq, tpk = dq * dq;
-  const long long items = (long long)K * tpk;
-  const long long i0 = (long long)blockIdx.x * DENSE_THREADS;
-  const int k_lo = (int)(i0 / tpk);
-  const long long i_last = i0 + DENSE_THREADS - 1 < items
-                               ? i0 + DENSE_THREADS - 1 : items - 1;
-  const int k_hi = (int)(i_last / tpk);
-  const int nkb = k_hi - k_lo + 1;
-  float* xs = smem_f;                      // DENSE_P x d4
-  float* rs = xs + DENSE_P * d4;           // DENSE_P x nkb
+  float* xs = smem_f;                              // STAGES x P x W
+  float* rs = xs + DENSE_STAGES * DENSE_P * W;     // STAGES x P x NCL
+  float* wx = rs + DENSE_STAGES * DENSE_P * NCL;   // P x BM: w x_a
+  const int tid = threadIdx.x;
+  const int bt = blockIdx.x % NBT;
+  const long long r0 = (long long)(blockIdx.x / NBT) * BM;
+  const int k_lo = (int)(r0 / W);
+  const int a_lo = (int)(r0 - (long long)k_lo * W);   // 0 or 128
+  const int nk = K - k_lo < NCL ? K - k_lo : NCL;
 
-  const long long item = i0 + threadIdx.x;
-  const bool live = item < items;
-  const int k = live ? (int)(item / tpk) : k_lo;
-  const int rem = live ? (int)(item - (long long)k * tpk) : 0;
-  const int ta = rem / dq, tb = rem - ta * dq;
-  const int kk = k - k_lo;
+  // this thread's Gram rows (block-local): two groups of 4, BM / 2 apart;
+  // its columns: two groups of 4, BN / 2 apart
+  const int tx = tid % TXN, ty = tid / TXN;
+  const int g0 = 4 * ty, g1 = g0 + BM / 2;
+  const int c0 = bt * BN + 4 * tx, c1 = c0 + BN / 2;
+  // rows past the last cluster (a block of fewer clusters, d <= 64) do no
+  // work: whole warps of them skip the FMAs at small K. A block of one
+  // cluster (d > 64) is all live.
+  const bool live = NCL == 1 || k_lo + g0 / W < K;
 
-  float acc[4][4], sx[4], nk = 0.f;
+  float acc[8][8], sx[RPT], nn[RPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    sx[i] = 0.f;
+  for (int i = 0; i < 8; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   }
+#pragma unroll
+  for (int q = 0; q < RPT; ++q) sx[q] = nn[q] = 0.f;
 
-  const int p_begin = blockIdx.y * chunk;
-  const int p_end = p_begin + chunk < n ? p_begin + chunk : n;
-  for (int p0 = p_begin; p0 < p_end; p0 += DENSE_P) {
-    const int np = p_end - p0 < DENSE_P ? p_end - p0 : DENSE_P;
-    __syncthreads();
-    for (int e = threadIdx.x; e < DENSE_P * d4; e += DENSE_THREADS) {
-      const int p = e / d4, a = e - p * d4;
-      xs[e] = (p < np && a < d) ? x[(size_t)(p0 + p) * d + a] : 0.f;
+  // x columns [d, W) and r columns [nk, NCL) stay zero: the copies write
+  // below d and nk only
+  for (int e = tid; e < DENSE_STAGES * DENSE_P * (W + NCL);
+       e += DENSE_THREADS)
+    smem_f[e] = 0.f;
+  __syncthreads();
+
+  // in 64 bits: nc chunks of whole slabs may end past 2^31 - 1 while n
+  // does not
+  const long long p_lo = (long long)blockIdx.y * chunk;
+  const int p_begin = (int)p_lo;
+  const int p_end = (int)(p_lo + chunk < n ? p_lo + chunk : n);
+  const int ns = p_end > p_begin ? (p_end - p_begin + DENSE_P - 1) / DENSE_P
+                                 : 0;
+  const bool v = vec != 0;
+#pragma unroll
+  for (int s = 0; s < DENSE_STAGES - 1; ++s) {
+    if (s < ns)
+      load_slab<W, NCL>(x, r, d, K, k_lo, nk, p_begin + s * DENSE_P, p_end,
+                        v, xs + s * DENSE_P * W, rs + s * DENSE_P * NCL);
+    cp_async_commit();
+  }
+  for (int s = 0; s < ns; ++s) {
+    cp_async_wait<DENSE_STAGES - 2>();   // slab s has landed (this thread)
+    __syncthreads();                     // ... and every thread's; slab
+                                         // s - 1's buffers and wx are free
+    const int nxt = s + DENSE_STAGES - 1;
+    if (nxt < ns) {
+      const int b = nxt % DENSE_STAGES;
+      load_slab<W, NCL>(x, r, d, K, k_lo, nk, p_begin + nxt * DENSE_P,
+                        p_end, v, xs + b * DENSE_P * W,
+                        rs + b * DENSE_P * NCL);
     }
-    for (int e = threadIdx.x; e < DENSE_P * nkb; e += DENSE_THREADS) {
-      const int p = e / nkb, c = e - p * nkb;
-      rs[e] = p < np ? r[(size_t)(p0 + p) * K + k_lo + c] : 0.f;
+    cp_async_commit();
+    const int b = s % DENSE_STAGES;
+    const float* xb = xs + b * DENSE_P * W;
+    const float* rb = rs + b * DENSE_P * NCL;
+    // the a-side factor of the block's rows, once a slab: wx[p][g] =
+    // w x_a (__fmul_rn, the one rounding of every product's a-side); the
+    // first column tile's blocks also add it to sx (the ones column:
+    // fmaf(w x_a, 1, acc) == __fadd_rn(acc, w x_a)) and w to n, in point
+    // order. With SPLIT two threads share a row, each half the slab's
+    // points; the first adds the second half's to sx and n after the
+    // barrier, so the order stays the points'.
+    if (SPLIT) {
+      const int g = tid % BM, h = tid / BM;
+      const float* xr = xb + a_lo + g;
+#pragma unroll 8
+      for (int i = 0; i < DENSE_P / 2; ++i) {
+        const int p = h * (DENSE_P / 2) + i;
+        const float w = rb[p * NCL];
+        const float f = __fmul_rn(w, xr[p * W]);
+        wx[p * BM + g] = f;
+        if (bt == 0 && h == 0) {
+          sx[0] = __fadd_rn(sx[0], f);
+          nn[0] = __fadd_rn(nn[0], w);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < RPT; ++q) {
+        const int g = tid + q * DENSE_THREADS;
+        if (g < BM && (NCL == 1 || g / W < nk)) {
+          const int kk = (a_lo + g) / W, a = a_lo + g - kk * W;
+          const float* xr = xb + a;
+          const float* rr = rb + kk;
+          if (bt == 0) {
+#pragma unroll 8
+            for (int p = 0; p < DENSE_P; ++p) {
+              const float w = rr[p * NCL];
+              const float f = __fmul_rn(w, xr[p * W]);
+              wx[p * BM + g] = f;
+              sx[q] = __fadd_rn(sx[q], f);
+              nn[q] = __fadd_rn(nn[q], w);
+            }
+          } else {
+#pragma unroll 8
+            for (int p = 0; p < DENSE_P; ++p)
+              wx[p * BM + g] = __fmul_rn(rr[p * NCL], xr[p * W]);
+          }
+        }
+      }
     }
     __syncthreads();
+    if (SPLIT && bt == 0 && tid < BM) {
+#pragma unroll 8
+      for (int p = DENSE_P / 2; p < DENSE_P; ++p) {
+        sx[0] = __fadd_rn(sx[0], wx[p * BM + tid]);
+        nn[0] = __fadd_rn(nn[0], rb[p * NCL]);
+      }
+    }
     if (!live) continue;
-    for (int p = 0; p < np; ++p) {
-      const float w = rs[p * nkb + kk];
-      const float4 xa = *reinterpret_cast<const float4*>(xs + p * d4 + 4 * ta);
-      const float4 xb = *reinterpret_cast<const float4*>(xs + p * d4 + 4 * tb);
-      const float wa[4] = {w * xa.x, w * xa.y, w * xa.z, w * xa.w};
-      const float vb[4] = {xb.x, xb.y, xb.z, xb.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+    for (int p = 0; p < DENSE_P; ++p) {
+      const float4 va0 = *reinterpret_cast<const float4*>(wx + p * BM + g0);
+      const float4 va1 = *reinterpret_cast<const float4*>(wx + p * BM + g1);
+      const float4 vb0 = *reinterpret_cast<const float4*>(xb + p * W + c0);
+      const float4 vb1 = *reinterpret_cast<const float4*>(xb + p * W + c1);
+      const float wa[8] = {va0.x, va0.y, va0.z, va0.w,
+                           va1.x, va1.y, va1.z, va1.w};
+      const float vb[8] = {vb0.x, vb0.y, vb0.z, vb0.w,
+                           vb1.x, vb1.y, vb1.z, vb1.w};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(wa[i], vb[j], acc[i][j]);
-      }
-      if (tb == 0) {
+      for (int i = 0; i < 8; ++i) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) sx[i] = __fadd_rn(sx[i], wa[i]);
-        if (ta == 0) nk = __fadd_rn(nk, w);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(wa[i], vb[j], acc[i][j]);
       }
     }
   }
-  if (!live) return;
+  cp_async_wait<0>();
+
   const size_t m = (size_t)K * (1 + d + (size_t)d * d);
   float* out = part + (size_t)blockIdx.y * m;
   float* out_sx = out + K;
   float* out_sxx = out_sx + (size_t)K * d;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int a = 4 * ta + i;
-    if (a >= d) break;
+  for (int h = 0; h < 2; ++h) {
+    const int g = a_lo + (h == 0 ? g0 : g1);
+    const int k = k_lo + g / W, a_base = g % W;
+    if (k >= K) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int b = 4 * tb + j;
-      if (b < d) out_sxx[((size_t)k * d + a) * d + b] = acc[i][j];
+    for (int i = 0; i < 4; ++i) {
+      const int a = a_base + i;
+      if (a >= d) break;
+      float* row = out_sxx + ((size_t)k * d + a) * d;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int b = j < 4 ? c0 + j : c1 + j - 4;
+        if (b < d) row[b] = acc[4 * h + i][j];
+      }
     }
-    if (tb == 0) out_sx[(size_t)k * d + a] = sx[i];
   }
-  if (ta == 0 && tb == 0) out[k] = nk;
+  if (bt != 0) return;
+#pragma unroll
+  for (int q = 0; q < RPT; ++q) {
+    const int g = tid + q * DENSE_THREADS;
+    if (g >= BM) continue;
+    const int k = k_lo + (a_lo + g) / W, a = (a_lo + g) % W;
+    if (k >= K || a >= d) continue;
+    out_sx[(size_t)k * d + a] = sx[q];
+    if (a == 0) out[k] = nn[q];
+  }
 }
 
 // out[j] = (((0 + part[0][j]) + part[1][j]) + ...): the chunks in order.
@@ -135,32 +371,60 @@ __global__ void __launch_bounds__(FOLD_THREADS) fold_chunks_kernel(
   out[j] = s;
 }
 
+template <int BN, int W>
+cudaError_t launch_dense(const float* x, const float* r, int n, int d, int K,
+                         int chunk, int nc, int smem, bool vec, float* part,
+                         cudaStream_t s) {
+  using T = DenseTile<BN, W>;
+  if (d > W || smem != T::SMEM) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      suffstats_dense_kernel<BN, W>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long gx = ((long long)K * W + T::BM - 1) / T::BM * T::NBT;
+  suffstats_dense_kernel<BN, W><<<dim3((unsigned)gx, nc), DENSE_THREADS,
+                                  smem, s>>>(x, r, n, d, K, chunk,
+                                             vec ? 1 : 0, part);
+  return cudaGetLastError();
+}
+
 }  // namespace repro_torch
 
-// nc: the point chunks, from the wrapper (kernels/suffstats.py
-// dense_chunks: about two waves of 132 SMs, a shape-only choice).
+// The launch is the wrapper's choice (kernels/suffstats.py dense_plan, a
+// function of the shape only): the tile (bn, width), one of the five
+// instantiated here, with width >= d; chunks of whole slabs, none empty;
+// smem, which must be that tile's layout.
 extern "C" int suffstats_dense_launch(const float* x, const float* r, int n,
-                                      int d, int K, int nc, float* part,
-                                      float* out, void* stream) {
+                                      int d, int K, int bn, int width,
+                                      int chunk, int nc, int smem,
+                                      float* part, float* out,
+                                      void* stream) {
   using namespace repro_torch;
-  if (n <= 0 || d <= 0 || d > 256 || K <= 0 || K > 8192 || nc <= 0)
+  if (n <= 0 || d <= 0 || K <= 0 || K > 8192 || nc <= 0 || nc > 65535 ||
+      chunk <= 0 || chunk % DENSE_P != 0 || (long long)nc * chunk < n ||
+      (long long)(nc - 1) * chunk >= n)
     return (int)cudaErrorInvalidValue;
-  const int dq = (d + 3) / 4;
-  const long long items = (long long)K * dq * dq;
-  const long long gx = (items + DENSE_THREADS - 1) / DENSE_THREADS;
-  const int chunk = (n + nc - 1) / nc;   // an empty last chunk adds zeros
-  if (gx > 0x7fffffffLL || nc > 65535) return (int)cudaErrorInvalidValue;
-  // the block's cluster span is at most DENSE_THREADS + 1 columns of r
-  const size_t smem =
-      sizeof(float) * DENSE_P * (4 * (size_t)dq + DENSE_THREADS + 1);
-  cudaError_t err = cudaFuncSetAttribute(
-      suffstats_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  const bool vec = d % 4 == 0 &&
+                   reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  suffstats_dense_kernel<<<dim3((unsigned)gx, nc), DENSE_THREADS, smem, s>>>(
-      x, r, n, d, K, chunk, part);
-  err = cudaGetLastError();
+  cudaError_t err;
+  if (bn == 16 && width == 16)
+    err = launch_dense<16, 16>(x, r, n, d, K, chunk, nc, smem, vec, part,
+                               s);
+  else if (bn == 32 && width == 32)
+    err = launch_dense<32, 32>(x, r, n, d, K, chunk, nc, smem, vec, part,
+                               s);
+  else if (bn == 64 && width == 64)
+    err = launch_dense<64, 64>(x, r, n, d, K, chunk, nc, smem, vec, part,
+                               s);
+  else if (bn == 128 && width == 128)
+    err = launch_dense<128, 128>(x, r, n, d, K, chunk, nc, smem, vec, part,
+                                 s);
+  else if (bn == 128 && width == 256)
+    err = launch_dense<128, 256>(x, r, n, d, K, chunk, nc, smem, vec, part,
+                                 s);
+  else
+    err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
   const long long m = (long long)K * (1 + d + (long long)d * d);
   fold_chunks_kernel<<<(unsigned)((m + FOLD_THREADS - 1) / FOLD_THREADS),

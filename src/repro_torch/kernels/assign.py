@@ -43,7 +43,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build, prng
-from repro_torch.kernels.suffstats import MAX_D, MAX_DP, _check_cuda
+from repro_torch.kernels.launch import check_cuda, launch
+from repro_torch.kernels.suffstats import MAX_D, MAX_DP
 from repro_torch.kernels.sweep import (LOG_2PI, NEG_INF, assign_linear_plain,
                                        sub_assign_linear_plain)
 from repro_torch.kernels.sweep import assign_plain as assign_gauss_plain
@@ -132,7 +133,7 @@ def _check_launch(name, x, width, k, max_width, what, tensors) -> None:
         raise ValueError(f"{name}: needs K >= 1 slots and points, got "
                          f"K={k}, N={n}")
     for arg, t, dtype, shape in (("x", x, F32, (n, width)),) + tensors:
-        _check_cuda(arg, t, dtype, shape, x.device)
+        check_cuda(arg, t, dtype, shape, x.device)
 
 
 def _step_e_rows(n, k, logw, active, gidx, key_z, slots):
@@ -158,12 +159,10 @@ def assign_gauss_cuda(x, mu, chol_prec, logdet_prec, logw, active, gidx,
     labels = torch.empty((n,), device=x.device, dtype=torch.int32)
     fn = build.c_function("assign_gauss", "assign_gauss_launch",
                           "piippppppipppp")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        fn(x.data_ptr(), n, d, mu.data_ptr(), chol_prec.data_ptr(),
-           logdet_prec.data_ptr(), logw.data_ptr(), active.data_ptr(),
-           slots.data_ptr(), k, gidx.data_ptr(), key_z.data_ptr(),
-           labels.data_ptr(), stream)
+    launch(fn, x.device, x.data_ptr(), n, d, mu.data_ptr(),
+           chol_prec.data_ptr(), logdet_prec.data_ptr(), logw.data_ptr(),
+           active.data_ptr(), slots.data_ptr(), k, gidx.data_ptr(),
+           key_z.data_ptr(), labels.data_ptr())
     assign_gauss_cuda.launches += 1
     return labels
 
@@ -182,11 +181,10 @@ def assign_linear_cuda(feats, w, const, logw, active, gidx, key_z,
     labels = torch.empty((n,), device=feats.device, dtype=torch.int32)
     fn = build.c_function("assign_linear", "assign_linear_launch",
                           "piipppppipppp")
-    with torch.cuda.device(feats.device):
-        stream = torch.cuda.current_stream(feats.device).cuda_stream
-        fn(feats.data_ptr(), n, dp, w.data_ptr(), const.data_ptr(),
-           logw.data_ptr(), active.data_ptr(), slots.data_ptr(), k,
-           gidx.data_ptr(), key_z.data_ptr(), labels.data_ptr(), stream)
+    launch(fn, feats.device, feats.data_ptr(), n, dp, w.data_ptr(),
+           const.data_ptr(), logw.data_ptr(), active.data_ptr(),
+           slots.data_ptr(), k, gidx.data_ptr(), key_z.data_ptr(),
+           labels.data_ptr())
     assign_linear_cuda.launches += 1
     return labels
 
@@ -207,12 +205,10 @@ def sub_assign_gauss_cuda(x, sub_mu, sub_chol_prec, sub_logdet_prec,
     sublabels = torch.empty((n,), device=x.device, dtype=torch.int32)
     fn = build.c_function("sub_assign_gauss", "sub_assign_gauss_launch",
                           "piipipppppppp")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        fn(x.data_ptr(), n, d, labels.data_ptr(), k, sub_mu.data_ptr(),
-           sub_chol_prec.data_ptr(), sub_logdet_prec.data_ptr(),
-           sublogw.data_ptr(), gidx.data_ptr(), key_zb.data_ptr(),
-           sublabels.data_ptr(), stream)
+    launch(fn, x.device, x.data_ptr(), n, d, labels.data_ptr(), k,
+           sub_mu.data_ptr(), sub_chol_prec.data_ptr(),
+           sub_logdet_prec.data_ptr(), sublogw.data_ptr(), gidx.data_ptr(),
+           key_zb.data_ptr(), sublabels.data_ptr())
     sub_assign_gauss_cuda.launches += 1
     return sublabels
 
@@ -231,11 +227,9 @@ def sub_assign_linear_cuda(feats, subw, subconst, sublogw, labels, gidx,
     sublabels = torch.empty((n,), device=feats.device, dtype=torch.int32)
     fn = build.c_function("sub_assign_linear", "sub_assign_linear_launch",
                           "piipippppppp")
-    with torch.cuda.device(feats.device):
-        stream = torch.cuda.current_stream(feats.device).cuda_stream
-        fn(feats.data_ptr(), n, dp, labels.data_ptr(), k, subw.data_ptr(),
-           subconst.data_ptr(), sublogw.data_ptr(), gidx.data_ptr(),
-           key_zb.data_ptr(), sublabels.data_ptr(), stream)
+    launch(fn, feats.device, feats.data_ptr(), n, dp, labels.data_ptr(), k,
+           subw.data_ptr(), subconst.data_ptr(), sublogw.data_ptr(),
+           gidx.data_ptr(), key_zb.data_ptr(), sublabels.data_ptr())
     sub_assign_linear_cuda.launches += 1
     return sublabels
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.launch import launch
 
 
 def fold_partials_plain(acc: torch.Tensor,
@@ -56,10 +57,8 @@ def fold_partials_cuda(acc: torch.Tensor,
     if acc.numel() == 0:
         return out
     fn = build.c_function("fold_partials", "fold_partials_launch", "pplipp")
-    with torch.cuda.device(acc.device):
-        stream = torch.cuda.current_stream(acc.device).cuda_stream
-        fn(acc.data_ptr(), parts.data_ptr(), acc.numel(), parts.shape[0],
-           out.data_ptr(), stream)
+    launch(fn, acc.device, acc.data_ptr(), parts.data_ptr(), acc.numel(),
+           parts.shape[0], out.data_ptr())
     fold_partials_cuda.launches += 1
     return out
 

@@ -21,7 +21,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.suffstats import MAX_D, _check_cuda
+from repro_torch.kernels.launch import check_cuda, launch
+from repro_torch.kernels.suffstats import MAX_D
 
 LOG_2PI = 1.8378770664093453
 
@@ -50,13 +51,11 @@ def loglik_cuda(x, mu, chol_prec, logdet_prec) -> torch.Tensor:
     for arg, t, shape in (("x", x, (n, d)), ("mu", mu, (k, d)),
                           ("chol_prec", chol_prec, (k, d, d)),
                           ("logdet_prec", logdet_prec, (k,))):
-        _check_cuda(arg, t, torch.float32, shape, x.device)
+        check_cuda(arg, t, torch.float32, shape, x.device)
     out = torch.empty((n, k), device=x.device, dtype=torch.float32)
     fn = build.c_function("loglik_gauss", "loglik_gauss_launch", "piipppipp")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        fn(x.data_ptr(), n, d, mu.data_ptr(), chol_prec.data_ptr(),
-           logdet_prec.data_ptr(), k, out.data_ptr(), stream)
+    launch(fn, x.device, x.data_ptr(), n, d, mu.data_ptr(),
+           chol_prec.data_ptr(), logdet_prec.data_ptr(), k, out.data_ptr())
     loglik_cuda.launches += 1
     return out
 

@@ -8,9 +8,9 @@ elements of the left operand this kernel runs, above it ``torch.matmul``
 
 Two versions of one function:
 
-- ``matmul_cuda``: the hand-written kernel ``csrc/matmul.cu`` (shared-memory
-  tiles, fp32 FMA in k order, no TF32); one launch per call, counted in
-  ``matmul_cuda.launches``;
+- ``matmul_cuda``: the hand-written kernel ``csrc/matmul.cu`` (a column
+  tile of ``matmul_bn(N)``, cp.async slabs, fp32 FMA in k order, no TF32);
+  one launch per call, counted in ``matmul_cuda.launches``;
 - ``matmul_plain``: ``a @ b``.
 """
 from __future__ import annotations
@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.suffstats import _check_cuda
+from repro_torch.kernels.launch import check_cuda, launch
 
 # The paper's crossover (Quadro RTX 4000), kept as the reference keeps it;
 # PERF.md has the one measured on the H100.
@@ -29,23 +29,31 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b
 
 
+def matmul_bn(n: int) -> int:
+    """Column tile of ``csrc/matmul.cu`` for N columns, chosen here only
+    (the launcher takes any of its three templates and derives the grid
+    from it): the least of 16, 32 and 64 that holds N (a slab's slots),
+    else 64, whose ceil(N / 64) tiles cover N."""
+    return 16 if n <= 16 else 32 if n <= 32 else 64
+
+
 def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """One launch of ``csrc/matmul.cu`` on the current stream."""
     m, k = a.shape
     k2, n = b.shape
-    if a.device.type != "cuda":
+    dev = a.device
+    if dev.type != "cuda":
         raise ValueError("matmul_cuda takes CUDA tensors; the plain version "
                          "serves the CPU")
     if k != k2 or 0 in (m, k, n):
         raise ValueError(f"matmul: shapes {tuple(a.shape)} @ "
                          f"{tuple(b.shape)} do not multiply")
-    _check_cuda("a", a, torch.float32, (m, k), a.device)
-    _check_cuda("b", b, torch.float32, (k, n), a.device)
-    out = torch.empty((m, n), device=a.device, dtype=torch.float32)
-    fn = build.c_function("matmul", "matmul_launch", "pppiiip")
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n, stream)
+    check_cuda("a", a, torch.float32, (m, k), dev)
+    check_cuda("b", b, torch.float32, (k, n), dev)
+    out = a.new_empty((m, n))
+    fn = build.c_function("matmul", "matmul_launch", "pppiiiip")
+    launch(fn, dev, a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n,
+           matmul_bn(n))
     matmul_cuda.launches += 1
     return out
 

@@ -40,11 +40,13 @@ einsum, over chunks of points).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from functools import lru_cache
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.launch import check_cuda, launch
 
 STATS_BLOCK = 1024
 # Floats of temporaries one chunk of the plain version may hold.
@@ -60,8 +62,16 @@ MAX_D = 256
 # k <= MAX_K (its per-chunk entry index is an int; d' rows use 64-bit
 # offsets), and d' covers the 20newsgroups vocabulary with room.
 MAX_DP = 1 << 16
-# csrc/suffstats_dense.cu: threads a block, points staged a step
-DENSE_THREADS, DENSE_P = 256, 32
+# csrc/suffstats_dense.cu, whose tile this module chooses (``dense_plan``):
+# Gram elements a block (256 threads, 8 x 8 each), points a slab, slabs in
+# the shared ring, column tiles; blocks the card runs at once (132 SMs, two
+# a SM), the fewest slabs a chunk, and a Hopper block's dynamic shared
+# bytes
+DENSE_TILE, DENSE_P, DENSE_STAGES = 16384, 32, 3
+DENSE_BN = (16, 32, 64, 128)
+DENSE_SLOTS = 132 * 2
+DENSE_MIN_SLABS = 2
+SMEM_LIMIT = 232_448
 
 Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -156,19 +166,6 @@ def moments_labels_plain(feats: torch.Tensor, labels: torch.Tensor,
     return n2, sf2
 
 
-def _check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
-                device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def suffstats_labels_cuda(x: torch.Tensor, labels: torch.Tensor,
                           sublabels: torch.Tensor, valid: torch.Tensor,
                           k: int) -> Partials:
@@ -185,21 +182,19 @@ def suffstats_labels_cuda(x: torch.Tensor, labels: torch.Tensor,
     if n == 0:
         raise ValueError("suffstats_labels: no points")
     dev = x.device
-    _check_cuda("x", x, torch.float32, (n, d), dev)
-    _check_cuda("labels", labels, torch.int32, (n,), dev)
-    _check_cuda("sublabels", sublabels, torch.int32, (n,), dev)
-    _check_cuda("valid", valid, torch.float32, (n,), dev)
+    check_cuda("x", x, torch.float32, (n, d), dev)
+    check_cuda("labels", labels, torch.int32, (n,), dev)
+    check_cuda("sublabels", sublabels, torch.int32, (n,), dev)
+    check_cuda("valid", valid, torch.float32, (n,), dev)
     nsb = n_blocks(n)
     n2 = torch.empty((nsb, k, 2), device=dev, dtype=torch.float32)
     sx2 = torch.empty((nsb, k, 2, d), device=dev, dtype=torch.float32)
     sxx2 = torch.empty((nsb, k, 2, d, d), device=dev, dtype=torch.float32)
     fn = build.c_function("suffstats_labels", "suffstats_labels_launch",
                           "piipppipppp")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        fn(x.data_ptr(), n, d, labels.data_ptr(), sublabels.data_ptr(),
-           valid.data_ptr(), k, n2.data_ptr(), sx2.data_ptr(),
-           sxx2.data_ptr(), stream)
+    launch(fn, dev, x.data_ptr(), n, d, labels.data_ptr(),
+           sublabels.data_ptr(), valid.data_ptr(), k, n2.data_ptr(),
+           sx2.data_ptr(), sxx2.data_ptr())
     suffstats_labels_cuda.launches += 1
     return n2, sx2, sxx2
 
@@ -223,19 +218,18 @@ def moments_labels_cuda(feats: torch.Tensor, labels: torch.Tensor,
     if n == 0:
         raise ValueError("moments_labels: no points")
     dev = feats.device
-    _check_cuda("feats", feats, torch.float32, (n, dp), dev)
-    _check_cuda("labels", labels, torch.int32, (n,), dev)
-    _check_cuda("sublabels", sublabels, torch.int32, (n,), dev)
-    _check_cuda("valid", valid, torch.float32, (n,), dev)
+    check_cuda("feats", feats, torch.float32, (n, dp), dev)
+    check_cuda("labels", labels, torch.int32, (n,), dev)
+    check_cuda("sublabels", sublabels, torch.int32, (n,), dev)
+    check_cuda("valid", valid, torch.float32, (n,), dev)
     nsb = n_blocks(n)
     n2 = torch.empty((nsb, k, 2), device=dev, dtype=torch.float32)
     sf2 = torch.empty((nsb, k, 2, dp), device=dev, dtype=torch.float32)
     fn = build.c_function("moments_labels", "moments_labels_launch",
                           "piipppippp")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        fn(feats.data_ptr(), n, dp, labels.data_ptr(), sublabels.data_ptr(),
-           valid.data_ptr(), k, n2.data_ptr(), sf2.data_ptr(), stream)
+    launch(fn, dev, feats.data_ptr(), n, dp, labels.data_ptr(),
+           sublabels.data_ptr(), valid.data_ptr(), k, n2.data_ptr(),
+           sf2.data_ptr())
     moments_labels_cuda.launches += 1
     return n2, sf2
 
@@ -243,14 +237,60 @@ def moments_labels_cuda(feats: torch.Tensor, labels: torch.Tensor,
 moments_labels_cuda.launches = 0
 
 
-def dense_chunks(n: int, d: int, k: int) -> int:
-    """Point chunks of ``csrc/suffstats_dense.cu`` for (n, d, k): enough
-    thread blocks of DENSE_THREADS (k, 4 x 4 tile) items for about two
-    waves of 132 SMs, each chunk about DENSE_P points or more. It depends
-    on the shape only, so two launches fold the same chunks."""
-    dq = -(-d // 4)
-    gx = -(-(k * dq * dq) // DENSE_THREADS)
-    return max(1, min(-(-2 * 132 * 4 // gx), n // DENSE_P))
+class DensePlan(NamedTuple):
+    """The launch of ``csrc/suffstats_dense.cu``: its template (bn, width),
+    grid (gx blocks a chunk, nc chunks of ``chunk`` points) and dynamic
+    shared bytes."""
+    bn: int      # Gram columns a block
+    width: int   # rows a cluster and staged floats a point: a multiple of bn
+    gx: int      # blocks a point chunk
+    chunk: int   # points a chunk, whole slabs
+    nc: int      # point chunks, none empty
+    smem: int    # dynamic shared bytes a block
+
+
+def dense_chunks(n: int, gx: int) -> Tuple[int, int]:
+    """(points a chunk, chunks) for N points and ``gx`` blocks a chunk. The
+    target count: at least two waves of DENSE_SLOTS blocks, the count in
+    [c, 2c] that wastes the least of the last wave (the smallest of
+    equals), one chunk when ``gx`` alone makes two waves. Each chunk is
+    whole slabs, at least DENSE_MIN_SLABS (a chunk's partial is K (1 + d +
+    d^2) floats to write and fold, whatever its points), so the count may
+    come out lower. A function of the shape only, so two launches fold the
+    same chunks."""
+    if gx >= 2 * DENSE_SLOTS:
+        target = 1
+    else:
+        lo = -(-2 * DENSE_SLOTS // gx)
+        target = max(range(lo, 2 * lo + 1), key=lambda c: (
+            gx * c / (-(-gx * c // DENSE_SLOTS) * DENSE_SLOTS), -c))
+    slabs = -(-n // DENSE_P)
+    # a chunk's points are an int in the kernel: below 2^31
+    per = min(max(DENSE_MIN_SLABS, -(-slabs // target)),
+              (2 ** 31 - 1) // DENSE_P)
+    return per * DENSE_P, -(-slabs // per)
+
+
+@lru_cache(maxsize=256)
+def dense_plan(n: int, d: int, k: int) -> DensePlan:
+    """The dense kernel's launch for (n, d, k), chosen here only: the
+    launcher takes it as given and refuses only a template it does not
+    hold or shared bytes other than that template's layout. Column tile
+    bn from d (the least of DENSE_BN that holds d, else 128 and ceil(d /
+    128) tiles); each cluster ``width`` rows, so a block of DENSE_TILE //
+    bn rows holds whole clusters (d <= 64) or one 128 x 128 tile of one
+    (d > 64); the chunks; and the shared bytes: a ring of DENSE_STAGES
+    slabs of DENSE_P points, each a row of ``width`` x floats and one r
+    value a cluster of the block, and the slab's a-side factors, DENSE_P
+    floats a block row."""
+    bn = next((b for b in DENSE_BN if b >= d), DENSE_BN[-1])
+    bm = DENSE_TILE // bn
+    nbt = -(-d // bn)
+    width = nbt * bn
+    ncl = max(1, bm // width)
+    gx = -(-(k * width) // bm) * nbt
+    smem = 4 * (DENSE_STAGES * DENSE_P * (width + ncl) + DENSE_P * bm)
+    return DensePlan(bn, width, gx, *dense_chunks(n, gx), smem)
 
 
 def suffstats_plain(x: torch.Tensor, resp: torch.Tensor
@@ -294,18 +334,17 @@ def suffstats_cuda(x: torch.Tensor, resp: torch.Tensor
     if not 1 <= n < 2 ** 31:
         raise ValueError(f"suffstats: N={n} outside [1, 2^31)")
     dev = x.device
-    _check_cuda("x", x, torch.float32, (n, d), dev)
-    _check_cuda("resp", resp, torch.float32, (n, k), dev)
-    nc = dense_chunks(n, d, k)
+    check_cuda("x", x, torch.float32, (n, d), dev)
+    check_cuda("resp", resp, torch.float32, (n, k), dev)
+    plan = dense_plan(n, d, k)
     m = k * (1 + d + d * d)
-    part = torch.empty((nc, m), device=dev, dtype=torch.float32)
+    part = torch.empty((plan.nc, m), device=dev, dtype=torch.float32)
     out = torch.empty((m,), device=dev, dtype=torch.float32)
     fn = build.c_function("suffstats_dense", "suffstats_dense_launch",
-                          "ppiiiippp")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        fn(x.data_ptr(), resp.data_ptr(), n, d, k, nc, part.data_ptr(),
-           out.data_ptr(), stream)
+                          "ppiiiiiiiippp")
+    launch(fn, dev, x.data_ptr(), resp.data_ptr(), n, d, k, plan.bn,
+           plan.width, plan.chunk, plan.nc, plan.smem, part.data_ptr(),
+           out.data_ptr())
     suffstats_cuda.launches += 1
     return (out[:k], out[k:k + k * d].view(k, d),
             out[k + k * d:].view(k, d, d))

@@ -41,10 +41,10 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build, prng
+from repro_torch.kernels.launch import check_cuda, launch
 from repro_torch.kernels.suffstats import (CHUNK_FLOATS, MAX_DP,
-                                           STATS_BLOCK, _check_cuda,
-                                           block_moments, block_partials,
-                                           n_blocks)
+                                           STATS_BLOCK, block_moments,
+                                           block_partials, n_blocks)
 
 # Inactive-cluster mask of step (e), as in the reference kernels.
 NEG_INF = -1e30
@@ -206,7 +206,7 @@ def sweep_gauss_cuda(x, mu, chol_prec, logdet_prec, logw, active, sub_mu,
             ("sublogw", sublogw, f32, (k, 2)), ("valid", valid, f32, (n,)),
             ("gidx", gidx, i64, (n,)), ("key_z", key_z, i64, (2,)),
             ("key_zb", key_zb, i64, (2,)), ("slots", slots, i32, (k,))):
-        _check_cuda(name, t, dtype, shape, dev)
+        check_cuda(name, t, dtype, shape, dev)
     nsb = n_blocks(n)
     labels = torch.empty((n,), device=dev, dtype=i32)
     sublabels = torch.empty((n,), device=dev, dtype=i32)
@@ -215,15 +215,13 @@ def sweep_gauss_cuda(x, mu, chol_prec, logdet_prec, logw, active, sub_mu,
     sxx2 = torch.empty((nsb, k, 2, d, d), device=dev, dtype=f32)
     fn = build.c_function("sweep_gauss", "sweep_gauss_launch",
                           "piippppppi" + "p" * 14)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        fn(x.data_ptr(), n, d, mu.data_ptr(), chol_prec.data_ptr(),
+    launch(fn, dev, x.data_ptr(), n, d, mu.data_ptr(), chol_prec.data_ptr(),
            logdet_prec.data_ptr(), logw.data_ptr(), active.data_ptr(),
            slots.data_ptr(), k, sub_mu.data_ptr(), sub_chol_prec.data_ptr(),
            sub_logdet_prec.data_ptr(), sublogw.data_ptr(), valid.data_ptr(),
            gidx.data_ptr(), key_z.data_ptr(), key_zb.data_ptr(),
            labels.data_ptr(), sublabels.data_ptr(), n2.data_ptr(),
-           sx2.data_ptr(), sxx2.data_ptr(), stream)
+           sx2.data_ptr(), sxx2.data_ptr())
     sweep_gauss_cuda.launches += 1
     return labels, sublabels, n2, sx2, sxx2
 
@@ -327,7 +325,7 @@ def sweep_linear_cuda(feats, w, const, logw, active, subw, subconst,
             ("sublogw", sublogw, f32, (k, 2)), ("valid", valid, f32, (n,)),
             ("gidx", gidx, i64, (n,)), ("key_z", key_z, i64, (2,)),
             ("key_zb", key_zb, i64, (2,)), ("slots", slots, i32, (k,))):
-        _check_cuda(name, t, dtype, shape, dev)
+        check_cuda(name, t, dtype, shape, dev)
     nsb = n_blocks(n)
     labels = torch.empty((n,), device=dev, dtype=i32)
     sublabels = torch.empty((n,), device=dev, dtype=i32)
@@ -335,14 +333,12 @@ def sweep_linear_cuda(feats, w, const, logw, active, subw, subconst,
     sf2 = torch.empty((nsb, k, 2, dp), device=dev, dtype=f32)
     fn = build.c_function("sweep_linear", "sweep_linear_launch",
                           "piipppppi" + "p" * 12)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        fn(feats.data_ptr(), n, dp, w.data_ptr(), const.data_ptr(),
+    launch(fn, dev, feats.data_ptr(), n, dp, w.data_ptr(), const.data_ptr(),
            logw.data_ptr(), active.data_ptr(), slots.data_ptr(), k,
            subw.data_ptr(), subconst.data_ptr(), sublogw.data_ptr(),
            valid.data_ptr(), gidx.data_ptr(), key_z.data_ptr(),
            key_zb.data_ptr(), labels.data_ptr(), sublabels.data_ptr(),
-           n2.data_ptr(), sf2.data_ptr(), stream)
+           n2.data_ptr(), sf2.data_ptr())
     sweep_linear_cuda.launches += 1
     return labels, sublabels, n2, sf2
 

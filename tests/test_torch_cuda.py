@@ -470,6 +470,89 @@ def test_dense_suffstats_kernel_matches_plain(dev, n, k, d):
                                  torch.zeros(4, 2, device=dev))
 
 
+@pytest.mark.parametrize("k", [1, 5, 32, 300])
+@pytest.mark.parametrize("d", [1, 3, 63, 64, 129, 256])
+def test_dense_suffstats_kernel_tiles(dev, d, k):
+    """Every tile of the dense kernel (column tiles of 16 to 128, several
+    clusters a block or a cluster over 2 x 2 tiles, a last block of fewer
+    clusters) on N = 677, not a multiple of the 32-point slab, over several
+    chunks: repeat bitwise, within 1e-4 of the plain version, counts exact
+    on one-hot rows; where d % 4 == 0, x one float off 16-byte alignment
+    (the 4-byte copies) gives the 16-byte copies' bits."""
+    n = 677
+    g = torch.Generator().manual_seed(1000 * d + k)
+    x = (torch.randn(n, d, generator=g) * 3).to(dev)
+    hot = torch.nn.functional.one_hot(torch.randint(0, k, (n,), generator=g),
+                                      k).float().to(dev)
+    gam = torch._standard_gamma(torch.ones(n, k), generator=g)
+    soft = (gam / gam.sum(dim=1, keepdim=True)).to(dev)
+    for resp, one_hot in ((hot, True), (soft, False)):
+        got = suffstats.suffstats_cuda(x, resp)
+        again = suffstats.suffstats_cuda(x, resp)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        want = suffstats.suffstats_plain(x, resp)
+        if one_hot:
+            assert torch.equal(got[0], want[0])
+        for a, b in zip(got, want):
+            assert a.shape == b.shape
+            assert bool(((a - b).abs() <= 1e-4 * (b.abs() + b.abs().max()))
+                        .all())
+        if d % 4 == 0:
+            xu = torch.empty(n * d + 1, device=dev)[1:].view(n, d)
+            xu.copy_(x)
+            assert all(torch.equal(a, b) for a, b in
+                       zip(suffstats.suffstats_cuda(xu, resp), got))
+
+
+def test_dense_suffstats_kernel_counts_the_last_chunk_near_2_31(dev):
+    """N = 2^31 - 1 points at d = K = 1: the chunks' ends pass 2^31 - 1
+    (whole slabs), and the last chunk's points still count. x is 0 but for
+    its first and last point, so sx and sxx are exact."""
+    n = 2 ** 31 - 1
+    p = suffstats.dense_plan(n, 1, 1)
+    assert p.nc * p.chunk >= 2 ** 31
+    x = torch.zeros((n, 1), device=dev)
+    x[0], x[-1] = 1.0, 2.0
+    resp = torch.ones((n, 1), device=dev)
+    _, sx, sxx = suffstats.suffstats_cuda(x, resp)
+    assert sx.item() == 3.0 and sxx.item() == 5.0
+    del x, resp
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("m", [1, 255, 8192])
+@pytest.mark.parametrize("kd", [1, 32, 128, 300])
+@pytest.mark.parametrize("n", [1, 16, 17, 33, 64])
+def test_matmul_kernel_tiles(dev, m, kd, n):
+    """Every column tile of the product (BN = 16, 32, 64), one to many K
+    slabs, a ragged last K slab and row block: repeat bitwise, within 1e-5
+    of the plain version."""
+    g = torch.Generator().manual_seed(7 * m + 3 * kd + n)
+    a = torch.randn(m, kd, generator=g).to(dev)
+    b = torch.randn(kd, n, generator=g).to(dev)
+    got = matmul.matmul_cuda(a, b)
+    assert torch.equal(got, matmul.matmul_cuda(a, b))
+    _rel_close(got, matmul.matmul_plain(a, b))
+
+
+@pytest.mark.parametrize("kd", [1, 32, 128, 300])
+@pytest.mark.parametrize("n", [1, 16, 17, 33, 64])
+def test_matmul_rows_do_not_depend_on_the_batch(dev, kd, n):
+    """Rows 0-255 of an 8192-row product are a 256-row product's, bit for
+    bit (the serving ladder's property), and A one float off 16-byte
+    alignment (the 4-byte copies) gives the same bits."""
+    g = torch.Generator().manual_seed(kd + 100 * n)
+    a = torch.randn(8192, kd, generator=g).to(dev)
+    b = torch.randn(kd, n, generator=g).to(dev)
+    full = matmul.matmul_cuda(a, b)
+    assert torch.equal(matmul.matmul_cuda(a[:256].contiguous(), b),
+                       full[:256])
+    au = torch.empty(8192 * kd + 1, device=dev)[1:].view(8192, kd)
+    au.copy_(a)
+    assert torch.equal(matmul.matmul_cuda(au, b), full)
+
+
 @pytest.mark.parametrize("component,gen,d", [("gaussian", generate_gmm, 4),
                                              ("multinomial", generate_mnmm,
                                               32)])
