@@ -9,7 +9,9 @@ sweep_linear, moments_labels, at the multinomial fit's width, the diagonal
 Gaussian pack and the 20newsgroups width d' = 20,000;
 ``kernel_check_serve``: loglik_gauss, assign_gauss at d = 32 and 128,
 assign_linear at d' = 128 and 20,000, matmul, at one serving step of
-8192 rows). Then it runs
+8192 rows; ``kernel_check_wide``: loglik_gauss and assign_gauss past
+d = 256, at d = 300 and 512, with ragged rows bitwise the whole's). Then
+it runs
 ``DPMM.fit`` (k_max = 64, 40 iterations, 16 true clusters) on a
 1,000,000 x 32 Gaussian mixture (``fit``), on a 1,000,000 x 128
 multinomial mixture — the top of the paper's DPMNMM grid —
@@ -43,7 +45,10 @@ mixture as one request and as requests of 1 to 9,000 rows (bitwise equal
 to the same rows of the whole), is held against an engine on the kernels'
 plain versions on the same card, must reach NMI >= 0.9 for ``predict``,
 swaps to a redrawn model, and reports latency by request size
-(``serve_<family>``, ``serve_gaussian_d256``). ``kernel_times`` also
+(``serve_<family>``, ``serve_gaussian_d256``). A d = 384 Gaussian model
+built from labelled points of its mixture (no fit: a fit past d = 256
+needs suffstats_labels there) is served the same way
+(``serve_gaussian_wide``). ``kernel_times`` also
 times the serving kernels at one step. ``kernel_check_three_pass`` holds
 ``sub_assign_gauss`` (at the d = 32 fit's final state) and
 ``sub_assign_linear`` (at the multinomial and diagonal-Gaussian fits'
@@ -173,6 +178,12 @@ FAULTS = dict(seed=5, p_io=0.05, p_nan=0.05, p_short=0.05)
 # comparison shapes (N, K, d) (benchmarks/bench_kernels.py).
 DENSE_REF_SHAPES = ((2_000, 16, 16), (10_000, 32, 32))
 DENSE_D256_N = 100_000
+# Past d = 256 (the panel layout of assign_gauss / loglik_gauss): the
+# widths held against the plain versions at one serving step, and a served
+# d = 384 model built from labelled points of its mixture (no fit: a fit
+# past d = 256 needs suffstats_labels there, ROADMAP.md §3).
+WIDE_CHECK_DS = (300, 512)
+WIDE_SERVE_D, WIDE_SERVE_FIT_N, WIDE_SERVE_K_MAX = 384, 40_000, 32
 
 
 def emit(phase: str, **fields) -> None:
@@ -732,6 +743,89 @@ def check_serve_kernels(sweep, suffstats, assign, loglik, matmul, news_np,
         out[f"matmul_{m}x{k}x{n}"] = {"max_abs_err": rel_err(
             c, matmul.matmul_plain(a, b), SERVE_RTOL, "matmul")}
     return out
+
+
+def check_wide_kernels(assign, loglik, dev) -> dict:
+    """``loglik_gauss`` and ``assign_gauss`` past d = 256 (the panel
+    layout) against their plain versions at one serving step of SERVE_B
+    rows (the ``kernel_check_serve`` operands at d in WIDE_CHECK_DS):
+    log-likelihoods within SERVE_RTOL, labels exact except float64-proven
+    near-ties, repeat launches and the rows of a ragged request bitwise
+    equal, and each timed."""
+    out = {}
+    for d in WIDE_CHECK_DS:
+        args = gauss_step_e_args(SERVE_B, d, SERVE_KC, SERVE_LIVE, dev,
+                                 seed=d)
+        ll = loglik.loglik_cuda(*args[:4])
+        lab = assign.assign_gauss_cuda(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(ll, loglik.loglik_cuda(*args[:4]))
+                and torch.equal(lab, assign.assign_gauss_cuda(*args))):
+            fail(f"d={d}: two launches on the same inputs differ")
+        lo, hi = 5, 305
+        part = (args[0][lo:hi].contiguous(),) + args[1:6] + (
+            args[6][lo:hi].contiguous(),) + args[7:]
+        if not (torch.equal(loglik.loglik_cuda(*part[:4]), ll[lo:hi])
+                and torch.equal(assign.assign_gauss_cuda(*part),
+                                lab[lo:hi])):
+            fail(f"d={d}: a ragged request's rows differ from the whole's")
+        plan = assign.panel_plan(SERVE_B, d, SERVE_KC)
+        out[f"gauss_d{d}"] = {
+            "plan": plan._asdict(),
+            "loglik_gauss_max_abs_err": rel_err(
+                ll, loglik.loglik_plain(*args[:4]), SERVE_RTOL,
+                f"loglik_gauss d={d}"),
+            "assign_gauss_near_tie_mismatches": assign_ties(
+                assign, True, args, lab, assign.assign_gauss_plain(*args)),
+            "loglik_gauss_ms": cuda_ms(
+                lambda: loglik.loglik_cuda(*args[:4]), 20),
+            "loglik_plain_ms": cuda_ms(
+                lambda: loglik.loglik_plain(*args[:4]), 3),
+            "assign_gauss_ms": cuda_ms(
+                lambda: assign.assign_gauss_cuda(*args), 20),
+            "assign_plain_ms": cuda_ms(
+                lambda: assign.assign_gauss_plain(*args), 3)}
+    return out
+
+
+def synthetic_gauss_state(x_np, y_np, k_max: int, dev):
+    """A Gaussian ``ModelState`` of the mixture ``x_np`` was drawn from,
+    without a fit: the stats of the generator's labels (sub-labels by
+    point parity) summed on the card, posterior-mean parameters from the
+    fit's default prior (random means, well-conditioned factors), weights
+    from the counts, the first 16 of ``k_max`` slots live."""
+    import types
+    from repro_torch.configs import DPMMConfig
+    from repro_torch.core import niw
+    from repro_torch.core.state import ModelState
+    x = torch.as_tensor(x_np, device=dev)
+    n, d = x.shape
+    seg = (torch.as_tensor(y_np, device=dev).long() * 2
+           + torch.arange(n, device=dev) % 2)
+    n2 = torch.zeros(2 * k_max, device=dev).index_add_(
+        0, seg, torch.ones(n, device=dev))
+    sx2 = torch.zeros(2 * k_max, d, device=dev).index_add_(0, seg, x)
+    sxx2 = torch.zeros(2 * k_max, d, d, device=dev)
+    for s_ in torch.unique(seg).tolist():
+        xs = x[seg == s_]
+        sxx2[s_] = xs.T @ xs
+    sub = niw.GaussStats(n2.view(k_max, 2), sx2.view(k_max, 2, d),
+                         sxx2.view(k_max, 2, d, d))
+    stats = niw.GaussStats(sub.n.sum(1), sub.sx.sum(1), sub.sxx.sum(1))
+    prior = niw.build_prior(DPMMConfig(), x.mean(dim=0, keepdim=True))
+    active = stats.n > 0
+    logw = torch.where(active, torch.log(stats.n.clamp(min=1) / n),
+                       -1e30).to(torch.float32)
+    sublogw = torch.log(sub.n.clamp(min=1)
+                        / stats.n.clamp(min=2)[:, None]).to(torch.float32)
+    state = ModelState(
+        key=torch.zeros(2, dtype=torch.int64, device=dev), it=0,
+        active=active, logweights=logw, sub_logweights=sublogw,
+        stuck=torch.zeros(k_max, dtype=torch.int32, device=dev),
+        params=niw.expected_params(prior, stats),
+        subparams=niw.expected_params(prior, sub), stats=stats,
+        substats=sub)
+    return types.SimpleNamespace(state=state)
 
 
 def assign_ties(assign, gauss: bool, args, got, want) -> int:
@@ -1326,6 +1420,8 @@ def kernels_d256(res, launches, x_np, cfg, gibbs, sampler, assign,
         out[name] = {"ms": cuda_ms(kern, 10), "plain_ms": cuda_ms(plain, 1),
                      "bound_ms": b, "bound_by": by,
                      "launches_per_iter": launches[name] / cfg.iters}
+        if name in ("assign_gauss", "loglik_gauss"):
+            out[name]["device_ms"], out[name]["host_ms"] = run_ms(kern, 10)
     out["assign_gauss"]["near_tie_mismatches"] = e_ties
     out["sub_assign_gauss"]["near_tie_mismatches"] = f_check[
         "near_tie_mismatches"]
@@ -1608,6 +1704,13 @@ def main() -> None:
          rtol=SERVE_RTOL, **check_serve_kernels(
              sweep, suffstats, assign, loglik, matmul, news_np, dev))
 
+    # past d = 256: the panel layout against the plain versions
+    t0 = time.perf_counter()
+    wide = check_wide_kernels(assign, loglik, dev)
+    emit("kernel_check_wide", n=SERVE_B, k=SERVE_KC, k_live=SERVE_LIVE,
+         rtol=SERVE_RTOL, seconds=time.perf_counter() - t0, nvidia_smi=gpu,
+         **wide)
+
     # (5) the main path: DPMM.fit on the card through the kernels
     x_np, y_np = generate_gmm(FIT_N, FIT_D, FIT_K, seed=0)
     cfg = DPMMConfig(**FIT_CFG)
@@ -1870,6 +1973,19 @@ def main() -> None:
                 name, fit_res, fam_name, xq[name], yq[name], x_fit,
                 Path(tmp), gpu)
             emit(f"serve_{name}", **report)
+        # a Gaussian model past d = 256, built from labelled points
+        t0 = time.perf_counter()
+        xw_np, yw_np = generate_gmm(WIDE_SERVE_FIT_N, WIDE_SERVE_D, FIT_K,
+                                    seed=0)
+        xq["gaussian_wide"], yq["gaussian_wide"] = generate_gmm(
+            SERVE_ROWS, WIDE_SERVE_D, FIT_K, seed=0)
+        report, _, serve_launch["gaussian_wide"] = serve_model(
+            "gaussian_wide", synthetic_gauss_state(
+                xw_np, yw_np, WIDE_SERVE_K_MAX, dev), "gaussian",
+            xq["gaussian_wide"], yq["gaussian_wide"], xw_np, Path(tmp), gpu)
+        emit("serve_gaussian_wide", fit_points=WIDE_SERVE_FIT_N,
+             seconds=time.perf_counter() - t0, **report)
+        del xw_np, yw_np, xq["gaussian_wide"], yq["gaussian_wide"]
     serve_times = time_serve_kernels(engines, xq, assign, loglik, matmul,
                                      dev)
 
@@ -1972,7 +2088,10 @@ def main() -> None:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **{key: t[key] for key in ("device_ms", "host_ms",
-                                        "library_device_ms") if key in t}})
+                                        "library_device_ms") if key in t},
+            **({"d256": {key: k256[name][key] for key in (
+                "ms", "device_ms", "plain_ms", "bound_ms")}}
+               if name in ("assign_gauss", "loglik_gauss") else {})})
     emit("kernel_times", n=n, d=d, k_sweep=k_c, k_live=n_act,
          k_stats=k_sm, near_tie_mismatches=ties_fit,
          linear_fit_states=fit_states,

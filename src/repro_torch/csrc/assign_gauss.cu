@@ -1,6 +1,7 @@
 // Step (e) alone for the full-covariance Gaussian family, on an NVIDIA
 // Hopper card (sm_90a): labels of a batch of points under a model, the
-// posterior draw DPMMEngine.sample serves.
+// posterior draw DPMMEngine.sample serves and the first pass of the
+// three-pass sweep (ComponentFamily.sweep_ref).
 //
 // Replaces the TPU kernel src/repro/kernels/assign.py:assign_gauss
 // (_assign_gauss_kernel). Per point i with Gumbel counter gidx[i]:
@@ -9,25 +10,33 @@
 //                          inactive) + Gumbel(key_z, gidx_i, slots_k) ]
 //
 // Design. The TPU kernel's grid (point blocks, K tiles) ran the K axis in
-// order and carried the running (max, argmax) in VMEM scratch; here a
-// thread block owns PB points and loops over the K tiles itself, with the
-// device code of the sweep's step (e) (assign_tile.cuh, gauss_assign_narrow
-// for d <= 64 and gauss_assign_wide for d <= 128): the same tile staging,
-// inactive-slot skip, Threefry counters and strict-`>` first max, so a
-// label equals the one the sweep would draw for the same inputs. For
-// 128 < d <= 256, where a factor (up to 256 KiB) exceeds a block's shared
-// memory and there is no one-read sweep, gauss_assign_panel stages each
-// active slot's factor in 64-column panels for a block of 64 points. The
-// (N, K) logits never exist in device memory.
+// order and carried the running (max, argmax) in VMEM scratch. Here, for
+// d <= 128, a thread block owns PB points and loops over the K tiles
+// itself, with the device code of the sweep's step (e) (assign_tile.cuh,
+// gauss_assign_narrow for d <= 64 and gauss_assign_wide for d <= 128): the
+// same tile staging, inactive-slot skip, Threefry counters and strict-`>`
+// first max, so a label equals the one the sweep would draw for the same
+// inputs. For d > 128 (no one-read sweep) the grid is point tiles x slot
+// groups (kernels/assign.py panel_plan) and each block runs the panel
+// layout of assign_tile.cuh (gauss_panel): (X - mu_k) F_k for each active
+// slot as an output-stationary 8 x 8 register tile fed by a cp.async ring
+// of row slabs, any d. With more than one group, each group writes its
+// running (max, first argmax) to scratch the wrapper allocates and a
+// second launch (panel_fold_groups) takes the groups in slot order with
+// strict `>`: the label of one walk over all slots, bit for bit, and no
+// float atomics. The (N, K) logits never exist in device memory.
 //
-// What bounds it. 2 N K_live d^2 FLOP of fp32 FMA against N d 4 bytes of
-// points and K d^2 4 bytes of factors: at a serving step (N = 8192, 16
-// live slots, d = 32) 0.27 GFLOP, about 4 us at 67 TFLOP/s, so it is bound
-// by the CUDA cores' fp32 rate; at that size a launch is mostly latency.
-// At the d = 256 fit (N = 1e5, 17 live slots) it is 0.23 TFLOP, 3.4 ms at
-// 67 TFLOP/s.
+// What bounds it. 2 N K_live d (d + 1) FLOP of fp32 FMA against N d 4
+// bytes of points and K d^2 4 bytes of factors: at a serving step
+// (N = 8192, 16 live slots, d = 32) 0.27 GFLOP, about 4 us at 67 TFLOP/s,
+// so it is bound by the CUDA cores' fp32 rate; at that size a launch is
+// mostly latency. At the d = 256 fit's state (N = 4e5, 16 live slots of
+// 32) it is 0.84 TFLOP, 12.6 ms at 67 TFLOP/s. No tensor cores and no
+// TF32: at d = 256 a |y|^2 in the hundreds keeps about three digits in
+// TF32, and label near-ties would become mismatches.
 //
-// Limits: 1 <= d <= 256, 1 <= K.
+// Limits: 1 <= d, 1 <= K, N < 2^31 (ints); factors past d = 128 are read
+// with 64-bit offsets.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -80,20 +89,21 @@ __global__ void __launch_bounds__(WIDE_THREADS) assign_gauss_wide_kernel(
   for (int p = threadIdx.x; p < np; p += blockDim.x) labels[base + p] = lab[p];
 }
 
-__global__ void __launch_bounds__(PANEL_THREADS) assign_gauss_panel_kernel(
-    const float* __restrict__ x, int n, int d, const float* __restrict__ mu,
-    const float* __restrict__ chol, const float* __restrict__ logdet,
-    const float* __restrict__ logw, const int* __restrict__ active,
-    const int* __restrict__ slots, int K, const long long* __restrict__ gidx,
-    const long long* __restrict__ key_z, float half_d_log2pi,
-    int* __restrict__ labels) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const size_t base = (size_t)blockIdx.x * PANEL_PB;
-  const int np = min((long long)PANEL_PB, (long long)n - (long long)base);
-  gauss_assign_panel(x + base * d, np, d, gidx + base, mu, chol, logdet, logw,
-                     active, slots, K, (uint32_t)key_z[0], (uint32_t)key_z[1],
-                     half_d_log2pi, reinterpret_cast<float*>(smem),
-                     labels + base);
+template <int BM>
+__global__ void __launch_bounds__(PanelTile<BM>::THREADS, 2)
+    assign_gauss_panel_kernel(
+        const float* __restrict__ x, int n, int d,
+        const float* __restrict__ mu, const float* __restrict__ chol,
+        const float* __restrict__ logdet, const float* __restrict__ logw,
+        const int* __restrict__ active, const int* __restrict__ slots, int K,
+        int per, const long long* __restrict__ gidx,
+        const long long* __restrict__ key_z, float half_d_log2pi, int vec,
+        float* __restrict__ best_out, int* __restrict__ lab_out) {
+  extern __shared__ __align__(16) float panel_smem[];
+  gauss_panel<BM, true>(x, n, d, mu, chol, logdet, logw, active, slots, K,
+                        per, gidx, (uint32_t)key_z[0], (uint32_t)key_z[1],
+                        half_d_log2pi, vec != 0, panel_smem, nullptr,
+                        best_out, lab_out);
 }
 
 template <class Kernel>
@@ -116,21 +126,38 @@ int launch(Kernel kernel, int dp, int threads, size_t extra_words,
   return (int)cudaGetLastError();
 }
 
+template <int BM>
 int launch_panel(const float* x, int n, int d, const float* mu,
                  const float* chol, const float* logdet, const float* logw,
-                 const int* active, const int* slots, int K,
-                 const long long* gidx, const long long* key_z, int* labels,
+                 const int* active, const int* slots, int K, int per,
+                 int groups, int smem, const long long* gidx,
+                 const long long* key_z, float* scratch, int* labels,
                  cudaStream_t stream) {
-  const size_t smem = sizeof(float) * panel_smem_floats();
+  using T = PanelTile<BM>;
+  if (smem != T::SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      assign_gauss_panel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      assign_gauss_panel_kernel<BM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + PANEL_PB - 1) / PANEL_PB;
+  const long long tiles = ((long long)n + BM - 1) / BM;
   const float half_d_log2pi = (float)(0.5 * d * 1.8378770664093453);
-  assign_gauss_panel_kernel<<<blocks, PANEL_THREADS, smem, stream>>>(
-      x, n, d, mu, chol, logdet, logw, active, slots, K, gidx, key_z,
-      half_d_log2pi, labels);
+  const bool vec = d % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(chol) % 16 == 0;
+  // one group writes the labels; several write their (max, argmax) rows
+  float* best = groups > 1 ? scratch : nullptr;
+  int* lab = groups > 1
+                 ? reinterpret_cast<int*>(scratch + (size_t)groups * n)
+                 : labels;
+  assign_gauss_panel_kernel<BM><<<dim3((unsigned)tiles, groups), T::THREADS,
+                                  smem, stream>>>(
+      x, n, d, mu, chol, logdet, logw, active, slots, K, per, gidx, key_z,
+      half_d_log2pi, vec ? 1 : 0, best, lab);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || groups == 1) return (int)err;
+  panel_fold_groups<<<(unsigned)(((long long)n + PANEL_FOLD_THREADS - 1) /
+                                 PANEL_FOLD_THREADS),
+                      PANEL_FOLD_THREADS, 0, stream>>>(best, lab, n, groups,
+                                                       labels);
   return (int)cudaGetLastError();
 }
 
@@ -144,12 +171,9 @@ extern "C" int assign_gauss_launch(const float* x, int n, int d,
                                    const long long* key_z, int* labels,
                                    void* stream) {
   using namespace repro_torch;
-  if (n <= 0 || K <= 0 || d <= 0 || d > PANEL_D)
+  if (n <= 0 || K <= 0 || d <= 0 || d > WIDE_D)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d > WIDE_D)
-    return launch_panel(x, n, d, mu, chol, logdet, logw, active, slots, K,
-                        gidx, key_z, labels, s);
 #define REPRO_ASSIGN_CASE(KERNEL, DP, THREADS, EXTRA)                       \
   return launch(KERNEL, DP, THREADS, EXTRA, x, n, d, mu, chol, logdet, logw, \
                 active, slots, K, gidx, key_z, labels, s)
@@ -164,6 +188,35 @@ extern "C" int assign_gauss_launch(const float* x, int n, int d,
   REPRO_ASSIGN_CASE(assign_gauss_wide_kernel, WIDE_D, WIDE_THREADS,
                     wide_x_floats(WIDE_THREADS));
 #undef REPRO_ASSIGN_CASE
+}
+
+// d > 128: the launch is the wrapper's choice (kernels/assign.py
+// panel_plan, a function of the shape only): bm points a block (32 or
+// 128), per slots a group, groups = ceil(K / per) groups, and smem, which
+// must be that tile's layout. With groups > 1, scratch holds groups x n
+// floats (each group's running max) then groups x n ints (its argmax).
+extern "C" int assign_gauss_panel_launch(
+    const float* x, int n, int d, const float* mu, const float* chol,
+    const float* logdet, const float* logw, const int* active,
+    const int* slots, int K, const long long* gidx, const long long* key_z,
+    int bm, int per, int groups, int smem, float* scratch, int* labels,
+    void* stream) {
+  using namespace repro_torch;
+  if (n <= 0 || K <= 0 || d <= WIDE_D || per <= 0 || groups <= 0 ||
+      groups > 65535 || (long long)groups * per < K ||
+      (long long)(groups - 1) * per >= K ||
+      (groups > 1 && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bm == 128)
+    return launch_panel<128>(x, n, d, mu, chol, logdet, logw, active, slots,
+                             K, per, groups, smem, gidx, key_z, scratch,
+                             labels, s);
+  if (bm == 32)
+    return launch_panel<32>(x, n, d, mu, chol, logdet, logw, active, slots,
+                            K, per, groups, smem, gidx, key_z, scratch,
+                            labels, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* repro_error_string(int code) {

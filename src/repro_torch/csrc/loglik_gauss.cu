@@ -9,22 +9,28 @@
 // with F_k the factor of the precision (Sigma_k^-1 = F_k F_k^T).
 //
 // Design. The TPU kernel tiled (points, clusters) on a 2-D grid with the
-// whitening product on the matrix unit; here a thread block owns PB points
-// and loops over tiles of clusters staged in shared memory, with the
-// whitening device code of the sweep's step (e) (assign_tile.cuh):
+// whitening product on the matrix unit. Here, for d <= 128, a thread block
+// owns PB points and loops over tiles of clusters staged in shared memory,
+// with the whitening device code of the sweep's step (e) (assign_tile.cuh):
 // maha_narrow, one thread per point with its d-vectors in registers, for
-// d <= 64, maha_wide, four lanes per point, for d <= 128, and maha_panel,
-// the factor staged in 64-column panels for 64 points, for d <= 256. Every
-// slot is computed (the caller masks inactive ones), and a point's row does
-// not depend on the batch it came in, so a ragged request gets the bits of
-// the same rows in a larger one.
+// d <= 64, and maha_wide, four lanes per point, for d <= 128. For d > 128
+// the grid is 2-D again, point tiles x slot groups (kernels/assign.py
+// panel_plan), and each block runs the panel layout of assign_tile.cuh
+// (gauss_panel): (X - mu_k) F_k as an output-stationary 8 x 8 register
+// tile fed by a cp.async ring of row slabs, any d. Every output element is
+// written once, and a point's row does not depend on the batch it came in,
+// so a ragged request gets the bits of the same rows in a larger one.
 //
-// What bounds it. 2 N K d^2 FLOP of fp32 FMA against N d 4 + K d^2 4 bytes
-// read and N K 4 bytes written: at a serving step (N = 8192, K = 16,
-// d = 32) 0.27 GFLOP against 1.6 MB, so the CUDA cores' fp32 rate bounds
-// it (about 4 us at 67 TFLOP/s); at that size a launch is mostly latency.
+// What bounds it. 2 N K d (d + 1) FLOP of fp32 FMA against N d 4 +
+// K d^2 4 bytes read and N K 4 bytes written: at a serving step (N = 8192,
+// K = 16, d = 32) 0.27 GFLOP against 1.6 MB, so the CUDA cores' fp32 rate
+// bounds it (about 4 us at 67 TFLOP/s; at that size a launch is mostly
+// latency); at the d = 256 fit's state (N = 4e5, all K = 32 slots) 1.7
+// TFLOP, 25.1 ms. No tensor cores and no TF32: at d = 256 a |y|^2 in the
+// hundreds keeps about three digits in TF32.
 //
-// Limits: 1 <= d <= 256, 1 <= K.
+// Limits: 1 <= d, 1 <= K, N < 2^31 (ints); factors past d = 128 are read
+// with 64-bit offsets.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -98,24 +104,18 @@ __global__ void __launch_bounds__(WIDE_THREADS) loglik_gauss_wide_kernel(
   }
 }
 
-__global__ void __launch_bounds__(PANEL_THREADS) loglik_gauss_panel_kernel(
-    const float* __restrict__ x, int n, int d, const float* __restrict__ mu,
-    const float* __restrict__ chol, const float* __restrict__ logdet, int K,
-    float half_d_log2pi, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const PanelSmem sm(reinterpret_cast<float*>(smem));
-  const size_t base = (size_t)blockIdx.x * PANEL_PB;
-  const int np = min((long long)PANEL_PB, (long long)n - (long long)base);
-  stage_x_panel(x + base * d, np, d, sm.xs);
-  const int grp = threadIdx.x / PANEL_LANES, j = threadIdx.x % PANEL_LANES;
-  const float* xs = sm.xs + grp * PANEL_XSTRIDE;
-  for (int k = 0; k < K; ++k) {
-    const float maha = maha_panel(sm, xs, chol + (size_t)k * d * d,
-                                  mu + (size_t)k * d, d, j);
-    if (grp < np && j == 0)
-      out[(base + grp) * (size_t)K + k] =
-          0.5f * (__ldg(logdet + k) - maha) - half_d_log2pi;
-  }
+template <int BM>
+__global__ void __launch_bounds__(PanelTile<BM>::THREADS, 2)
+    loglik_gauss_panel_kernel(const float* __restrict__ x, int n, int d,
+                              const float* __restrict__ mu,
+                              const float* __restrict__ chol,
+                              const float* __restrict__ logdet, int K,
+                              int per, float half_d_log2pi, int vec,
+                              float* __restrict__ out) {
+  extern __shared__ __align__(16) float panel_smem[];
+  gauss_panel<BM, false>(x, n, d, mu, chol, logdet, nullptr, nullptr,
+                         nullptr, K, per, nullptr, 0u, 0u, half_d_log2pi,
+                         vec != 0, panel_smem, out, nullptr, nullptr);
 }
 
 template <class Kernel>
@@ -135,18 +135,23 @@ int launch(Kernel kernel, int dp, int threads, size_t extra_words,
   return (int)cudaGetLastError();
 }
 
+template <int BM>
 int launch_panel(const float* x, int n, int d, const float* mu,
-                 const float* chol, const float* logdet, int K, float* out,
-                 cudaStream_t stream) {
-  const size_t smem = sizeof(float) * panel_smem_floats();
+                 const float* chol, const float* logdet, int K, int per,
+                 int groups, int smem, float* out, cudaStream_t stream) {
+  using T = PanelTile<BM>;
+  if (smem != T::SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      loglik_gauss_panel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      loglik_gauss_panel_kernel<BM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + PANEL_PB - 1) / PANEL_PB;
+  const long long tiles = ((long long)n + BM - 1) / BM;
   const float half_d_log2pi = (float)(0.5 * d * 1.8378770664093453);
-  loglik_gauss_panel_kernel<<<blocks, PANEL_THREADS, smem, stream>>>(
-      x, n, d, mu, chol, logdet, K, half_d_log2pi, out);
+  const bool vec = d % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(chol) % 16 == 0;
+  loglik_gauss_panel_kernel<BM><<<dim3((unsigned)tiles, groups), T::THREADS,
+                                  smem, stream>>>(
+      x, n, d, mu, chol, logdet, K, per, half_d_log2pi, vec ? 1 : 0, out);
   return (int)cudaGetLastError();
 }
 
@@ -157,10 +162,9 @@ extern "C" int loglik_gauss_launch(const float* x, int n, int d,
                                    const float* logdet, int K, float* out,
                                    void* stream) {
   using namespace repro_torch;
-  if (n <= 0 || K <= 0 || d <= 0 || d > PANEL_D)
+  if (n <= 0 || K <= 0 || d <= 0 || d > WIDE_D)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d > WIDE_D) return launch_panel(x, n, d, mu, chol, logdet, K, out, s);
 #define REPRO_LOGLIK_CASE(KERNEL, DP, THREADS, EXTRA)                   \
   return launch(KERNEL, DP, THREADS, EXTRA, x, n, d, mu, chol, logdet, K, \
                 out, s)
@@ -175,6 +179,30 @@ extern "C" int loglik_gauss_launch(const float* x, int n, int d,
   REPRO_LOGLIK_CASE(loglik_gauss_wide_kernel, WIDE_D, WIDE_THREADS,
                     wide_x_floats(WIDE_THREADS));
 #undef REPRO_LOGLIK_CASE
+}
+
+// d > 128: the launch is the wrapper's choice (kernels/assign.py
+// panel_plan, a function of the shape only): bm points a block (32 or
+// 128), per slots a group, groups = ceil(K / per) groups, and smem, which
+// must be that tile's layout.
+extern "C" int loglik_gauss_panel_launch(const float* x, int n, int d,
+                                         const float* mu, const float* chol,
+                                         const float* logdet, int K, int bm,
+                                         int per, int groups, int smem,
+                                         float* out, void* stream) {
+  using namespace repro_torch;
+  if (n <= 0 || K <= 0 || d <= WIDE_D || per <= 0 || groups <= 0 ||
+      groups > 65535 || (long long)groups * per < K ||
+      (long long)(groups - 1) * per >= K)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bm == 128)
+    return launch_panel<128>(x, n, d, mu, chol, logdet, K, per, groups,
+                             smem, out, s);
+  if (bm == 32)
+    return launch_panel<32>(x, n, d, mu, chol, logdet, K, per, groups, smem,
+                            out, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* repro_error_string(int code) {

@@ -31,14 +31,18 @@ Two versions of each function:
 - ``*_plain``: steps (e) and (f) of the sweeps' plain versions
   (``kernels/sweep.py``), the same math in plain PyTorch.
 
-``kernels.ops`` picks between them by the tensor's device. The Gaussian
-kernels take d up to ``MAX_D`` = 256, past the one-read sweep's 128: a
-factor is staged in 64-column panels for step (e), and read from L2 by one
-warp per point for step (f).
+``kernels.ops`` picks between them by the tensor's device. Past the
+one-read sweep's d = 128, ``assign_gauss`` (and ``loglik_gauss``) run the
+panel layout, which takes any d: (X - mu_k) F_k as a register-tiled
+product over streamed row slabs, on a grid of point tiles x slot groups
+that ``panel_plan`` chooses from the shape alone. ``sub_assign_gauss``
+reads a point's two factors from L2 with one warp and stops at
+``suffstats.MAX_D`` = 256.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from functools import lru_cache
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -47,6 +51,7 @@ from repro_torch.kernels.launch import check_cuda, launch
 from repro_torch.kernels.suffstats import MAX_D, MAX_DP
 from repro_torch.kernels.sweep import (LOG_2PI, NEG_INF, assign_linear_plain,
                                        sub_assign_linear_plain)
+from repro_torch.kernels.sweep import MAX_D as WIDE_D
 from repro_torch.kernels.sweep import assign_plain as assign_gauss_plain
 from repro_torch.kernels.sweep import (
     sub_assign_plain as sub_assign_gauss_plain)
@@ -116,6 +121,62 @@ def sub_assign_mismatches(gauss: bool, args, sub_a, sub_b,
 
 F32, I32, I64 = torch.float32, torch.int32, torch.int64
 
+# The panel layout of csrc/assign_tile.cuh (assign_gauss and loglik_gauss
+# past d = 128), whose launch this module chooses (``panel_plan``): columns
+# of y a column tile, slabs in the shared ring, the point tiles the
+# launchers hold with each one's rows a slab, and the blocks that fill the
+# card (132 SMs, two a SM). N, d and K are ints in the kernels.
+PANEL_BN, PANEL_STAGES = 128, 3
+PANEL_BK = {128: 32, 32: 16}
+PANEL_BM = tuple(PANEL_BK)
+PANEL_BLOCKS = 2 * 132
+PANEL_MAX = 2 ** 31 - 1
+
+
+class PanelPlan(NamedTuple):
+    """The launch of the panel layout: its point tile (template), grid
+    (point tiles x slot groups) and dynamic shared bytes."""
+    bm: int       # points a block: 128, or 32 where 128 would not fill
+    tiles: int    # point tiles, ceil(N / bm)
+    per: int      # slots a group, in order
+    groups: int   # slot groups, ceil(K / per), none empty
+    nct: int      # column tiles of y, PANEL_BN each, zero past d
+    smem: int     # dynamic shared bytes a block
+
+
+@lru_cache(maxsize=256)
+def panel_plan(n: int, d: int, k: int) -> PanelPlan:
+    """The panel launch for (n, d, k), chosen here only: the launchers take
+    it as given and refuse a point tile they do not hold or shared bytes
+    other than its layout. The point tile is 128 rows where that with one
+    group per slot makes PANEL_BLOCKS blocks, else 32 (a serving step of a
+    few hundred rows). With PANEL_BLOCKS point tiles or more, one group
+    walks all slots. Else the slots are cut into groups of ``per`` in
+    order: a block's time grows with its slots, so the grid takes about
+    waves x per, waves of PANEL_BLOCKS blocks, and the plan takes the
+    ``per`` that makes that least, the fewest groups among equals (an
+    8192-row step of 32 slots takes 4 groups of 8, one wave of 256
+    blocks, not 5 of 7 in two waves). Neither choice changes a point's
+    bits: the column tile and the order of every sum are fixed."""
+    if not (1 <= n <= PANEL_MAX and 1 <= d <= PANEL_MAX
+            and 1 <= k <= PANEL_MAX):
+        raise ValueError(f"panel layout: N={n}, d={d}, K={k} outside "
+                         f"[1, {PANEL_MAX}] (ints in the kernel)")
+    bm = PANEL_BM[0] if -(-n // PANEL_BM[0]) * k >= PANEL_BLOCKS \
+        else PANEL_BM[1]
+    tiles = -(-n // bm)
+    best = (k, k)                          # (waves x per, per)
+    for groups in range(2, min(k, 65535) + 1) if tiles < PANEL_BLOCKS \
+            else ():
+        per = -(-k // groups)
+        cost = -(-tiles * -(-k // per) // PANEL_BLOCKS) * per
+        if cost < best[0]:
+            best = (cost, per)
+    per = best[1]
+    # a stage: the x slab (stride bm + 4), the F slab and the slab's means
+    smem = 4 * PANEL_STAGES * PANEL_BK[bm] * (bm + 4 + PANEL_BN + 1)
+    return PanelPlan(bm, tiles, per, -(-k // per), -(-d // PANEL_BN), smem)
+
 
 def _check_launch(name, x, width, k, max_width, what, tensors) -> None:
     """Raise on what a kernel does not take: a tensor off the card, a width
@@ -149,20 +210,35 @@ def _step_f_rows(n, k, sublogw, labels, gidx, key_zb):
 
 def assign_gauss_cuda(x, mu, chol_prec, logdet_prec, logw, active, gidx,
                       key_z, slots) -> torch.Tensor:
-    """One launch of ``csrc/assign_gauss.cu`` on the current stream."""
+    """One call of ``csrc/assign_gauss.cu`` on the current stream: the
+    narrow or wide layout for d <= 128, else the panel layout of
+    ``panel_plan`` (and, with several slot groups, its fold of the
+    groups), counted once."""
     n, d = x.shape
     k = mu.shape[0]
-    _check_launch("assign_gauss", x, d, k, MAX_D, "d", (
+    _check_launch("assign_gauss", x, d, k, PANEL_MAX, "d", (
         ("mu", mu, F32, (k, d)), ("chol_prec", chol_prec, F32, (k, d, d)),
         ("logdet_prec", logdet_prec, F32, (k,)))
         + _step_e_rows(n, k, logw, active, gidx, key_z, slots))
     labels = torch.empty((n,), device=x.device, dtype=torch.int32)
-    fn = build.c_function("assign_gauss", "assign_gauss_launch",
-                          "piippppppipppp")
-    launch(fn, x.device, x.data_ptr(), n, d, mu.data_ptr(),
-           chol_prec.data_ptr(), logdet_prec.data_ptr(), logw.data_ptr(),
-           active.data_ptr(), slots.data_ptr(), k, gidx.data_ptr(),
-           key_z.data_ptr(), labels.data_ptr())
+    head = (x.data_ptr(), n, d, mu.data_ptr(), chol_prec.data_ptr(),
+            logdet_prec.data_ptr(), logw.data_ptr(), active.data_ptr(),
+            slots.data_ptr(), k, gidx.data_ptr(), key_z.data_ptr())
+    if d <= WIDE_D:
+        fn = build.c_function("assign_gauss", "assign_gauss_launch",
+                              "piippppppipppp")
+        launch(fn, x.device, *head, labels.data_ptr())
+    else:
+        plan = panel_plan(n, d, k)
+        # each group's running max (floats) and argmax (ints), n a group
+        scratch = (torch.empty((2 * plan.groups * n,), device=x.device,
+                               dtype=torch.float32)
+                   if plan.groups > 1 else None)
+        fn = build.c_function("assign_gauss", "assign_gauss_panel_launch",
+                              "piippppppippiiiippp")
+        launch(fn, x.device, *head, plan.bm, plan.per, plan.groups,
+               plan.smem, 0 if scratch is None else scratch.data_ptr(),
+               labels.data_ptr())
     assign_gauss_cuda.launches += 1
     return labels
 

@@ -9,8 +9,10 @@ Port of ``repro.kernels.loglik.loglik`` (the serving query's likelihood):
 Two versions of one function:
 
 - ``loglik_cuda``: the hand-written kernel ``csrc/loglik_gauss.cu`` (the
-  whitening device code of the sweeps' step (e)); one launch per call,
-  counted in ``loglik_cuda.launches``;
+  whitening device code of the sweeps' step (e) for d <= 128, the panel
+  layout of ``assign_gauss`` past it, on the grid ``assign.panel_plan``
+  chooses, any d); one launch per call, counted in
+  ``loglik_cuda.launches``;
 - ``loglik_plain``: the same math in plain PyTorch, in the reference's op
   order.
 
@@ -21,8 +23,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.assign import PANEL_MAX, WIDE_D, panel_plan
 from repro_torch.kernels.launch import check_cuda, launch
-from repro_torch.kernels.suffstats import MAX_D
 
 LOG_2PI = 1.8378770664093453
 
@@ -42,8 +44,8 @@ def loglik_cuda(x, mu, chol_prec, logdet_prec) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError("loglik_cuda takes CUDA tensors; the plain version "
                          "serves the CPU")
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"loglik_gauss: d={d} outside [1, {MAX_D}] "
+    if not 1 <= d <= PANEL_MAX:
+        raise ValueError(f"loglik_gauss: d={d} outside [1, {PANEL_MAX}] "
                          "(ROADMAP.md §3)")
     if k < 1 or n == 0:
         raise ValueError(f"loglik_gauss: needs K >= 1 slots and points, got "
@@ -53,9 +55,18 @@ def loglik_cuda(x, mu, chol_prec, logdet_prec) -> torch.Tensor:
                           ("logdet_prec", logdet_prec, (k,))):
         check_cuda(arg, t, torch.float32, shape, x.device)
     out = torch.empty((n, k), device=x.device, dtype=torch.float32)
-    fn = build.c_function("loglik_gauss", "loglik_gauss_launch", "piipppipp")
-    launch(fn, x.device, x.data_ptr(), n, d, mu.data_ptr(),
-           chol_prec.data_ptr(), logdet_prec.data_ptr(), k, out.data_ptr())
+    head = (x.data_ptr(), n, d, mu.data_ptr(), chol_prec.data_ptr(),
+            logdet_prec.data_ptr(), k)
+    if d <= WIDE_D:
+        fn = build.c_function("loglik_gauss", "loglik_gauss_launch",
+                              "piipppipp")
+        launch(fn, x.device, *head, out.data_ptr())
+    else:
+        plan = panel_plan(n, d, k)
+        fn = build.c_function("loglik_gauss", "loglik_gauss_panel_launch",
+                              "piipppiiiiipp")
+        launch(fn, x.device, *head, plan.bm, plan.per, plan.groups,
+               plan.smem, out.data_ptr())
     loglik_cuda.launches += 1
     return out
 

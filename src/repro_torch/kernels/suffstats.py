@@ -52,11 +52,13 @@ STATS_BLOCK = 1024
 # Floats of temporaries one chunk of the plain version may hold.
 CHUNK_FLOATS = 1 << 24
 MAX_K = 8192
-# The Gaussian kernels' widest d (suffstats_labels here, assign_gauss,
-# sub_assign_gauss, loglik_gauss): the reference kernels stop at 128 and
-# leave wider d to its jnp route, the port's kernels go on to 256 (a
-# factor staged in column panels or read from L2). suffstats_labels
-# indexes a block's 2k d^2 sxx entries with an int: 2^30 at k = MAX_K.
+# The widest d of the Gaussian fit's stat and step-(f) kernels
+# (suffstats_labels here, the dense oracle, sub_assign_gauss): the
+# reference kernels stop at 128 and leave wider d to its jnp route, these
+# go on to 256 (sub_assign_gauss reads a point's factors from L2).
+# suffstats_labels indexes a block's 2k d^2 sxx entries with an int: 2^30
+# at k = MAX_K. assign_gauss and loglik_gauss take any d (assign.py
+# PANEL_MAX).
 MAX_D = 256
 # moments_labels: a block's 2k d' partial entries stay below 2^31 for
 # k <= MAX_K (its per-chunk entry index is an int; d' rows use 64-bit

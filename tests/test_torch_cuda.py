@@ -166,18 +166,18 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     bad[0] = torch.randn(2048, 129, device=dev)
     with pytest.raises(ValueError, match="d=129"):
         sweep.sweep_gauss_cuda(*bad)
-    # the other Gaussian kernels stop at 256, with the ROADMAP hint
+    # the stat kernels stop at 256, with the ROADMAP hint; the served
+    # kernels (the panel layout) take d = 257 (and any d)
     wide = torch.randn(2048, 257, device=dev)
     with pytest.raises(ValueError, match=r"d=257 .*ROADMAP.md §3"):
         suffstats.suffstats_labels_cuda(wide, a[5][:1].repeat(2048),
                                         a[5][:1].repeat(2048), a[10], 4)
     zeros = lambda *s: torch.zeros(s, device=dev)
-    with pytest.raises(ValueError, match=r"d=257 .*ROADMAP.md §3"):
-        loglik.loglik_cuda(wide, zeros(4, 257), zeros(4, 257, 257),
-                           zeros(4))
-    with pytest.raises(ValueError, match=r"d=257 .*ROADMAP.md §3"):
-        assign.assign_gauss_cuda(wide, zeros(4, 257), zeros(4, 257, 257),
-                                 *a[3:6], a[11], a[12], a[14])
+    assert loglik.loglik_cuda(wide, zeros(4, 257), zeros(4, 257, 257),
+                              zeros(4)).shape == (2048, 4)
+    assert assign.assign_gauss_cuda(wide, zeros(4, 257), zeros(4, 257, 257),
+                                    *a[3:6], a[11], a[12], a[14]
+                                    ).shape == (2048,)
     with pytest.raises(ValueError, match=r"d=257 .*ROADMAP.md §3"):
         assign.sub_assign_gauss_cuda(wide, zeros(4, 2, 257),
                                      zeros(4, 2, 257, 257), a[8], a[9],
@@ -236,7 +236,9 @@ def _assign_args(n, d, k, dev, seed=0):
                                    (2100, 64, 3), (1700, 65, 4),
                                    (1500, 96, 5), (1300, 128, 9),
                                    (1100, 129, 5), (700, 200, 6),
-                                   (600, 256, 7)])
+                                   (600, 256, 7), (700, 160, 6),
+                                   (600, 257, 5), (500, 300, 7),
+                                   (400, 512, 4)])
 def test_assign_gauss_kernel_matches_plain(dev, n, d, k):
     a = _assign_args(n, d, k, dev, seed=d)
     before = assign.assign_gauss_cuda.launches
@@ -275,7 +277,9 @@ def _rel_close(got, want, rtol=1e-5):
                                    (700, 64, 33), (513, 65, 4),
                                    (900, 96, 6), (1000, 128, 16),
                                    (700, 129, 5), (500, 200, 3),
-                                   (600, 256, 6)])
+                                   (600, 256, 6), (700, 160, 6),
+                                   (600, 257, 5), (500, 300, 7),
+                                   (400, 512, 4)])
 def test_loglik_gauss_kernel_matches_plain(dev, n, d, k):
     x, mu, f, ld = _args(n, d, k, dev, seed=d)[:4]
     got = ops.loglik_gauss(x, mu, f, ld)
@@ -284,6 +288,29 @@ def test_loglik_gauss_kernel_matches_plain(dev, n, d, k):
     # a row's bits do not depend on the batch it came in
     assert torch.equal(ops.loglik_gauss(x[5:300].contiguous(), mu, f, ld),
                        got[5:300])
+
+
+def test_panel_rows_do_not_depend_on_the_request(dev):
+    """d = 300 through the panel layout: a grid of slot groups (folded in
+    slot order) at 8192 rows, 32-point tiles at a few hundred rows. Repeat
+    launches give the same bits, and each row's label and log-likelihoods
+    are those of the same row in any other request."""
+    n, d, k = 8192, 300, 32
+    a = _assign_args(n, d, k, dev, seed=3)
+    assert assign.panel_plan(n, d, k).groups > 1
+    assert assign.panel_plan(300, d, k).bm == 32
+    got = assign.assign_gauss_cuda(*a)
+    assert torch.equal(got, assign.assign_gauss_cuda(*a))
+    mism, not_ties = assign.assign_mismatches(
+        True, a, got, assign.assign_gauss_plain(*a), rtol=1e-4)
+    assert not_ties == 0 and mism <= 1e-3 * n, (mism, not_ties)
+    ll = loglik.loglik_cuda(*a[:4])
+    assert torch.equal(ll, loglik.loglik_cuda(*a[:4]))
+    for lo, hi in ((0, 1), (5, 305), (1000, 3048), (100, 8192)):
+        part = (a[0][lo:hi].contiguous(),) + a[1:6] + (
+            a[6][lo:hi].contiguous(),) + a[7:]
+        assert torch.equal(assign.assign_gauss_cuda(*part), got[lo:hi])
+        assert torch.equal(loglik.loglik_cuda(*part[:4]), ll[lo:hi])
 
 
 @pytest.mark.parametrize("m,k,n", [(8192, 32, 32), (300, 33, 17),

@@ -1,10 +1,13 @@
-"""Shape-only choices of the dense ``suffstats`` kernel and the ``matmul``
-kernel (``kernels/suffstats.py`` ``dense_plan``, ``kernels/matmul.py``
-``matmul_bn``), checked on the CPU: the kernels themselves run only on the
+"""Shape-only choices of the dense ``suffstats`` kernel, the ``matmul``
+kernel and the panel layout of ``assign_gauss`` / ``loglik_gauss`` past
+d = 128 (``kernels/suffstats.py`` ``dense_plan``, ``kernels/matmul.py``
+``matmul_bn``, ``kernels/assign.py`` ``panel_plan``), checked on the CPU: the kernels themselves run only on the
 card (``tests/test_torch_cuda.py``), and their launchers take these
 choices as given, refusing a tile they do not hold."""
 import pytest
 
+from repro_torch.kernels.assign import (PANEL_BK, PANEL_BM, PANEL_BN,
+                                        PANEL_STAGES, panel_plan)
 from repro_torch.kernels.matmul import matmul_bn
 from repro_torch.kernels.suffstats import (DENSE_BN, DENSE_MIN_SLABS,
                                            DENSE_P, DENSE_STAGES, DENSE_TILE,
@@ -93,3 +96,38 @@ def test_matmul_column_tile_covers_n():
         if n <= 64:
             # one column tile, the least that holds N
             assert bn >= n and all(b < n for b in tiles if b < bn)
+
+
+@pytest.mark.parametrize("d", [129, 160, 256, 257, 512, 1000])
+@pytest.mark.parametrize("n", [1, 256, 8192, 400_000])
+def test_panel_plan_covers_every_point_column_and_slot(n, d):
+    for k in (1, 3, 8, 32, 33, 300):
+        p = panel_plan(n, d, k)
+        assert panel_plan(n, d, k) == p
+        # the two point tiles the launchers hold, covering every row
+        assert p.bm in PANEL_BM and p.tiles == -(-n // p.bm)
+        assert (p.tiles - 1) * p.bm < n <= p.tiles * p.bm
+        # column tiles cover d, the last one partly (zero past d)
+        assert (p.nct - 1) * PANEL_BN < d <= p.nct * PANEL_BN
+        # groups of per slots cover [0, K) once, in order, none empty
+        groups = [range(g * p.per, min(k, (g + 1) * p.per))
+                  for g in range(p.groups)]
+        assert [s for r in groups for s in r] == list(range(k))
+        assert all(len(r) > 0 for r in groups) and p.groups <= 65535
+        # the shared ring: a slab of x (transposed, stride bm + 4), one of
+        # F and the slab's means a stage, the same bytes at every d
+        assert p.smem == 4 * PANEL_STAGES * PANEL_BK[p.bm] * (
+            p.bm + 4 + PANEL_BN + 1)
+        assert 2 * (p.smem + 1024) <= 228 * 1024
+        if n == 8192:
+            # a serving step's grid fills the 132 SMs
+            assert p.tiles * p.groups >= 132
+        if n >= 256 and k >= 32:
+            assert p.tiles * p.groups >= 132
+
+
+def test_panel_plan_refuses_counts_past_an_int():
+    with pytest.raises(ValueError, match="ints in the kernel"):
+        panel_plan(2 ** 31, 300, 4)
+    with pytest.raises(ValueError, match="ints in the kernel"):
+        panel_plan(10, 300, 0)

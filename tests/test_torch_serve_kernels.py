@@ -38,23 +38,23 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
-def _gauss(d: int, seed: int):
+def _gauss(d: int, seed: int, n: int = N, k: int = K):
     rng = np.random.default_rng(seed)
     f32 = np.float32
-    active = (rng.random(K) < 0.7).astype(np.int32)
+    active = (rng.random(k) < 0.7).astype(np.int32)
     active[0] = 1
     return dict(
-        x=(rng.normal(size=(N, d)) * 3).astype(f32),
-        mu=(rng.normal(size=(K, d)) * 3).astype(f32),
-        chol=(np.tril(rng.normal(size=(K, d, d)) * 0.3)
+        x=(rng.normal(size=(n, d)) * 3).astype(f32),
+        mu=(rng.normal(size=(k, d)) * 3).astype(f32),
+        chol=(np.tril(rng.normal(size=(k, d, d)) * 0.3)
               + np.eye(d)).astype(f32),
-        logdet=rng.normal(size=(K,)).astype(f32),
-        logw=np.log(rng.dirichlet(np.ones(K))).astype(f32),
+        logdet=rng.normal(size=(k,)).astype(f32),
+        logw=np.log(rng.dirichlet(np.ones(k))).astype(f32),
         active=active,
         # a ragged request's rows: counters offset + row, as a ladder step
-        gidx=(np.arange(N) + 8192).astype(np.uint32),
+        gidx=(np.arange(n) + 8192).astype(np.uint32),
         key=np.array([17, 0xDEADBEEF], np.uint32),
-        slots=np.sort(rng.choice(3 * K, K, replace=False)).astype(np.uint32))
+        slots=np.sort(rng.choice(3 * k, k, replace=False)).astype(np.uint32))
 
 
 def _t(v, dtype=torch.float32):
@@ -134,6 +134,26 @@ def test_loglik_plain_matches_the_jax_kernel(d, k):
                                      interpret=True))
     got = loglik.loglik_plain(*(_t(v) for v in args)).numpy()
     assert got.shape == want.shape == (N, k)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [130, 300])
+def test_wide_gauss_plain_versions_match_the_jax_functions(d):
+    """Past the one-read sweep's d = 128 the card serves any d through the
+    panel layout, held there against these plain versions; the reference
+    takes any d too (its loglik through ``ref.loglik`` past its VMEM
+    guard). 64 points, 3 slots."""
+    a = _gauss(d, seed=20 + d, n=64, k=3)
+    head = ("x", "mu", "chol", "logdet")
+    want = np.asarray(jassign.assign_gauss(
+        *(jnp.asarray(a[v]) for v in head), *_jax_tail(a), interpret=True))
+    got = assign.assign_gauss_plain(*(_t(a[v]) for v in head),
+                                    *_step_e_tail(a))
+    np.testing.assert_array_equal(got.numpy(), want)
+    want = np.asarray(jloglik.loglik(*(jnp.asarray(a[v]) for v in head),
+                                     interpret=True))
+    got = loglik.loglik_plain(*(_t(a[v]) for v in head)).numpy()
+    assert got.shape == want.shape == (64, 3)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
 
 

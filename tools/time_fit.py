@@ -1,10 +1,13 @@
 """Time one checkout's DPMM fits at the smoke run's shapes.
 
     python3 tools/time_fit.py [--src PATH/TO/src] [--tile-size ROWS]
+        [--fits gaussian,multinomial,gaussian_d256]
 
 Fits, with the ``repro_torch`` package under ``--src`` (default: this
 checkout's ``src``), the smoke run's Gaussian (10^6 x 32) and multinomial
-(10^6 x 128) mixtures with ``DPMMConfig(k_max=64, iters=40, burnout=10,
+(10^6 x 128) mixtures, or with ``--fits gaussian_d256`` its 4e5 x 256
+Gaussian mixture (through the three-pass sweep), with
+``DPMMConfig(k_max=64, iters=40, burnout=10,
 log_every=10)``, seed 0, each ``--repeats`` times in one process (the
 first also builds the kernels and warms up), on the card. Prints one JSON
 line per fit: the steady ms per iteration (the chunks after the first),
@@ -22,8 +25,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-FITS = (("gaussian", "generate_gmm", 32), ("multinomial", "generate_mnmm",
-                                           128))
+# name: (component, generator, d, N or None for --n)
+FITS = {"gaussian": ("gaussian", "generate_gmm", 32, None),
+        "multinomial": ("multinomial", "generate_mnmm", 128, None),
+        "gaussian_d256": ("gaussian", "generate_gmm", 256, 400_000)}
 
 
 def main() -> None:
@@ -33,6 +38,8 @@ def main() -> None:
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--repeats", type=int, default=2)
     ap.add_argument("--tile-size", type=int, default=None)
+    ap.add_argument("--fits", default="gaussian,multinomial",
+                    help="comma-separated of " + ", ".join(FITS))
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_fit: no CUDA device")
@@ -43,8 +50,10 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()[0]
-    for comp, gen, d in FITS:
-        x, y = getattr(synthetic, gen)(opts.n, d, 16, seed=0)
+    for name in opts.fits.split(","):
+        comp, gen, d, n = FITS[name]
+        n = n or opts.n
+        x, y = getattr(synthetic, gen)(n, d, 16, seed=0)
         cfg = DPMMConfig(component=comp, k_max=64, iters=40, burnout=10,
                          log_every=10, **({} if opts.tile_size is None else
                                           {"tile_size": opts.tile_size}))
@@ -55,7 +64,7 @@ def main() -> None:
         for rep in range(opts.repeats):
             res = DPMM(cfg).fit(src)
             print(json.dumps({
-                "src": opts.src, "component": comp, "n": opts.n, "d": d,
+                "src": opts.src, "component": comp, "n": n, "d": d,
                 "tile_size": opts.tile_size, "repeat": rep, "k": res.k,
                 "nmi": res.nmi(y), "steady_ms_per_iter": 1e3 * float(
                     np.mean(res.iter_times_s[cfg.log_every:])),
