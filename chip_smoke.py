@@ -81,10 +81,12 @@ the share of the fit the compute stream waited on tile copies.
 point ``ops.suffstats``) against its plain version at the d = 32 and d =
 128 fits' final states, a ragged shape, d = 256 and the reference's §4.2
 shapes, and against ``suffstats_labels`` on the segments' one-hot, and
-times it beside the library route. ``matmul`` and the dense oracle are
-timed two ways: the median single-call time (``cuda_ms``, host time
-included: what one caller sees) and the per-launch device time of a run
-of back-to-back calls (``run_ms``). Each phase prints one JSON line;
+times it beside the library route. ``matmul``, the dense oracle,
+``sweep_gauss`` and ``suffstats_labels`` (``kernel_check``,
+``kernels_d128``, ``kernels_d256``, the kernels line) are timed two ways:
+the median single-call time (``cuda_ms``, host time included: what one
+caller sees) and the per-launch device time of a run of back-to-back
+calls (``run_ms``, with the host's enqueue time a call). Each phase prints one JSON line;
 any failed check raises, so the script exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -1309,7 +1311,7 @@ def fit_three_pass(DPMM, cfg, x_np, y_np, gibbs) -> tuple:
     fit's K through its own kernels), the three-pass launches and the
     three-pass fit's result."""
     import functools
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, sweep
     orig = gibbs.sweep_tile
     runs = {}
     for name, fused in (("fused", True), ("three_pass", False)):
@@ -1352,8 +1354,11 @@ def fit_three_pass(DPMM, cfg, x_np, y_np, gibbs) -> tuple:
          "moments_labels"))
     problems = [f"{name}: NMI {report[name]['nmi']:.4f} < 0.9"
                 for name in runs if report[name]["nmi"] < 0.9]
+    # sweep_gauss counts the kernels of a call (the tiled step (e), then
+    # (f) + fold, above d = 16), sweep_linear one
+    per_call = sweep.launches_per_call(report["d"]) if gauss else 1
     if not (lt[fused_k] == 0 and lt[step_e] == lt[step_f] == cfg.iters
-            and lt[fold] > 0 and lf[fused_k] == cfg.iters):
+            and lt[fold] > 0 and lf[fused_k] == per_call * cfg.iters):
         problems.append(f"launches {lt} / {lf}")
     if rt.k != rf.k:
         problems.append(f"K {rt.k} against the fused fit's {rf.k}")
@@ -1420,7 +1425,7 @@ def kernels_d256(res, launches, x_np, cfg, gibbs, sampler, assign,
         out[name] = {"ms": cuda_ms(kern, 10), "plain_ms": cuda_ms(plain, 1),
                      "bound_ms": b, "bound_by": by,
                      "launches_per_iter": launches[name] / cfg.iters}
-        if name in ("assign_gauss", "loglik_gauss"):
+        if name in ("assign_gauss", "loglik_gauss", "suffstats_labels"):
             out[name]["device_ms"], out[name]["host_ms"] = run_ms(kern, 10)
     out["assign_gauss"]["near_tie_mismatches"] = e_ties
     out["sub_assign_gauss"]["near_tie_mismatches"] = f_check[
@@ -1673,11 +1678,20 @@ def main() -> None:
         fail("suffstats_labels: two launches on the same inputs differ")
     err_stats = stats_err(
         s_k, suffstats.suffstats_labels_plain(x, lab, sub, valid, 2 * k_c))
+    # per-launch device and host times at the check's shapes (run_ms)
+    check_run = {
+        "sweep_gauss": run_ms(lambda: sweep.sweep_gauss_cuda(*args), 20),
+        "suffstats_labels": run_ms(lambda: suffstats.suffstats_labels_cuda(
+            x, lab, sub, valid, 2 * k_c), 20)}
     emit("kernel_check", n=CHECK_N, d=FIT_D,
          sweep_gauss={"k": k_c, "near_tie_mismatches": ties,
-                      "max_abs_err": err_sweep, "repeat_bitwise": True},
+                      "max_abs_err": err_sweep, "repeat_bitwise": True,
+                      **dict(zip(("device_ms", "host_ms"),
+                                 check_run["sweep_gauss"]))},
          suffstats_labels={"k": 2 * k_c, "max_abs_err": err_stats,
-                           "repeat_bitwise": True})
+                           "repeat_bitwise": True,
+                           **dict(zip(("device_ms", "host_ms"),
+                                      check_run["suffstats_labels"]))})
 
     # the linear families' kernels at the multinomial fit's width, the
     # diagonal Gaussian pack (d = 32, d' = 64) and the 20newsgroups width
@@ -1866,6 +1880,11 @@ def main() -> None:
                 "max_abs_err": stats_err(
                     suffstats.suffstats_labels_cuda(*s_args),
                     suffstats.suffstats_labels_plain(*s_args))}}
+    d128["sweep_gauss"]["device_ms"], d128["sweep_gauss"]["host_ms"] = (
+        run_ms(lambda: sweep.sweep_gauss_cuda(*a128), 10))
+    (d128["suffstats_labels"]["device_ms"],
+     d128["suffstats_labels"]["host_ms"]) = run_ms(
+        lambda: suffstats.suffstats_labels_cuda(*s_args), 10)
     for name, r in d128.items():
         r["bound_ms"], r["bound_by"] = bound(*work128[name])
     emit("kernels_d128", n=D128_N, d=D128_D, k_sweep=k128, k_live=live128,
@@ -2033,8 +2052,11 @@ def main() -> None:
     news_times = time_linear(news_args, *news_lab[:2], 2 * NEWS_KC, sweep,
                              suffstats)
     ms_sweep = cuda_ms(lambda: sweep.sweep_gauss_cuda(*sargs), 20)
+    run_sweep = run_ms(lambda: sweep.sweep_gauss_cuda(*sargs), 20)
     plain_sweep = cuda_ms(lambda: sweep.sweep_gauss_plain(*sargs), 3)
     ms_stats = cuda_ms(lambda: suffstats.suffstats_labels_cuda(
+        x, lab_c, sub, valid, k_sm), 20)
+    run_stats = run_ms(lambda: suffstats.suffstats_labels_cuda(
         x, lab_c, sub, valid, k_sm), 20)
     plain_stats = cuda_ms(lambda: suffstats.suffstats_labels_plain(
         x, lab_c, sub, valid, k_sm), 3)
@@ -2042,11 +2064,11 @@ def main() -> None:
     n, d = x.shape
     work = gauss_work(n, d, k_c, n_act, k_sm)
     rows = []
-    for name, ms, plain, err, src, repl in (
-            ("sweep_gauss", ms_sweep, plain_sweep, err_sweep,
+    for name, ms, run, plain, err, src, repl in (
+            ("sweep_gauss", ms_sweep, run_sweep, plain_sweep, err_sweep,
              "src/repro_torch/csrc/sweep_gauss.cu",
              "src/repro/kernels/sweep.py:344"),
-            ("suffstats_labels", ms_stats, plain_stats, err_stats,
+            ("suffstats_labels", ms_stats, run_stats, plain_stats, err_stats,
              "src/repro_torch/csrc/suffstats_labels.cu",
              "src/repro/kernels/suffstats.py:169")):
         bound_ms, bound_by = bound(*work[name])
@@ -2054,7 +2076,8 @@ def main() -> None:
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": launches[name],
             "launches_per_iter": launches[name] / cfg.iters,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "max_abs_err": err, "ms": ms, "device_ms": run[0],
+            "host_ms": run[1], "plain_ms": plain,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     for name, err, src, repl in (
             ("sweep_linear", err_lin, "src/repro_torch/csrc/sweep_linear.cu",

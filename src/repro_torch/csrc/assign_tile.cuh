@@ -4,14 +4,18 @@
 //   t_ik = loglik_k(x_i) + logw_k  (-1e30 if slot k is inactive)
 //          + Gumbel(key_z, gidx_i, slots_k)
 //
-// shared by the one-read sweeps (sweep_gauss.cu, sweep_linear.cu) and the
-// standalone assignment kernels (assign_gauss.cu, assign_linear.cu); the
-// Gaussian whitening product is also the body of loglik_gauss.cu. It is the
-// device half of the TPU kernels src/repro/kernels/assign.py:assign_gauss /
-// assign_linear and of step (e) of src/repro/kernels/sweep.py. Step (f)
-// (the own cluster's two sub-components) is here too, shared by the sweeps
-// and the standalone sub_assign_gauss.cu / sub_assign_linear.cu, so the
-// three-pass path draws the one-read sweep's sub-labels bit for bit.
+// shared by the one-read sweeps (sweep_gauss.cu at d <= 16, sweep_linear.cu)
+// and the standalone assignment kernels (assign_gauss.cu, assign_linear.cu);
+// the Gaussian whitening product is also the body of loglik_gauss.cu. It is
+// the device half of the TPU kernels src/repro/kernels/assign.py:
+// assign_gauss / assign_linear and of step (e) of
+// src/repro/kernels/sweep.py. Above d = 16 sweep_gauss.cu runs step (e) as
+// a register-tiled product of its own that keeps these functions' chains
+// and order. Step (f) (the own cluster's two sub-components) is here too,
+// shared by sweep_linear.cu and the standalone sub_assign_gauss.cu /
+// sub_assign_linear.cu; sweep_gauss.cu runs the same arithmetic on staged
+// operands (maha_narrow / maha_wide), so the three-pass path draws the
+// one-read sweep's sub-labels bit for bit.
 //
 // The narrow, wide and linear step-(e) functions are called by all threads
 // of the block (they hold __syncthreads) and leave, for the block's np
@@ -319,9 +323,10 @@ constexpr int PANEL_D = 256;
 //         + sublogw_ls + Gumbel(key_zb, gidx, s)
 // under the point's own cluster l, whose two factors are read from global
 // memory (a point needs two; all of them stay in L2: 16 MiB at K = 32 and
-// d = 256). The one-read sweep (sweep_gauss.cu, d <= 128) and the
-// standalone sub_assign_gauss.cu call the same functions, so their
-// sub-labels agree bit for bit.
+// d = 256). The standalone sub_assign_gauss.cu calls these; the one-read
+// sweep (sweep_gauss.cu, d <= 128) stages each label's two factors in
+// shared memory and runs the same chains (maha_narrow / maha_wide, whose
+// zero padding adds exact zeros), so their sub-labels agree bit for bit.
 // ---------------------------------------------------------------------------
 
 // Narrow layout (d <= 64): one thread, its x row in registers (zero past d).

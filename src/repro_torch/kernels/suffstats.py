@@ -74,6 +74,22 @@ DENSE_BN = (16, 32, 64, 128)
 DENSE_SLOTS = 132 * 2
 DENSE_MIN_SLABS = 2
 SMEM_LIMIT = 232_448
+# The segment fold of csrc/block_stats.cuh (suffstats_labels, sweep_gauss),
+# whose tile this module chooses (``stats_plan``): threads a block, Gram
+# tile edges (8 x 8 entries a thread, (edge / 8)^2 threads a team), and the
+# shared ints of the sort's scan beside its cursor.
+STATS_THREADS = 256
+GRAM_EDGES = (8, 16, 32, 64, 128)
+SCAN_INTS = 32
+# For 64 < d <= 128, or below a full wave, up to STATS_SPLITS blocks share
+# a STATS_BLOCK (each takes every splits-th (segment, tile) item) so that
+# the grid fills about STATS_WAVES waves of two blocks on each of the
+# H100's 132 SMs. Not past d = 128, where one block's four tiles of a
+# segment reuse its rows from L1 (three splits took 6.14 against 5.45 ms
+# at 4e5 x 256 on the H100).
+STATS_SPLITS = 4
+STATS_WAVES = 4
+INT_MAX = 2 ** 31 - 1
 
 Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -183,20 +199,21 @@ def suffstats_labels_cuda(x: torch.Tensor, labels: torch.Tensor,
                          "(ROADMAP.md §3)")
     if n == 0:
         raise ValueError("suffstats_labels: no points")
+    plan = stats_plan(n, d, k)
     dev = x.device
     check_cuda("x", x, torch.float32, (n, d), dev)
     check_cuda("labels", labels, torch.int32, (n,), dev)
     check_cuda("sublabels", sublabels, torch.int32, (n,), dev)
     check_cuda("valid", valid, torch.float32, (n,), dev)
-    nsb = n_blocks(n)
+    nsb = plan.nsb
     n2 = torch.empty((nsb, k, 2), device=dev, dtype=torch.float32)
     sx2 = torch.empty((nsb, k, 2, d), device=dev, dtype=torch.float32)
     sxx2 = torch.empty((nsb, k, 2, d, d), device=dev, dtype=torch.float32)
     fn = build.c_function("suffstats_labels", "suffstats_labels_launch",
-                          "piipppipppp")
+                          "piipppiiiipppp")
     launch(fn, dev, x.data_ptr(), n, d, labels.data_ptr(),
-           sublabels.data_ptr(), valid.data_ptr(), k, n2.data_ptr(),
-           sx2.data_ptr(), sxx2.data_ptr())
+           sublabels.data_ptr(), valid.data_ptr(), k, plan.edge, plan.smem,
+           plan.splits, n2.data_ptr(), sx2.data_ptr(), sxx2.data_ptr())
     suffstats_labels_cuda.launches += 1
     return n2, sx2, sxx2
 
@@ -237,6 +254,47 @@ def moments_labels_cuda(feats: torch.Tensor, labels: torch.Tensor,
 
 
 moments_labels_cuda.launches = 0
+
+
+class StatsPlan(NamedTuple):
+    """The launch of ``csrc/suffstats_labels.cu``: its Gram tile (template
+    edge, tiles a side of a segment, teams a block), grid and dynamic shared
+    bytes."""
+    edge: int    # Gram tile edge: the least of GRAM_EDGES holding d, or 128
+    tiles: int   # tiles a side of a segment's d x d sxx: ceil(d / edge)
+    teams: int   # teams of (edge / 8)^2 threads a block, one tile each
+    nsb: int     # STATS_BLOCKs of points
+    smem: int    # dynamic shared bytes a block
+    splits: int  # blocks a STATS_BLOCK (grid nsb x splits)
+
+
+@lru_cache(maxsize=256)
+def stats_plan(n: int, d: int, k: int) -> StatsPlan:
+    """The segment fold's launch for (n, d, k), chosen here only: the
+    launcher takes it as given and refuses an edge other than its own rule
+    or shared bytes other than its layout. The edge is the least of
+    GRAM_EDGES that holds d, so at d <= 64 several teams share a block
+    (256 at d <= 8, 16 at d = 32) and above it one team of 256 threads
+    walks 1 or 2 x 2 tiles of 128 x 128 a segment. Shared memory: the
+    points' segments, ids and weights (STATS_BLOCK each), the S + 1
+    offsets, the sort's S cursors and its scan's warp totals (S = 2k).
+    For 64 < d <= 128, or where the STATS_BLOCKs are fewer than two an
+    SM (and d <= 128), a STATS_BLOCK's (segment, tile) items are shared
+    by up to STATS_SPLITS blocks, each sorting the block itself, so that
+    a grid of few STATS_BLOCKs (2e5 points at d = 128: 196) still fills
+    the card; no output's bits depend on it. N and the blocks' offsets into the
+    partials are ints or 64-bit in the kernel: N below 2^31 is taken."""
+    if not (1 <= n <= INT_MAX and 1 <= d <= MAX_D and 1 <= k <= MAX_K):
+        raise ValueError(f"suffstats_labels: N={n}, d={d}, k={k} outside "
+                         f"[1, 2^31), [1, {MAX_D}], [1, {MAX_K}]")
+    edge = next((e for e in GRAM_EDGES if e >= d), GRAM_EDGES[-1])
+    teams = STATS_THREADS // (edge // 8) ** 2
+    s = 2 * k
+    smem = 4 * (3 * STATS_BLOCK + s + 1 + s + SCAN_INTS)
+    nsb = n_blocks(n)
+    splits = 1 if d > 128 or (d <= 64 and nsb >= 2 * 132) else min(
+        STATS_SPLITS, -(-STATS_WAVES * 2 * 132 // nsb))
+    return StatsPlan(edge, -(-d // edge), teams, nsb, smem, splits)
 
 
 class DensePlan(NamedTuple):

@@ -14,9 +14,9 @@ and the sub-cluster statistic fold in one pass over the points.
 
 Two versions of one function:
 
-- ``sweep_gauss_cuda``: the hand-written kernel ``csrc/sweep_gauss.cu``
-  for CUDA tensors (one launch per call, counted in
-  ``sweep_gauss_cuda.launches``);
+- ``sweep_gauss_cuda``: the hand-written kernels ``csrc/sweep_gauss.cu``
+  for CUDA tensors (``launches_per_call(d)`` launches a call, each counted
+  in ``sweep_gauss_cuda.launches``);
 - ``sweep_gauss_plain``: the same math in plain PyTorch, chunked per
   STATS_BLOCK so the (N, K, d) whitened differences never exist whole.
 
@@ -36,13 +36,14 @@ versions of each by the tensor's device.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from functools import lru_cache
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import build, prng
 from repro_torch.kernels.launch import check_cuda, launch
-from repro_torch.kernels.suffstats import (CHUNK_FLOATS, MAX_DP,
+from repro_torch.kernels.suffstats import (CHUNK_FLOATS, INT_MAX, MAX_DP,
                                            STATS_BLOCK, block_moments,
                                            block_partials, n_blocks)
 
@@ -55,6 +56,19 @@ LOG_2PI = 1.8378770664093453
 # (``core/family.py``), whose kernels go on to ``suffstats.MAX_D``.
 MAX_D = 128
 MAX_K = 2048
+# Step (e) of ``csrc/sweep_gauss.cu`` as a register-tiled product
+# (``sweep_assign_tiled``, a launch of its own) above d = 16: points a block,
+# threads, ring stages; ``sweep_plan`` holds its layout. The tiled product
+# pads d to at least 32, the in-block step (e) to 4, 8 or 16: at 10^6 points
+# and 17 live slots the sweep takes 0.69 / 1.06 ms in-block against 1.94 /
+# 2.08 tiled at d = 8 / 16, while at d = 32 the in-block step (e) alone
+# (assign_gauss, the same device code) takes 3.14 against the tiled 1.69
+# (PERF.md §6: tools/time_kernels.py --kernels sweep on an H100 80GB HBM3
+# at 700 W).
+TE_MIN_D = 17
+TE_BM = 128
+TE_THREADS = 256
+TE_STAGES = 3
 
 SweepOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                  torch.Tensor]
@@ -178,10 +192,59 @@ def _count_ties(t, t2, label_differs, rtol: float) -> Tuple[int, int]:
     return int(t.shape[0]), int((~tie).sum())
 
 
+def launches_per_call(d: int) -> int:
+    """Kernels one ``sweep_gauss_cuda`` call launches: the tiled step (e)
+    and the (f) + fold kernel above d = 16, one fused kernel at and below
+    it."""
+    return 2 if d >= TE_MIN_D else 1
+
+
+class SweepPlan(NamedTuple):
+    """The launches of ``csrc/sweep_gauss.cu``: step (e) in the (f) + fold
+    block (``dp`` 0) or tiled, with padded width ``dp`` (32, 64 or 128),
+    ``grid_e`` blocks of TE_BM points and ``smem_e`` shared bytes; then
+    ``nsb`` (f) + fold blocks, one a STATS_BLOCK."""
+    dp: int
+    grid_e: int
+    smem_e: int
+    nsb: int
+
+
+def te_layout(dp: int) -> Tuple[int, int, int, int]:
+    """(slots a 128-column tile, slot stride of a slab row, rows a slab,
+    floats a ring stage) of ``sweep_assign_tiled<dp>`` (``TiledE``)."""
+    sp = 128 // dp
+    fs = 48 if dp == 32 else dp
+    bk = 16 if dp == 128 else 32
+    stage = -(-(bk * sp * fs + sp * (bk + 1)) // 4) * 4
+    return sp, fs, bk, stage
+
+
+@lru_cache(maxsize=256)
+def sweep_plan(n: int, d: int, k: int) -> SweepPlan:
+    """The sweep's launches for (n, d, k), chosen here only: the launcher
+    refuses a route or shared size other than this. Above d = 16 step (e)
+    runs tiled (d rounded up to 32, 64 or 128; its shared memory holds the
+    tile's x, the ring, the per-point partials, the scan's 32 ints and two
+    K-int slot lists); at and below it, in the (f) + fold block. N runs in
+    an int in the kernels."""
+    if not (1 <= n <= INT_MAX and 1 <= d <= MAX_D and 1 <= k <= MAX_K):
+        raise ValueError(f"sweep_gauss: N={n}, d={d}, K={k} outside "
+                         f"[1, 2^31), [1, {MAX_D}], [1, {MAX_K}]")
+    if d < TE_MIN_D:
+        return SweepPlan(0, 0, 0, n_blocks(n))
+    dp = 32 if d <= 32 else 64 if d <= 64 else 128
+    sp, _, _, stage = te_layout(dp)
+    smem = 4 * (dp * (TE_BM + 4) + TE_STAGES * stage + 2 * (sp + 2) * TE_BM
+                + 32 + 2 * k)
+    return SweepPlan(dp, -(-n // TE_BM), smem, n_blocks(n))
+
+
 def sweep_gauss_cuda(x, mu, chol_prec, logdet_prec, logw, active, sub_mu,
                      sub_chol_prec, sub_logdet_prec, sublogw, valid, gidx,
                      key_z, key_zb, slots) -> SweepOut:
-    """One launch of ``csrc/sweep_gauss.cu`` on the current stream."""
+    """One call of ``csrc/sweep_gauss.cu`` on the current stream: above
+    d = 16 the tiled step (e) launch, then the (f) + fold launch."""
     n, d = x.shape
     k = mu.shape[0]
     if x.device.type != "cuda":
@@ -194,6 +257,7 @@ def sweep_gauss_cuda(x, mu, chol_prec, logdet_prec, logw, active, sub_mu,
         raise ValueError(f"sweep_gauss: K={k} outside [1, {MAX_K}]")
     if n == 0:
         raise ValueError("sweep_gauss: no points")
+    plan = sweep_plan(n, d, k)
     dev = x.device
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
     for name, t, dtype, shape in (
@@ -207,22 +271,22 @@ def sweep_gauss_cuda(x, mu, chol_prec, logdet_prec, logw, active, sub_mu,
             ("gidx", gidx, i64, (n,)), ("key_z", key_z, i64, (2,)),
             ("key_zb", key_zb, i64, (2,)), ("slots", slots, i32, (k,))):
         check_cuda(name, t, dtype, shape, dev)
-    nsb = n_blocks(n)
+    nsb = plan.nsb
     labels = torch.empty((n,), device=dev, dtype=i32)
     sublabels = torch.empty((n,), device=dev, dtype=i32)
     n2 = torch.empty((nsb, k, 2), device=dev, dtype=f32)
     sx2 = torch.empty((nsb, k, 2, d), device=dev, dtype=f32)
     sxx2 = torch.empty((nsb, k, 2, d, d), device=dev, dtype=f32)
     fn = build.c_function("sweep_gauss", "sweep_gauss_launch",
-                          "piippppppi" + "p" * 14)
+                          "piippppppi" + "p" * 8 + "ii" + "p" * 6)
     launch(fn, dev, x.data_ptr(), n, d, mu.data_ptr(), chol_prec.data_ptr(),
            logdet_prec.data_ptr(), logw.data_ptr(), active.data_ptr(),
            slots.data_ptr(), k, sub_mu.data_ptr(), sub_chol_prec.data_ptr(),
            sub_logdet_prec.data_ptr(), sublogw.data_ptr(), valid.data_ptr(),
-           gidx.data_ptr(), key_z.data_ptr(), key_zb.data_ptr(),
-           labels.data_ptr(), sublabels.data_ptr(), n2.data_ptr(),
+           gidx.data_ptr(), key_z.data_ptr(), key_zb.data_ptr(), plan.dp,
+           plan.smem_e, labels.data_ptr(), sublabels.data_ptr(), n2.data_ptr(),
            sx2.data_ptr(), sxx2.data_ptr())
-    sweep_gauss_cuda.launches += 1
+    sweep_gauss_cuda.launches += launches_per_call(d)
     return labels, sublabels, n2, sx2, sxx2
 
 

@@ -82,7 +82,9 @@ def test_sweep_gauss_kernel_matches_plain(dev, n, d, k):
     before = sweep.sweep_gauss_cuda.launches
     got = ops.sweep_gauss(*a)
     again = ops.sweep_gauss(*a)
-    assert sweep.sweep_gauss_cuda.launches == before + 2
+    # two calls, each counting the kernels it launched
+    assert sweep.sweep_gauss_cuda.launches == (
+        before + 2 * sweep.launches_per_call(d))
     assert all(torch.equal(u, v) for u, v in zip(got, again))
     want = sweep.sweep_gauss_plain(*a)
     mism, not_ties = sweep.label_mismatches(a, got[0], got[1], want[0],
@@ -106,6 +108,89 @@ def test_suffstats_labels_kernel_matches_plain(dev, n, d, k):
     again = ops.suffstats_labels(x, lab, sub, valid, k)
     assert all(torch.equal(u, v) for u, v in zip(got, again))
     _close(got, suffstats.suffstats_labels_plain(x, lab, sub, valid, k))
+
+
+def _edge(a, kind, seed):
+    """Sweep operands ``a`` (``_args``) made an edge case of the fold:
+    "empty" (every point invalid: every segment empty), "one_segment" (one
+    live slot and a far second sub-cluster: the block is one segment) or
+    "valid_zeros" (half the points invalid)."""
+    a = list(a)
+    n, k = a[0].shape[0], a[1].shape[0]
+    g = torch.Generator().manual_seed(seed)
+    if kind == "empty":
+        a[10] = torch.zeros_like(a[10])
+    elif kind == "valid_zeros":
+        a[10] = (torch.rand(n, generator=g) < 0.5).float().to(a[10].device)
+    elif kind == "one_segment":
+        act = torch.zeros_like(a[5])
+        act[k // 2] = 1
+        a[5] = act
+        a[6] = a[6].clone()
+        a[6][:, 1] += 1e3
+    return tuple(a)
+
+
+def _sweep_check(a, n, k):
+    got = ops.sweep_gauss(*a)
+    again = ops.sweep_gauss(*a)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    want = sweep.sweep_gauss_plain(*a)
+    mism, not_ties = sweep.label_mismatches(a, got[0], got[1], want[0],
+                                            want[1], rtol=1e-4)
+    assert not_ties == 0 and mism <= max(1, 1e-3 * n), (mism, not_ties)
+    _close(got[2:], suffstats.suffstats_labels_plain(a[0], got[0], got[1],
+                                                     a[10], k))
+    return got
+
+
+@pytest.mark.parametrize("kind", ["empty", "one_segment", "valid_zeros"])
+@pytest.mark.parametrize("d", [1, 31, 33, 65, 128])
+def test_sweep_gauss_kernel_edge_cases(dev, d, kind):
+    """The fold's edge cases and both step-(e) routes (in the block at
+    d <= 16, tiled above) against the plain version, and a repeat launch
+    bitwise; one segment: every label the live slot, every sub-label 0."""
+    n, k = 4097, 17
+    got = _sweep_check(_edge(_args(n, d, k, dev, seed=d), kind, d), n, k)
+    if kind == "one_segment":
+        assert bool((got[0] == k // 2).all()) and bool((got[1] == 0).all())
+    if kind == "empty":
+        assert all(not bool(t.any()) for t in got[2:])
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (1023, 300), (1025, 2),
+                                 (4097, 64)])
+@pytest.mark.parametrize("d", [3, 4, 32, 63, 100])
+def test_sweep_gauss_kernel_grid(dev, n, d, k):
+    _sweep_check(_args(n, d, k, dev, seed=n + d), n, k)
+
+
+@pytest.mark.parametrize("kind", ["empty", "one_segment", "valid_zeros",
+                                  "ragged"])
+@pytest.mark.parametrize("d", [1, 33, 128, 129, 256])
+def test_suffstats_labels_kernel_edge_cases(dev, d, kind):
+    """Empty segments only, one segment holding every point, valid-mask
+    zeros, and a ragged N with K = 300 (most segments empty), against the
+    plain version and a repeat launch bitwise."""
+    n, k = (1025, 300) if kind == "ragged" else (4097, 17)
+    g = torch.Generator().manual_seed(d)
+    x = (torch.randn(n, d, generator=g) * 3).to(dev)
+    lab = torch.randint(-1, k + 1, (n,), generator=g).to(dev, torch.int32)
+    sub = torch.randint(0, 2, (n,), generator=g).to(dev, torch.int32)
+    valid = torch.ones(n, device=dev)
+    if kind == "empty":
+        valid.zero_()
+    elif kind == "valid_zeros":
+        valid = (torch.rand(n, generator=g) < 0.5).float().to(dev)
+    elif kind == "one_segment":
+        lab.fill_(k // 2)
+        sub.fill_(1)
+    got = ops.suffstats_labels(x, lab, sub, valid, k)
+    again = ops.suffstats_labels(x, lab, sub, valid, k)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    _close(got, suffstats.suffstats_labels_plain(x, lab, sub, valid, k))
+    if kind == "empty":
+        assert all(not bool(t.any()) for t in got)
 
 
 def _linear_args(n, dp, k, dev, seed=0):
@@ -400,7 +485,9 @@ def test_sub_assign_linear_kernel_matches_plain(dev, n, dp, k):
 
 
 @pytest.mark.parametrize("component,gen,d", [
-    ("gaussian", generate_gmm, 6), ("multinomial", generate_mnmm, 24)])
+    ("gaussian", generate_gmm, 6), ("gaussian", generate_gmm, 32),
+    ("gaussian", generate_gmm, 65), ("gaussian", generate_gmm, 128),
+    ("multinomial", generate_mnmm, 24)])
 def test_three_pass_sweep_tile_is_the_one_read_tile_on_the_card(
         dev, component, gen, d):
     x_np, _ = gen(12_000, d, 4, seed=3)

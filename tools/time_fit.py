@@ -1,12 +1,13 @@
 """Time one checkout's DPMM fits at the smoke run's shapes.
 
     python3 tools/time_fit.py [--src PATH/TO/src] [--tile-size ROWS]
-        [--fits gaussian,multinomial,gaussian_d256]
+        [--fits gaussian,multinomial,gaussian_d128,gaussian_d256]
 
 Fits, with the ``repro_torch`` package under ``--src`` (default: this
 checkout's ``src``), the smoke run's Gaussian (10^6 x 32) and multinomial
-(10^6 x 128) mixtures, or with ``--fits gaussian_d256`` its 4e5 x 256
-Gaussian mixture (through the three-pass sweep), with
+(10^6 x 128) mixtures, or with ``--fits gaussian_d128`` its 2e5 x 128
+Gaussian mixture (the one-read sweep's wide layout) or ``gaussian_d256``
+its 4e5 x 256 one (through the three-pass sweep), with
 ``DPMMConfig(k_max=64, iters=40, burnout=10,
 log_every=10)``, seed 0, each ``--repeats`` times in one process (the
 first also builds the kernels and warms up), on the card. Prints one JSON
@@ -28,6 +29,7 @@ import torch
 # name: (component, generator, d, N or None for --n)
 FITS = {"gaussian": ("gaussian", "generate_gmm", 32, None),
         "multinomial": ("multinomial", "generate_mnmm", 128, None),
+        "gaussian_d128": ("gaussian", "generate_gmm", 128, 200_000),
         "gaussian_d256": ("gaussian", "generate_gmm", 256, 400_000)}
 
 
