@@ -82,11 +82,16 @@ point ``ops.suffstats``) against its plain version at the d = 32 and d =
 128 fits' final states, a ragged shape, d = 256 and the reference's §4.2
 shapes, and against ``suffstats_labels`` on the segments' one-hot, and
 times it beside the library route. ``matmul``, the dense oracle,
-``sweep_gauss`` and ``suffstats_labels`` (``kernel_check``,
-``kernels_d128``, ``kernels_d256``, the kernels line) are timed two ways:
-the median single-call time (``cuda_ms``, host time included: what one
-caller sees) and the per-launch device time of a run of back-to-back
-calls (``run_ms``, with the host's enqueue time a call). Each phase prints one JSON line;
+``sweep_gauss``, ``suffstats_labels``, ``sub_assign_gauss``
+(``kernels_d256``, ``kernel_check_three_pass``) and ``sweep_linear`` (the
+multinomial fit's state and the 20newsgroups width, ``kernel_times``)
+are timed two ways: the median single-call time (``cuda_ms``, host time
+included: what one caller sees) and the per-launch device time of a run
+of back-to-back calls (``run_ms``, with the host's enqueue time a call).
+A call of ``sub_assign_gauss`` is three launches (label histogram,
+placement, product) and one of ``sweep_linear`` two ((e) + (f), then the
+fold); the launch checks and the kernels line count them all. Each phase
+prints one JSON line;
 any failed check raises, so the script exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -619,6 +624,8 @@ def time_linear(args, lab, sub, k_sm: int, sweep, suffstats) -> dict:
     out = {"n": n, "d_feat": dp, "k_sweep": k, "k_live": live, "k_stats": k_sm}
     out["sweep_linear"] = {
         "ms": cuda_ms(lambda: sweep.sweep_linear_cuda(*args), 20),
+        **dict(zip(("device_ms", "host_ms"), run_ms(
+            lambda: sweep.sweep_linear_cuda(*args), 20))),
         "plain_ms": cuda_ms(lambda: sweep.sweep_linear_plain(*args), 3),
         # step (e) over the live slots, step (f) over two rows, the fold
         "flop": 2 * n * dp * (live + 3),
@@ -1354,10 +1361,15 @@ def fit_three_pass(DPMM, cfg, x_np, y_np, gibbs) -> tuple:
          "moments_labels"))
     problems = [f"{name}: NMI {report[name]['nmi']:.4f} < 0.9"
                 for name in runs if report[name]["nmi"] < 0.9]
-    # sweep_gauss counts the kernels of a call (the tiled step (e), then
-    # (f) + fold, above d = 16), sweep_linear one
-    per_call = sweep.launches_per_call(report["d"]) if gauss else 1
-    if not (lt[fused_k] == 0 and lt[step_e] == lt[step_f] == cfg.iters
+    # the sweeps count the kernels of a call (sweep_gauss: the tiled step
+    # (e), then (f) + fold, above d = 16; sweep_linear: (e) + (f), then the
+    # fold), and so does sub_assign_gauss (histogram, placement, product)
+    from repro_torch.kernels import assign
+    per_call = (sweep.launches_per_call(report["d"]) if gauss
+                else sweep.LINEAR_LAUNCHES)
+    f_per_call = assign.SUB_LAUNCHES if gauss else 1
+    if not (lt[fused_k] == 0 and lt[step_e] == cfg.iters
+            and lt[step_f] == f_per_call * cfg.iters
             and lt[fold] > 0 and lf[fused_k] == per_call * cfg.iters):
         problems.append(f"launches {lt} / {lf}")
     if rt.k != rf.k:
@@ -1425,8 +1437,7 @@ def kernels_d256(res, launches, x_np, cfg, gibbs, sampler, assign,
         out[name] = {"ms": cuda_ms(kern, 10), "plain_ms": cuda_ms(plain, 1),
                      "bound_ms": b, "bound_by": by,
                      "launches_per_iter": launches[name] / cfg.iters}
-        if name in ("assign_gauss", "loglik_gauss", "suffstats_labels"):
-            out[name]["device_ms"], out[name]["host_ms"] = run_ms(kern, 10)
+        out[name]["device_ms"], out[name]["host_ms"] = run_ms(kern, 10)
     out["assign_gauss"]["near_tie_mismatches"] = e_ties
     out["sub_assign_gauss"]["near_tie_mismatches"] = f_check[
         "near_tie_mismatches"]
@@ -1916,8 +1927,10 @@ def main() -> None:
         DPMM, cfg, x256_np, y256_np,
         ("assign_gauss", "sub_assign_gauss", "suffstats_labels",
          "fold_partials"), gpu, "fit_gaussian_d256")
-    if not (launch256["sweep_gauss"] == 0 and launch256["assign_gauss"]
-            == launch256["sub_assign_gauss"] == cfg.iters):
+    if not (launch256["sweep_gauss"] == 0
+            and launch256["assign_gauss"] == cfg.iters
+            and launch256["sub_assign_gauss"]
+            == assign.SUB_LAUNCHES * cfg.iters):
         fail(f"fit_gaussian_d256: launches {launch256}")
     k256 = kernels_d256(res256, launch256, x256_np, cfg, gibbs, sampler,
                         assign, suffstats, loglik, dev)
@@ -2092,7 +2105,8 @@ def main() -> None:
             "launches_per_iter": mlaunch[name] / mcfg.iters,
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"],
+            **{key: t[key] for key in ("device_ms", "host_ms") if key in t}})
     serve_rows = (
         ("loglik_gauss", "src/repro_torch/csrc/loglik_gauss.cu",
          "src/repro/kernels/loglik.py:49"),
@@ -2161,6 +2175,8 @@ def main() -> None:
     tp_times = {
         "sub_assign_gauss": {
             "ms": cuda_ms(lambda: assign.sub_assign_gauss_cuda(*g_args), 20),
+            **dict(zip(("device_ms", "host_ms"), run_ms(
+                lambda: assign.sub_assign_gauss_cuda(*g_args), 20))),
             "plain_ms": cuda_ms(
                 lambda: assign.sub_assign_gauss_plain(*g_args), 3)},
         "sub_assign_linear": {
@@ -2205,7 +2221,8 @@ def main() -> None:
             "launches_per_iter": runs[name] / cfg.iters,
             "max_abs_err": float(t["near_tie_mismatches"]), "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None})
+            "bound_by": t["bound_by"], "library_ms": None,
+            **{key: t[key] for key in ("device_ms", "host_ms") if key in t}})
     # the stat fold (every fit path; times at the d = 32 fit's sweep sxx
     # partials) and the dense oracle (its entry point only; times at the
     # d = 32 fit's final state, one-hot)

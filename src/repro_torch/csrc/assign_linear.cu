@@ -11,8 +11,8 @@
 //
 // Design. The TPU kernel's grid (point blocks, K tiles) carried the running
 // (max, argmax) across K tiles in VMEM scratch; here a thread block owns PT
-// = 256 points and runs the sweep's step (e) on them (assign_tile.cuh,
-// linear_assign, shared with sweep_linear.cu): 32-feature chunks of the
+// = 256 points and runs step (e) on them (assign_tile.cuh, linear_assign,
+// whose chains sweep_linear.cu keeps): 32-feature chunks of the
 // points and of the tile's active weight rows staged with cp.async, an
 // 8 x 8 register block of dot products per thread in feature order, the
 // inactive slots' noise drawn all the same, and a strict-`>` first max.

@@ -4,18 +4,19 @@
 //   t_ik = loglik_k(x_i) + logw_k  (-1e30 if slot k is inactive)
 //          + Gumbel(key_z, gidx_i, slots_k)
 //
-// shared by the one-read sweeps (sweep_gauss.cu at d <= 16, sweep_linear.cu)
-// and the standalone assignment kernels (assign_gauss.cu, assign_linear.cu);
+// shared by the one-read sweep_gauss.cu at d <= 16 and the standalone
+// assignment kernels (assign_gauss.cu, assign_linear.cu; sweep_linear.cu
+// keeps linear_assign's chains in a tile of its own);
 // the Gaussian whitening product is also the body of loglik_gauss.cu. It is
 // the device half of the TPU kernels src/repro/kernels/assign.py:
 // assign_gauss / assign_linear and of step (e) of
 // src/repro/kernels/sweep.py. Above d = 16 sweep_gauss.cu runs step (e) as
 // a register-tiled product of its own that keeps these functions' chains
-// and order. Step (f) (the own cluster's two sub-components) is here too,
-// shared by sweep_linear.cu and the standalone sub_assign_gauss.cu /
-// sub_assign_linear.cu; sweep_gauss.cu runs the same arithmetic on staged
-// operands (maha_narrow / maha_wide), so the three-pass path draws the
-// one-read sweep's sub-labels bit for bit.
+// and order. The linear step (f) (the own cluster's two sub-weight rows) is
+// here too, shared by sub_assign_linear.cu; the Gaussian step (f) of the
+// sweep and of sub_assign_gauss.cu runs maha_narrow / maha_wide on staged
+// operands (sub_tile.cuh), so the three-pass path draws the one-read
+// sweep's sub-labels bit for bit.
 //
 // The narrow, wide and linear step-(e) functions are called by all threads
 // of the block (they hold __syncthreads) and leave, for the block's np
@@ -313,106 +314,6 @@ __device__ void gauss_assign_wide(
   __syncthreads();
 }
 
-// The step-(f) warp layout's widest d (sub_assign_gauss.cu): one warp a
-// point, its x row staged in shared memory (PANEL_D floats a warp).
-constexpr int PANEL_D = 256;
-
-// ---------------------------------------------------------------------------
-// Step (f), Gaussian: first max over s in {0, 1} of
-//   t_s = 0.5 (sub_logdet_ls - |F_ls^T (x - mu_ls)|^2) - 0.5 d log(2 pi)
-//         + sublogw_ls + Gumbel(key_zb, gidx, s)
-// under the point's own cluster l, whose two factors are read from global
-// memory (a point needs two; all of them stay in L2: 16 MiB at K = 32 and
-// d = 256). The standalone sub_assign_gauss.cu calls these; the one-read
-// sweep (sweep_gauss.cu, d <= 128) stages each label's two factors in
-// shared memory and runs the same chains (maha_narrow / maha_wide, whose
-// zero padding adds exact zeros), so their sub-labels agree bit for bit.
-// ---------------------------------------------------------------------------
-
-// Narrow layout (d <= 64): one thread, its x row in registers (zero past d).
-template <int DP>
-__device__ __forceinline__ int gauss_sub_narrow(
-    const float (&xr)[DP], int d, int l, const float* __restrict__ sub_mu,
-    const float* __restrict__ sub_chol, const float* __restrict__ sub_logdet,
-    const float* __restrict__ sublogw, uint32_t g, uint32_t kb0,
-    uint32_t kb1, float half_d_log2pi) {
-  float t2[2];
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const size_t ks = (size_t)l * 2 + s;
-    const float* f = sub_chol + ks * d * d;
-    const float* m = sub_mu + ks * d;
-    float y[DP];
-#pragma unroll
-    for (int c = 0; c < DP; ++c) y[c] = 0.f;
-#pragma unroll
-    for (int r = 0; r < DP; ++r) {
-      if (r < d) {
-        const float dv = xr[r] - __ldg(m + r);
-#pragma unroll
-        for (int c = 0; c < DP; ++c)
-          if (c < d) y[c] = fmaf(dv, __ldg(f + r * d + c), y[c]);
-      }
-    }
-    float maha = 0.f;
-#pragma unroll
-    for (int c = 0; c < DP; ++c) maha = fmaf(y[c], y[c], maha);
-    float t = 0.5f * (__ldg(sub_logdet + ks) - maha) - half_d_log2pi;
-    t = t + __ldg(sublogw + ks);
-    t2[s] = t + gumbel(kb0, kb1, g, (uint32_t)s);
-  }
-  return t2[1] > t2[0] ? 1 : 0;
-}
-
-// |F^T (x - m)|^2 of the wide layout for a factor in global memory (row
-// stride d, not padded): the lane's 32 columns 4j + 16t + q below d.
-__device__ __forceinline__ float maha_wide_global(const float* xs,
-                                                  const float* f,
-                                                  const float* m, int d,
-                                                  int j) {
-  float y[WIDE_COLS];
-#pragma unroll
-  for (int c = 0; c < WIDE_COLS; ++c) y[c] = 0.f;
-  for (int r = 0; r < d; ++r) {
-    const float dv = xs[r] - __ldg(m + r);
-    const float* fr = f + (size_t)r * d;
-#pragma unroll
-    for (int t = 0; t < WIDE_COLS / 4; ++t)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = 4 * j + 16 * t + q;
-        if (c < d) y[4 * t + q] = fmaf(dv, __ldg(fr + c), y[4 * t + q]);
-      }
-  }
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < WIDE_COLS; ++c) s = fmaf(y[c], y[c], s);
-  s += __shfl_xor_sync(0xffffffffu, s, 1);
-  s += __shfl_xor_sync(0xffffffffu, s, 2);
-  return s;
-}
-
-// Wide layout (64 < d <= 128): lane j of the lane group whose staged x row
-// is xs. All 32 lanes of the warp call it (the shuffles) and get the same
-// sub-label; ``live`` false marks a pad group, which draws no noise.
-__device__ __forceinline__ int gauss_sub_wide(
-    const float* xs, int d, int j, int l, const float* __restrict__ sub_mu,
-    const float* __restrict__ sub_chol, const float* __restrict__ sub_logdet,
-    const float* __restrict__ sublogw, bool live, uint32_t g, uint32_t kb0,
-    uint32_t kb1, float half_d_log2pi) {
-  float t2[2];
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const size_t ks = (size_t)l * 2 + s;
-    const float maha = maha_wide_global(xs, sub_chol + ks * d * d,
-                                        sub_mu + ks * d, d, j);
-    float t = 0.5f * (__ldg(sub_logdet + ks) - maha) - half_d_log2pi;
-    t = t + __ldg(sublogw + ks);
-    t2[s] = live ? t + gumbel(kb0, kb1, g, (uint32_t)s) : t;
-  }
-  return t2[1] > t2[0] ? 1 : 0;
-}
-
 // ---------------------------------------------------------------------------
 // Linear families
 // ---------------------------------------------------------------------------
@@ -635,8 +536,8 @@ __device__ void linear_assign(
 // sub-label to put(p, zb), from the lane that chose it, so the caller
 // writes its outputs in the same step. With CHECKED a label outside
 // [0, K) gets sub-label 0 (labels from the caller); the sweep's own labels
-// need no check. Blocks of LIN_THREADS threads. Shared by sweep_linear.cu
-// and sub_assign_linear.cu.
+// need no check. Blocks of LIN_THREADS threads. sub_assign_linear.cu runs
+// it; sweep_linear.cu keeps its lane chains and tree, grouped by label.
 template <bool CHECKED, class Put>
 __device__ void linear_sub_assign(
     const float* __restrict__ fb, int np, int dp,

@@ -13,9 +13,11 @@
 // No float atomics: the block's point ids are sorted by segment with a
 // stable counting sort, then every output entry is one sequential sum over
 // its segment's points in point order. The result does not depend on
-// scheduling, so two launches on the same inputs give identical bits. The
-// linear kernels' first moments use sort_by_segment (warp 0 alone) and
-// accumulate_moments; the Gaussian fold is fold_segments, below.
+// scheduling, so two launches on the same inputs give identical bits.
+// moments_labels' first moments use sort_by_segment (warp 0 alone) and
+// accumulate_moments; sweep_linear's fold sorts with sort_segments_block
+// and walks only the non-empty segments; the Gaussian fold is
+// fold_segments, below.
 #pragma once
 
 #include <stdint.h>

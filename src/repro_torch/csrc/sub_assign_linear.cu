@@ -14,12 +14,13 @@
 //
 // Design. The TPU kernel kept the (K, 2, d') sub-weights resident in VMEM
 // and gathered each point's two rows with a one-hot matmul on the matrix
-// unit. Here a thread block owns PT = 256 points and runs the one-read
-// sweep's step (f) on them (assign_tile.cuh, linear_sub_assign, shared with
-// sweep_linear.cu): one warp per point, the lanes striding its feature row
-// and its own cluster's two sub-weight rows (read from L2), a shuffle-down
-// tree for each sum, then the Gumbel draws and the choice for 32 points at
-// once. So the sub-labels equal the sweep's bit for bit on the same labels,
+// unit. Here a thread block owns PT = 256 points and runs step (f) on them
+// (assign_tile.cuh, linear_sub_assign, whose lane chains and tree the
+// one-read sweep_linear.cu keeps): one warp per point, the lanes striding
+// its feature row and its own cluster's two sub-weight rows (read from
+// L2), a shuffle-down tree for each sum, then the Gumbel draws and the
+// choice for 32 points at once. So the sub-labels equal the sweep's bit
+// for bit on the same labels,
 // and a repeat launch gives the same bits.
 //
 // What bounds it. It reads N d' 4 bytes of features once (plus labels and

@@ -53,4 +53,13 @@ __device__ __forceinline__ float gumbel(uint32_t k0, uint32_t k1, uint32_t c0,
   return -logf(-logf(uniform01(threefry2x32_x0(k0, k1, c0, c1))));
 }
 
+// Whether the draw of counter (c0, c1) lies in the top bin (g = +inf).
+// Every other draw is finite, in [-2.86, 15.95], so -1e30 + g, an inactive
+// slot's logit, rounds to -1e30 exactly (fp32's ulp there is 2^76): the
+// logit is +inf in the top bin and -1e30 otherwise, with no logarithm.
+__device__ __forceinline__ bool top_bin(uint32_t k0, uint32_t k1, uint32_t c0,
+                                        uint32_t c1) {
+  return threefry2x32_x0(k0, k1, c0, c1) >= 0xFFFFFF00u;
+}
+
 }  // namespace repro_torch

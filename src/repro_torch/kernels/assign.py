@@ -36,8 +36,10 @@ one-read sweep's d = 128, ``assign_gauss`` (and ``loglik_gauss``) run the
 panel layout, which takes any d: (X - mu_k) F_k as a register-tiled
 product over streamed row slabs, on a grid of point tiles x slot groups
 that ``panel_plan`` chooses from the shape alone. ``sub_assign_gauss``
-reads a point's two factors from L2 with one warp and stops at
-``suffstats.MAX_D`` = 256.
+groups the points by label across the batch (three launches a call,
+``SUB_LAUNCHES``), then stages a label's factors once for a run of its
+points (``sub_plan``: a thread a point at d <= 64, a register-tiled
+product above), and stops at ``suffstats.MAX_D`` = 256.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ import torch
 
 from repro_torch.kernels import build, prng
 from repro_torch.kernels.launch import check_cuda, launch
-from repro_torch.kernels.suffstats import MAX_D, MAX_DP
+from repro_torch.kernels.suffstats import MAX_D, MAX_DP, MAX_K
 from repro_torch.kernels.sweep import (LOG_2PI, NEG_INF, assign_linear_plain,
                                        sub_assign_linear_plain)
 from repro_torch.kernels.sweep import MAX_D as WIDE_D
@@ -268,9 +270,78 @@ def assign_linear_cuda(feats, w, const, logw, active, gidx, key_z,
 assign_linear_cuda.launches = 0
 
 
+# csrc/sub_assign_gauss.cu: kernels a call (the label histogram, the
+# placement by label, the product), points an item of the narrow layout (a
+# thread a point, d <= 64) and of the tiled one (8 a warp), and the tiled
+# layout's ring: factor rows a slab, columns a tile, x-slab row stride,
+# stages.
+SUB_LAUNCHES = 3
+SUB_NARROW_D = 64
+SUB_NARROW_PER, SUB_TILED_PER = 256, 64
+SUB_BK, SUB_COLS, SUB_XS, SUB_STAGES = 16, 256, 64 + 4, 3
+
+
+class SubPlan(NamedTuple):
+    """The launches of ``csrc/sub_assign_gauss.cu``: the histogram and the
+    placement (blocks of 1024 points; the placement with
+    ``sort_smem`` shared bytes: offsets, items, counts, first slots, the
+    scan's warp totals), then the product at padded width ``dp`` (4..64
+    narrow, 128 or 256 tiled), ``per`` points an item, on a ``grid`` of
+    blocks (at least the items, one label's run each) with ``smem`` dynamic
+    shared bytes."""
+    dp: int
+    per: int
+    grid: int
+    smem: int
+    sort_smem: int
+
+
+@lru_cache(maxsize=256)
+def sub_plan(n: int, d: int, k: int) -> SubPlan:
+    """``sub_assign_gauss``'s layout for (n, d, k), chosen here only: the
+    launcher refuses any other. Up to d = 64 a thread takes a point against
+    the label's two factors staged whole (sub_tile.cuh, the one-read
+    sweep's step (f)); above, the two factors are streamed in row slabs
+    through a register-tiled product of 64 points, whose shared bytes do
+    not grow with d (both sub-factors side by side in a 256-column tile at
+    d <= 128, one a pass at d <= 256). The grid bounds the items: a label
+    of c points has ceil(c / per), so at most ceil(n / per) + min(k, n)."""
+    if not (1 <= n < 2 ** 31 and 1 <= d <= MAX_D and 1 <= k <= MAX_K):
+        raise ValueError(f"sub_assign_gauss: N={n}, d={d}, K={k} outside "
+                         f"[1, 2^31), [1, {MAX_D}], [1, {MAX_K}]")
+    dp = next(p for p in (4, 8, 16, 32, 64, 128, 256) if d <= p)
+    if dp <= SUB_NARROW_D:
+        per = SUB_NARROW_PER
+        # the staged tile: two factors, two means, and four ints a slot
+        smem = 4 * (2 * dp * dp + 2 * dp + 8)
+    else:
+        per = SUB_TILED_PER
+        nx = 2 if dp == 128 else 1
+        smem = 4 * SUB_STAGES * (SUB_BK * SUB_COLS + nx * SUB_BK * SUB_XS
+                                 + nx * SUB_BK)
+    return SubPlan(dp, per, -(-n // per) + min(k, n), smem,
+                   4 * (3 * k + 2 + 32))
+
+
+def sub_col(dp: int, lane: int, k: int) -> int:
+    """The tiled layout's column in register ``k`` of thread (lane)
+    ``lane``, as a place in a 256-float slab row (``csrc/sub_assign_gauss.cu``
+    sub_col): at dp = 256 lane l holds columns l + 32 k (the parent warp
+    layout's lane l); at dp = 128 the row is [F_0 row | F_1 row] and lane
+    16 s + 4 j + h holds columns 4 j + 16 t + q of sub-factor s for
+    t = 2 h + k // 4, q = k % 4 (a quarter of the parent's lane j's
+    chain)."""
+    if dp == 256:
+        return lane + 32 * k
+    s, j, h = lane // 16, (lane // 4) % 4, lane % 4
+    return s * 128 + 4 * j + 16 * (2 * h + k // 4) + k % 4
+
+
 def sub_assign_gauss_cuda(x, sub_mu, sub_chol_prec, sub_logdet_prec,
                           sublogw, labels, gidx, key_zb) -> torch.Tensor:
-    """One launch of ``csrc/sub_assign_gauss.cu`` on the current stream."""
+    """One call of ``csrc/sub_assign_gauss.cu`` on the current stream:
+    the label histogram, the placement by label and the product of
+    ``sub_plan``, each counted in ``launches``."""
     n, d = x.shape
     k = sub_mu.shape[0]
     _check_launch("sub_assign_gauss", x, d, k, MAX_D, "d", (
@@ -278,14 +349,20 @@ def sub_assign_gauss_cuda(x, sub_mu, sub_chol_prec, sub_logdet_prec,
         ("sub_chol_prec", sub_chol_prec, F32, (k, 2, d, d)),
         ("sub_logdet_prec", sub_logdet_prec, F32, (k, 2)))
         + _step_f_rows(n, k, sublogw, labels, gidx, key_zb))
+    plan = sub_plan(n, d, k)
     sublabels = torch.empty((n,), device=x.device, dtype=torch.int32)
+    # the label counts and placement cursors (the launcher zeroes them),
+    # offsets, items and the point ids by label
+    scratch = torch.empty((4 * k + 2 + n,), device=x.device,
+                          dtype=torch.int32)
     fn = build.c_function("sub_assign_gauss", "sub_assign_gauss_launch",
-                          "piipipppppppp")
+                          "piipipppppp" + "iiiii" + "ppp")
     launch(fn, x.device, x.data_ptr(), n, d, labels.data_ptr(), k,
            sub_mu.data_ptr(), sub_chol_prec.data_ptr(),
            sub_logdet_prec.data_ptr(), sublogw.data_ptr(), gidx.data_ptr(),
-           key_zb.data_ptr(), sublabels.data_ptr())
-    sub_assign_gauss_cuda.launches += 1
+           key_zb.data_ptr(), plan.dp, plan.per, plan.grid, plan.smem,
+           plan.sort_smem, scratch.data_ptr(), sublabels.data_ptr())
+    sub_assign_gauss_cuda.launches += SUB_LAUNCHES
     return sublabels
 
 

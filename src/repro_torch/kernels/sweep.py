@@ -30,7 +30,8 @@ Two versions of one function:
     -> labels, sublabels (N,) int32; n2 (nsb, K, 2); sf2 (nsb, K, 2, d')
        per-STATS_BLOCK partials of n and sum feats.
 
-with ``sweep_linear_cuda`` (``csrc/sweep_linear.cu``) and
+with ``sweep_linear_cuda`` (``csrc/sweep_linear.cu``, two launches a call,
+``LINEAR_LAUNCHES``, on the grids of ``linear_plan``) and
 ``sweep_linear_plain`` beside it. ``kernels.ops`` picks between the two
 versions of each by the tensor's device.
 """
@@ -363,10 +364,76 @@ def label_mismatches_linear(args, labels_a, sublabels_a, labels_b,
     return _count_ties(t, t2, labels_a[bad] != labels_b[bad], rtol)
 
 
+# csrc/sweep_linear.cu: threads of a step-(e)/(f) block, active slots a
+# chunk, padded rows of a staged feature chunk (32 + 4), the point tiles it
+# holds (largest first) with the depth of each one's chunk ring, and the
+# blocks that fill the card (two an SM of the H100's 132); the fold's
+# features a block.
+LE_THREADS, LE_BK, LE_FSTR = 256, 64, 36
+# Each tile forced at every N (tools/ablate_linear.py, an H100 80GB HBM3
+# at 700 W; PERF.md §6): 128 points took 1.193 against 1.604 ms a call
+# at 10^6 x 128 and 0.488 against 0.767 at the Poisson 10^6 x 32; 64 took
+# 2.056 against 2.709 at 11,314 x 20,000 (89 blocks of 128 on 132 SMs).
+# The switch, LE_BLOCKS blocks of 128 (N = 33,665), lies between; no N
+# between 11,314 and 10^6 was timed.
+LE_BM = (128, 64)
+LE_STAGES = {128: 2, 64: 4}
+LE_BLOCKS = 2 * 132
+# Step (f) a thread a (point, sub-cluster) up to this d', a warp a run of
+# one label's points above: the thread route took 0.482 against 0.602 ms
+# a call at the Poisson state (10^6 x 32), 0.668 against 0.714 at the
+# diagonal one (d' = 64), but 1.251 against 1.201 at the multinomial fit's
+# (d' = 128) (PERF.md §6: tools/time_kernels.py --kernels linear on an
+# H100 80GB HBM3 at 700 W).
+LE_F_THREAD_DP = 64
+LIN_FOLD_FC = 128
+LINEAR_LAUNCHES = 2
+
+
+class LinearPlan(NamedTuple):
+    """The two launches of ``csrc/sweep_linear.cu``: steps (e) + (f) on
+    ``grid_e`` tiles of ``bm`` points with ``smem_e`` shared bytes (step
+    (f) a thread a (point, sub-cluster) if ``f_thread``, else a warp a run
+    of one label's points), then the fold on (``nsb`` STATS_BLOCKs x
+    chunks of ``fc`` features) with ``smem_f`` shared bytes."""
+    bm: int
+    grid_e: int
+    smem_e: int
+    f_thread: bool
+    fc: int
+    nsb: int
+    smem_f: int
+
+
+@lru_cache(maxsize=256)
+def linear_plan(n: int, dp: int, k: int) -> LinearPlan:
+    """The sweep's launches for (n, d', k), chosen here only: the launcher
+    refuses any other. The point tile is 128 where that makes LE_BLOCKS
+    blocks (10^6 points: 7,813), else 64 (11,314 at the 20newsgroups
+    width: 177 blocks on 132 SMs), so small N fills the card. Step (e)'s
+    shared memory holds the chunk ring (LE_STAGES deep: at 64 points four
+    chunks keep enough bytes of a wide d' in flight on few blocks), the slot
+    order, the scan's flags and warp totals and seven words a point; the
+    fold's the block's segment sort, its weights and its non-empty
+    segments. N runs in an int in the kernels."""
+    if not (1 <= n <= INT_MAX and 1 <= dp <= MAX_DP and 1 <= k <= MAX_K):
+        raise ValueError(f"sweep_linear: N={n}, d'={dp}, K={k} outside "
+                         f"[1, 2^31), [1, {MAX_DP}], [1, {MAX_K}]")
+    bm = next((b for b in LE_BM if -(-n // b) >= LE_BLOCKS), LE_BM[-1])
+    smem_e = 4 * (LE_STAGES[bm] * (bm + LE_BK) * LE_FSTR + 2 * k + 1 + 32
+                  + 7 * bm)
+    s = 2 * k
+    smem_f = 4 * (3 * STATS_BLOCK + (s + 1) + (s + 32) + s)
+    return LinearPlan(bm, -(-n // bm), smem_e, dp <= LE_F_THREAD_DP,
+                      LIN_FOLD_FC, n_blocks(n), smem_f)
+
+
 def sweep_linear_cuda(feats, w, const, logw, active, subw, subconst,
                       sublogw, valid, gidx, key_z, key_zb,
                       slots) -> LinearOut:
-    """One launch of ``csrc/sweep_linear.cu`` on the current stream."""
+    """One call of ``csrc/sweep_linear.cu`` on the current stream: steps
+    (e) + (f), then the fold (``linear_plan``), both counted in
+    ``launches``."""
     n, dp = feats.shape
     k = w.shape[0]
     if feats.device.type != "cuda":
@@ -390,20 +457,22 @@ def sweep_linear_cuda(feats, w, const, logw, active, subw, subconst,
             ("gidx", gidx, i64, (n,)), ("key_z", key_z, i64, (2,)),
             ("key_zb", key_zb, i64, (2,)), ("slots", slots, i32, (k,))):
         check_cuda(name, t, dtype, shape, dev)
-    nsb = n_blocks(n)
+    plan = linear_plan(n, dp, k)
+    nsb = plan.nsb
     labels = torch.empty((n,), device=dev, dtype=i32)
     sublabels = torch.empty((n,), device=dev, dtype=i32)
     n2 = torch.empty((nsb, k, 2), device=dev, dtype=f32)
     sf2 = torch.empty((nsb, k, 2, dp), device=dev, dtype=f32)
     fn = build.c_function("sweep_linear", "sweep_linear_launch",
-                          "piipppppi" + "p" * 12)
+                          "piipppppi" + "p" * 7 + "iiiii" + "p" * 5)
     launch(fn, dev, feats.data_ptr(), n, dp, w.data_ptr(), const.data_ptr(),
            logw.data_ptr(), active.data_ptr(), slots.data_ptr(), k,
            subw.data_ptr(), subconst.data_ptr(), sublogw.data_ptr(),
            valid.data_ptr(), gidx.data_ptr(), key_z.data_ptr(),
-           key_zb.data_ptr(), labels.data_ptr(), sublabels.data_ptr(),
+           key_zb.data_ptr(), plan.bm, plan.smem_e, int(plan.f_thread),
+           plan.fc, plan.smem_f, labels.data_ptr(), sublabels.data_ptr(),
            n2.data_ptr(), sf2.data_ptr())
-    sweep_linear_cuda.launches += 1
+    sweep_linear_cuda.launches += LINEAR_LAUNCHES
     return labels, sublabels, n2, sf2
 
 

@@ -28,7 +28,8 @@ from repro_torch.configs import DPMMConfig
 from repro_torch.core import gibbs
 from repro_torch.core.sampler import DPMM
 from repro_torch.core.state import PointState
-from repro_torch.data.synthetic import generate_gmm, generate_mnmm
+from repro_torch.data.synthetic import (generate_gmm, generate_mnmm,
+                                         generate_pmm)
 from repro_torch.core.family import get_family
 from repro_torch.core.multinomial import MultParams
 from repro_torch.core.niw import GaussParams
@@ -193,6 +194,47 @@ def test_suffstats_labels_kernel_edge_cases(dev, d, kind):
         assert all(not bool(t.any()) for t in got)
 
 
+@pytest.mark.parametrize("kind", ["one_label", "distinct", "mixed"])
+@pytest.mark.parametrize("d", [1, 31, 33, 65, 128, 129, 200, 256])
+def test_sub_assign_gauss_kernel_edge_cases(dev, d, kind):
+    """Every label one, all distinct (K = N), and random with -1 and K mixed
+    in (those get sub-label 0), at N in {1, 1023, 1025, 4097}, against the
+    plain version on the labels inside [0, K) (near-ties only) and a repeat
+    launch bitwise."""
+    for n in (1, 1023, 1025, 4097):
+        k = n if kind == "distinct" else 17
+        g = torch.Generator(device=dev).manual_seed(d * 10_000 + n)
+        x = torch.randn(n, d, device=dev, generator=g) * 3
+        smu = torch.randn(k, 2, d, device=dev, generator=g) * 3
+        sf = (torch.randn(k, 2, d, d, device=dev, generator=g) * 0.2
+              + torch.eye(d, device=dev))
+        sld = torch.randn(k, 2, device=dev, generator=g)
+        slw = torch.log_softmax(torch.randn(k, 2, device=dev, generator=g),
+                                1)
+        if kind == "one_label":
+            lab = torch.full((n,), k // 2, device=dev, dtype=torch.int32)
+        elif kind == "distinct":
+            lab = torch.randperm(n, device=dev, generator=g).to(torch.int32)
+        else:
+            lab = torch.randint(-1, k + 1, (n,), device=dev, generator=g,
+                                dtype=torch.int32)
+        gidx = torch.arange(n, device=dev) + 5
+        kzb = torch.tensor([9, 3_000_000_019], device=dev)
+        args = (x, smu, sf, sld, slw, lab, gidx, kzb)
+        got = ops.sub_assign_gauss(*args)
+        assert torch.equal(got, ops.sub_assign_gauss(*args))
+        inside = (lab >= 0) & (lab < k)
+        assert not bool(got[~inside].any())
+        sel = torch.nonzero(inside).flatten()
+        if sel.numel() == 0:
+            continue
+        part = (x[sel], smu, sf, sld, slw, lab[sel], gidx[sel], kzb)
+        mism, not_ties = assign.sub_assign_mismatches(
+            True, part, got[sel], assign.sub_assign_gauss_plain(*part),
+            rtol=1e-4)
+        assert not_ties == 0 and mism <= max(1, 1e-3 * n), (mism, not_ties)
+
+
 def _linear_args(n, dp, k, dev, seed=0):
     """sweep_linear operands: count features, log-probability weights."""
     g = torch.Generator().manual_seed(seed)
@@ -217,7 +259,9 @@ def test_sweep_linear_kernel_matches_plain(dev, n, dp, k):
     before = sweep.sweep_linear_cuda.launches
     got = ops.sweep_linear(*a)
     again = ops.sweep_linear(*a)
-    assert sweep.sweep_linear_cuda.launches == before + 2
+    # steps (e) + (f), then the fold: two kernels a call
+    assert sweep.sweep_linear_cuda.launches == (
+        before + 2 * sweep.LINEAR_LAUNCHES)
     assert all(torch.equal(u, v) for u, v in zip(got, again))
     want = sweep.sweep_linear_plain(*a)
     mism, not_ties = sweep.label_mismatches_linear(
@@ -225,6 +269,44 @@ def test_sweep_linear_kernel_matches_plain(dev, n, dp, k):
     assert not_ties == 0 and mism <= 1e-3 * n, (mism, not_ties)
     _close(got[2:], suffstats.moments_labels_plain(a[0], got[0], got[1],
                                                    a[8], k))
+
+
+@pytest.mark.parametrize("kind", ["grid", "empty", "one_segment",
+                                  "valid_zeros"])
+@pytest.mark.parametrize("dp", [1, 3, 128, 129, 20_000])
+def test_sweep_linear_kernel_edge_cases(dev, dp, kind):
+    """Blocks all invalid, blocks of one segment (one live slot, the second
+    sub-cluster far off) and half-invalid blocks, at (N, K) in (1, 1),
+    (1025, 300) and (11,314, 2048), on the scalar (odd d') and 16-byte
+    (d' % 4 == 0) paths: against the plain version (labels exact but
+    near-ties, partials within rtol) and a repeat launch bitwise."""
+    for n, k in ((1, 1), (1025, 300), (11_314, 2048)):
+        a = list(_linear_args(n, dp, k, dev, seed=n + dp))
+        if kind == "empty":
+            a[8] = torch.zeros(n, device=dev)
+        elif kind == "valid_zeros":
+            a[8] = (torch.arange(n, device=dev) % 2).float()
+        elif kind == "one_segment":
+            a[4] = torch.zeros(k, device=dev, dtype=torch.int32)
+            a[4][k // 2] = 1
+            a[6] = a[6].clone()
+            a[6][:, 1] -= 1e4
+        got = ops.sweep_linear(*a)
+        again = ops.sweep_linear(*a)
+        assert all(torch.equal(u, v) for u, v in zip(got, again))
+        want = sweep.sweep_linear_plain(*a)
+        mism, not_ties = sweep.label_mismatches_linear(
+            a, got[0], got[1], want[0], want[1], rtol=1e-4)
+        assert not_ties == 0 and mism <= max(1, 1e-3 * n), (mism, not_ties)
+        _close(got[2:], suffstats.moments_labels_plain(a[0], got[0], got[1],
+                                                       a[8], k))
+        if kind == "one_segment":
+            # but points whose draw for an inactive slot is in the Threefry
+            # top bin (+inf; about one in 11,314 x 2047 draws / 2^24)
+            assert int((got[0] != k // 2).sum()) <= 3
+        if kind == "empty":
+            assert not any(bool(t.any()) for t in got[2:])
+        del got, again, want
 
 
 @pytest.mark.parametrize("n,dp,k", [(2500, 8, 8), (4096, 300, 64),
@@ -306,7 +388,8 @@ def test_multinomial_fit_on_the_card_runs_through_both_kernels(dev):
     r = DPMM(DPMMConfig(component="multinomial", iters=25,
                         burnout=5)).fit(x)
     counts = ops.launch_counts()
-    assert counts["sweep_linear"] == 25 and counts["moments_labels"] > 0
+    assert counts["sweep_linear"] == 25 * sweep.LINEAR_LAUNCHES
+    assert counts["moments_labels"] > 0
     assert counts["sweep_gauss"] == counts["suffstats_labels"] == 0
     assert r.nmi(y) > 0.9
 
@@ -439,7 +522,9 @@ def test_family_assign_and_loglik_launch_the_kernels(dev):
     mult.sub_assign(a[0].abs(), MultParams(a[6].abs()), a[9], lab, a[11],
                     a[13])
     counts = ops.launch_counts()
-    assert counts["sub_assign_gauss"] == counts["sub_assign_linear"] == 1
+    # sub_assign_gauss: the label histogram, the placement, the product
+    assert counts["sub_assign_gauss"] == assign.SUB_LAUNCHES
+    assert counts["sub_assign_linear"] == 1
 
 
 @pytest.mark.parametrize("n,d,k", [(3000, 4, 8), (5000, 32, 16),
@@ -457,7 +542,8 @@ def test_sub_assign_gauss_kernel_matches_plain(dev, n, d, k):
     before = assign.sub_assign_gauss_cuda.launches
     got = ops.sub_assign_gauss(*args)
     assert torch.equal(got, ops.sub_assign_gauss(*args))
-    assert assign.sub_assign_gauss_cuda.launches == before + 2
+    assert assign.sub_assign_gauss_cuda.launches == (
+        before + 2 * assign.SUB_LAUNCHES)
     mism, not_ties = assign.sub_assign_mismatches(
         True, args, got, assign.sub_assign_gauss_plain(*args), rtol=1e-4)
     assert not_ties == 0 and mism <= 1e-3 * n, (mism, not_ties)
@@ -487,9 +573,14 @@ def test_sub_assign_linear_kernel_matches_plain(dev, n, dp, k):
 @pytest.mark.parametrize("component,gen,d", [
     ("gaussian", generate_gmm, 6), ("gaussian", generate_gmm, 32),
     ("gaussian", generate_gmm, 65), ("gaussian", generate_gmm, 128),
-    ("multinomial", generate_mnmm, 24)])
+    ("gaussian", generate_gmm, 200), ("multinomial", generate_mnmm, 24),
+    ("multinomial", generate_mnmm, 129), ("poisson", generate_pmm, 129)])
 def test_three_pass_sweep_tile_is_the_one_read_tile_on_the_card(
         dev, component, gen, d):
+    """The three-pass tile (assign, sub_assign, the label fold) equals the
+    one-read tile bit for bit; past the one-read sweep's d = 128 both run
+    ``sweep_ref``, and the three-pass sub-labels are held against the
+    plain step (f) on the tile's own labels instead (near-ties only)."""
     x_np, _ = gen(12_000, d, 4, seed=3)
     r = DPMM(DPMMConfig(component=component, iters=12, burnout=4)).fit(x_np)
     model, fam = r.state, get_family(component)
@@ -525,8 +616,18 @@ def test_three_pass_sweep_tile_is_the_one_read_tile_on_the_card(
              "sweep_gauss") if component == "gaussian" else
             ("assign_linear", "sub_assign_linear", "moments_labels",
              "sweep_linear"))
-        assert counts[step_e] == counts[step_f] == counts[fold] == 1
+        assert counts[step_e] == counts[fold] == 1
+        assert counts[step_f] == (assign.SUB_LAUNCHES
+                                  if component == "gaussian" else 1)
         assert counts[fused] == 0
+        if plan is None and component == "gaussian" and d > sweep.MAX_D:
+            sp = model.subparams
+            args = (x, sp.mu, sp.chol_prec, sp.logdet_prec,
+                    model.sub_logweights, three.labels, gidx, key_zb)
+            mism, not_ties = assign.sub_assign_mismatches(
+                True, args, three.sublabels,
+                assign.sub_assign_gauss_plain(*args), rtol=1e-4)
+            assert not_ties == 0 and mism <= 1e-3 * n, (mism, not_ties)
 
 
 def test_gaussian_fit_past_d128_runs_the_three_pass_kernels(dev):
@@ -538,7 +639,8 @@ def test_gaussian_fit_past_d128_runs_the_three_pass_kernels(dev):
     r = DPMM(DPMMConfig(iters=30, burnout=5)).fit(x)
     counts = ops.launch_counts()
     assert counts["sweep_gauss"] == 0
-    assert counts["assign_gauss"] == counts["sub_assign_gauss"] == 30
+    assert counts["assign_gauss"] == 30
+    assert counts["sub_assign_gauss"] == 30 * assign.SUB_LAUNCHES
     assert counts["suffstats_labels"] > 30
     assert r.nmi(y) > 0.9, (r.nmi(y), r.history["k"])
 

@@ -1,16 +1,22 @@
 """Shape-only choices of the dense ``suffstats`` kernel, the ``matmul``
 kernel, the panel layout of ``assign_gauss`` / ``loglik_gauss`` past
-d = 128, the segment fold of ``suffstats_labels`` / ``sweep_gauss`` and
-the tiled step (e) of ``sweep_gauss`` (``kernels/suffstats.py``
-``dense_plan`` and ``stats_plan``, ``kernels/matmul.py`` ``matmul_bn``,
-``kernels/assign.py`` ``panel_plan``, ``kernels/sweep.py``
-``sweep_plan``), checked on the CPU: the kernels themselves run only on the
-card (``tests/test_torch_cuda.py``), and their launchers take these
+d = 128, the segment fold of ``suffstats_labels`` / ``sweep_gauss``, the
+tiled step (e) of ``sweep_gauss``, the label grouping and product of
+``sub_assign_gauss`` and the two launches of ``sweep_linear``
+(``kernels/suffstats.py`` ``dense_plan`` and ``stats_plan``,
+``kernels/matmul.py`` ``matmul_bn``, ``kernels/assign.py`` ``panel_plan``
+and ``sub_plan``, ``kernels/sweep.py`` ``sweep_plan`` and
+``linear_plan``), checked on the CPU: the kernels themselves run only on
+the card (``tests/test_torch_cuda.py``), and their launchers take these
 choices as given, refusing a tile they do not hold."""
+import numpy as np
 import pytest
 
 from repro_torch.kernels.assign import (PANEL_BK, PANEL_BM, PANEL_BN,
-                                        PANEL_STAGES, panel_plan)
+                                        PANEL_STAGES, SUB_BK, SUB_COLS,
+                                        SUB_LAUNCHES, SUB_NARROW_D,
+                                        SUB_STAGES, SUB_XS,
+                                        panel_plan, sub_col, sub_plan)
 from repro_torch.kernels.matmul import matmul_bn
 from repro_torch.kernels.suffstats import (DENSE_BN, DENSE_MIN_SLABS,
                                            DENSE_P, DENSE_STAGES, DENSE_TILE,
@@ -21,9 +27,13 @@ from repro_torch.kernels.suffstats import (DENSE_BN, DENSE_MIN_SLABS,
                                            dense_plan, stats_plan)
 from repro_torch.kernels.sweep import MAX_D as SWEEP_MAX_D
 from repro_torch.kernels.sweep import MAX_K as SWEEP_MAX_K
-from repro_torch.kernels.sweep import (TE_BM, TE_MIN_D, TE_STAGES,
-                                       TE_THREADS, launches_per_call,
+from repro_torch.kernels.sweep import (LE_BK, LE_BLOCKS, LE_BM, LE_FSTR,
+                                       LE_STAGES, LE_THREADS,
+                                       LINEAR_LAUNCHES, TE_BM,
+                                       TE_MIN_D, TE_STAGES, TE_THREADS,
+                                       launches_per_call, linear_plan,
                                        sweep_plan, te_layout)
+from repro_torch.kernels.suffstats import MAX_DP
 
 
 @pytest.mark.parametrize("d", [1, 4, 16, 17, 32, 33, 63, 64, 65, 128, 129,
@@ -299,3 +309,213 @@ def test_sweep_plan_refuses_counts_past_an_int():
                     (10, 32, 0), (10, 32, SWEEP_MAX_K + 1)):
         with pytest.raises(ValueError, match="sweep_gauss"):
             sweep_plan(n, d, k)
+
+
+def _sub_items(labels, k, per):
+    """The items of ``sub_assign_gauss``'s product as its count and place
+    kernels leave them: (label, point ids) runs of at most ``per`` points,
+    ceil(count / per) a label, labels in order."""
+    inside = (labels >= 0) & (labels < k)
+    counts = np.bincount(labels[inside], minlength=k)
+    order = np.argsort(np.where(inside, labels, k), kind="stable")
+    start = np.concatenate([[0], np.cumsum(counts)])
+    items = []
+    for lab in range(k):
+        for a in range(start[lab], start[lab + 1], per):
+            items.append((lab, order[a:min(a + per, start[lab + 1])]))
+    return items
+
+
+@pytest.mark.parametrize("d", [1, 4, 5, 33, 64, 65, 128, 129, 200, 256])
+def test_sub_plan_gives_every_point_one_owner(d):
+    """Every point with a label in [0, K) lies in exactly one item of its
+    own label and is one thread's (narrow) or one warp lane's (tiled);
+    labels outside get sub-label 0 from the histogram kernel alone; the
+    grid covers the items; the sort kernels cover every point once."""
+    rng = np.random.default_rng(d)
+    for n, k in ((1, 1), (1023, 300), (1025, 2), (4097, 17), (5000, 1)):
+        labels = rng.integers(-1, k + 1, n)
+        p = sub_plan(n, d, k)
+        items = _sub_items(labels, k, p.per)
+        assert len(items) <= p.grid
+        owners = np.zeros(n, int)
+        for lab, pts in items:
+            assert 1 <= len(pts) <= p.per and (labels[pts] == lab).all()
+            owners[pts] += 1
+        inside = (labels >= 0) & (labels < k)
+        assert (owners[inside] == 1).all() and (owners[~inside] == 0).all()
+        # narrow: thread t of 256 takes point t of the item; tiled: lane
+        # i < 8 of warp w (of 8) takes point 8 w + i
+        assert p.per == (256 if d <= SUB_NARROW_D else 8 * 8)
+
+
+@pytest.mark.parametrize("dp", [128, 256])
+def test_sub_tiled_layout_keeps_the_parent_column_order(dp):
+    """The tiled product's 32 lanes x 8 registers own each column of the
+    pass's sub-factors (both at dp = 128, in a [F_0 | F_1] row) once, and
+    a thread's registers are a run of one parent lane's |y|^2 chain, whose
+    hops follow that lane's column order: at dp = 256 lane l's columns
+    l + 32 t, t = 0..7, then the xor butterfly over lanes 1, 2, 4, 8, 16,
+    which are the parent's lanes; at dp = 128 lane j's columns
+    4 j + 16 t + q, t = 0..7, q = 0..3, through the four threads
+    16 s + 4 j + h (h = 0..3) in order, then xor 4 and 8 over j, the
+    parent's xor 1 and 2. At dp = 128 a thread's registers 0..3 and 4..7
+    are two 16-byte runs of the row."""
+    owned = [sub_col(dp, lane, k) for lane in range(32) for k in range(8)]
+    assert sorted(owned) == list(range(SUB_COLS))
+    chains = {}
+    for lane in range(32):
+        cols = [sub_col(dp, lane, k) for k in range(8)]
+        if dp == 256:
+            # the parent's lane l and its chain, in order
+            assert cols == [lane + 32 * t for t in range(8)]
+            continue
+        s, j, h = lane // 16, (lane // 4) % 4, lane % 4
+        for k0 in (0, 4):
+            assert cols[k0] % 4 == 0
+            assert cols[k0:k0 + 4] == [cols[k0] + q for q in range(4)]
+        for k, c in enumerate(cols):
+            assert c // 128 == s
+            chains.setdefault((s, j), []).append((8 * h + k, c % 128))
+    for (s, j), steps in chains.items():
+        assert [c for _, c in sorted(steps)] == [
+            4 * j + 16 * t + q for t in range(8) for q in range(4)]
+    # the butterflies: the partner lanes' parent lanes
+    for lane in range(32):
+        if dp == 256:
+            continue                   # lane l is the parent's lane l
+        j = (lane // 4) % 4
+        for off, poff in ((4, 1), (8, 2)):
+            assert ((lane ^ off) // 4) % 4 == j ^ poff
+            assert (lane ^ off) // 16 == lane // 16
+            assert (lane ^ off) % 4 == lane % 4
+
+
+def test_sub_plan_shared_memory_fits_a_hopper_block():
+    """The product's shared bytes depend on d alone and fit a Hopper block
+    for every d <= 256 (two blocks an SM where tiled); the placement's
+    fit for every K <= 8192; three launches a call."""
+    assert SUB_LAUNCHES == 3
+    for d in range(1, MAX_D + 1):
+        by_k = set()
+        for k in (1, 17, 300, 2048, MAX_K):
+            p = sub_plan(4097, d, k)
+            by_k.add(p.smem)
+            assert p.sort_smem == 4 * (3 * k + 34) <= SMEM_LIMIT
+            assert p.dp >= d and (p.dp // 2 < d or p.dp == 4)
+        assert len(by_k) == 1
+        smem = by_k.pop()
+        assert smem <= SMEM_LIMIT
+        if d > SUB_NARROW_D:
+            nx = 2 if d <= 128 else 1
+            assert smem == 4 * SUB_STAGES * (SUB_BK * SUB_COLS
+                                              + nx * SUB_BK * (SUB_XS + 1))
+            assert 2 * (smem + 1024) <= 228 * 1024
+
+
+def test_sub_plan_refuses_counts_past_an_int():
+    sub_plan(2 ** 31 - 1, 256, MAX_K)
+    for n, d, k in ((2 ** 31, 32, 4), (0, 32, 4), (10, 0, 4), (10, 257, 4),
+                    (10, 32, 0), (10, 32, MAX_K + 1)):
+        with pytest.raises(ValueError, match="sub_assign_gauss"):
+            sub_plan(n, d, k)
+
+
+@pytest.mark.parametrize("n", [1, 1023, 1025, 11_314, 67_584, 100_003,
+                               1_000_000])
+def test_linear_plan_gives_every_point_slot_and_feature_one_owner(n):
+    """Steps (e) + (f) take tiles of bm points (the largest of LE_BM that
+    still gives LE_BLOCKS blocks, so 11,314 points fill the card); in a
+    tile, thread (tx, ty) owns points ty + 32 i and chunk slots tx + 8 j,
+    so every (point, active slot) pair has one owner over the chunks of
+    LE_BK active slots; the fold's grid owns every (STATS_BLOCK, feature
+    chunk) once."""
+    for dp in (1, 3, 128, 129, 20_000):
+        for k, na in ((1, 1), (17, 11), (64, 16), (300, 180), (2048, 2048)):
+            p = linear_plan(n, dp, k)
+            assert p.bm in LE_BM and p.bm % 32 == 0
+            assert (p.grid_e - 1) * p.bm < n <= p.grid_e * p.bm
+            bigger = [b for b in LE_BM if b > p.bm]
+            assert all(-(-n // b) < LE_BLOCKS for b in bigger)
+            if p.bm > LE_BM[-1]:
+                assert p.grid_e >= LE_BLOCKS
+            if n >= 11_314:
+                assert p.grid_e >= 132
+            owners = np.zeros((p.bm, na), int)
+            for a0 in range(0, na, LE_BK):
+                nac = min(LE_BK, na - a0)
+                for t in range(LE_THREADS):
+                    tx, ty = t % 8, t // 8
+                    for i in range(p.bm // 32):
+                        for j in range(8):
+                            if tx + 8 * j < nac:
+                                owners[ty + 32 * i, a0 + tx + 8 * j] += 1
+            assert (owners == 1).all()
+            assert p.nsb == -(-n // STATS_BLOCK)
+            # the fold's feature chunks: chunk c owns [c fc, (c + 1) fc)
+            chunks = -(-dp // p.fc)
+            owned = np.zeros(dp, int)
+            for c in range(chunks):
+                owned[c * p.fc:min(dp, (c + 1) * p.fc)] += 1
+            assert (owned == 1).all()
+    assert LINEAR_LAUNCHES == 2
+
+
+def test_linear_plan_shared_memory_fits_a_hopper_block():
+    """Both launches' shared bytes fit a Hopper block for every K <= 2048
+    and d' <= 65,536 (neither depends on d'); steps (e) + (f) two blocks an
+    SM at the fits' K <= 64."""
+    for n in (1, 11_314, 1_000_000):
+        for k in (1, 2, 17, 64, 300, SWEEP_MAX_K):
+            by_dp = {linear_plan(n, dp, k)[:3] + linear_plan(n, dp, k)[4:]
+                     for dp in (1, 4, 129, 20_000, MAX_DP)}
+            assert len(by_dp) == 1
+            # step (f) a thread a (point, sub-cluster) up to d' = 64
+            assert [linear_plan(n, dp, k).f_thread
+                    for dp in (1, 64, 65, 20_000)] == [True, True, False,
+                                                        False]
+            p = linear_plan(n, 128, k)
+            stages = LE_STAGES[p.bm]
+            assert p.smem_e == 4 * (stages * (p.bm + LE_BK) * LE_FSTR
+                                    + 2 * k + 33 + 7 * p.bm) <= SMEM_LIMIT
+            # the ring holds a chunk's BM x (LE_BK + 1) logits
+            assert stages * (p.bm + LE_BK) * LE_FSTR >= p.bm * (LE_BK + 1)
+            assert p.smem_f == 4 * (3 * STATS_BLOCK + 6 * k + 33) \
+                <= SMEM_LIMIT
+            if k <= 64:
+                # three blocks an SM at 128 points, two at 64
+                blocks = 3 if p.bm == 128 else 2
+                assert blocks * (p.smem_e + 1024) <= 228 * 1024
+
+
+def test_linear_plan_refuses_counts_past_an_int():
+    linear_plan(2 ** 31 - 1, MAX_DP, SWEEP_MAX_K)
+    for n, dp, k in ((2 ** 31, 32, 4), (0, 32, 4), (10, 0, 4),
+                     (10, MAX_DP + 1, 4), (10, 32, 0),
+                     (10, 32, SWEEP_MAX_K + 1)):
+        with pytest.raises(ValueError, match="sweep_linear"):
+            linear_plan(n, dp, k)
+
+
+def test_linear_lane_tree_stack_is_the_shuffle_down_tree():
+    """Step (f) a thread a (point, sub-cluster) (``linear_plan`` f_thread)
+    walks the 32 lane chains in bit-reversed leaf order and folds each
+    finished pair on a five-deep stack (``csrc/sweep_linear.cu``
+    lane_tree_sum); that gives lane 0 of the first version's shuffle-down
+    tree (offsets 16, 8, 4, 2, 1), add for add."""
+    lanes = [("v", i) for i in range(32)]
+    for off in (16, 8, 4, 2, 1):
+        lanes = [(lanes[i], lanes[i + off]) if i + off < 32 else lanes[i]
+                 for i in range(32)]
+    tree = lanes[0]
+    stack = [None] * 5
+    v = None
+    for i in range(32):
+        leaf = int(format(i, "05b")[::-1], 2)
+        v = ("v", leaf)
+        for lvl in range(5):
+            if (i >> lvl) & 1 == 0:
+                stack[lvl] = v
+                break
+            v = (stack[lvl], v)
+    assert v == tree

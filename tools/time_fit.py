@@ -1,13 +1,17 @@
 """Time one checkout's DPMM fits at the smoke run's shapes.
 
     python3 tools/time_fit.py [--src PATH/TO/src] [--tile-size ROWS]
-        [--fits gaussian,multinomial,gaussian_d128,gaussian_d256]
+        [--fits gaussian,multinomial,gaussian_d128,gaussian_d256,
+                gaussian_d128_three_pass]
 
 Fits, with the ``repro_torch`` package under ``--src`` (default: this
 checkout's ``src``), the smoke run's Gaussian (10^6 x 32) and multinomial
 (10^6 x 128) mixtures, or with ``--fits gaussian_d128`` its 2e5 x 128
-Gaussian mixture (the one-read sweep's wide layout) or ``gaussian_d256``
-its 4e5 x 256 one (through the three-pass sweep), with
+Gaussian mixture (the one-read sweep's wide layout), ``gaussian_d256``
+its 4e5 x 256 one (through the three-pass sweep) or
+``gaussian_d128_three_pass`` the 2e5 x 128 one through the three-pass
+sweep (``gibbs.sweep_tile`` with ``fused=False``: ``assign_gauss``,
+``sub_assign_gauss``, ``suffstats_labels``), with
 ``DPMMConfig(k_max=64, iters=40, burnout=10,
 log_every=10)``, seed 0, each ``--repeats`` times in one process (the
 first also builds the kernels and warms up), on the card. Prints one JSON
@@ -26,11 +30,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# name: (component, generator, d, N or None for --n)
-FITS = {"gaussian": ("gaussian", "generate_gmm", 32, None),
-        "multinomial": ("multinomial", "generate_mnmm", 128, None),
-        "gaussian_d128": ("gaussian", "generate_gmm", 128, 200_000),
-        "gaussian_d256": ("gaussian", "generate_gmm", 256, 400_000)}
+# name: (component, generator, d, N or None for --n, one-read sweep)
+FITS = {"gaussian": ("gaussian", "generate_gmm", 32, None, True),
+        "multinomial": ("multinomial", "generate_mnmm", 128, None, True),
+        "gaussian_d128": ("gaussian", "generate_gmm", 128, 200_000, True),
+        "gaussian_d256": ("gaussian", "generate_gmm", 256, 400_000, True),
+        "gaussian_d128_three_pass": ("gaussian", "generate_gmm", 128,
+                                     200_000, False)}
 
 
 def main() -> None:
@@ -46,14 +52,20 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("time_fit: no CUDA device")
     sys.path.insert(0, opts.src)
+    import functools
     from repro_torch.configs import DPMMConfig
+    from repro_torch.core import gibbs
     from repro_torch.core.sampler import DPMM
     from repro_torch.data import synthetic
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()[0]
+    one_read = gibbs.sweep_tile
     for name in opts.fits.split(","):
-        comp, gen, d, n = FITS[name]
+        comp, gen, d, n, fused = FITS[name]
+        # the three-pass body swapped in as the reference's own tests do
+        gibbs.sweep_tile = (one_read if fused else
+                            functools.partial(one_read, fused=False))
         n = n or opts.n
         x, y = getattr(synthetic, gen)(n, d, 16, seed=0)
         cfg = DPMMConfig(component=comp, k_max=64, iters=40, burnout=10,
@@ -66,8 +78,9 @@ def main() -> None:
         for rep in range(opts.repeats):
             res = DPMM(cfg).fit(src)
             print(json.dumps({
-                "src": opts.src, "component": comp, "n": n, "d": d,
-                "tile_size": opts.tile_size, "repeat": rep, "k": res.k,
+                "src": opts.src, "fit": name, "component": comp, "n": n,
+                "d": d, "tile_size": opts.tile_size, "repeat": rep,
+                "k": res.k,
                 "nmi": res.nmi(y), "steady_ms_per_iter": 1e3 * float(
                     np.mean(res.iter_times_s[cfg.log_every:])),
                 "nvidia_smi": smi}), flush=True)

@@ -1,10 +1,12 @@
 """Time the dense ``suffstats`` kernel, the ``matmul`` kernel, the
-Gaussian ``assign_gauss`` and ``loglik`` kernels past d = 128, and
-``suffstats_labels`` and ``sweep_gauss`` of one or two checkouts, in turns
-on one card, and compare the two checkouts' bits.
+Gaussian ``assign_gauss`` and ``loglik`` kernels past d = 128,
+``suffstats_labels``, ``sweep_gauss``, ``sub_assign_gauss`` and
+``sweep_linear`` of one or two checkouts, in turns on one card, and
+compare the two checkouts' bits.
 
     python3 tools/time_kernels.py [--src A/src [--src B/src]]
-        [--kernels dense,matmul,gauss,stats,sweep] [--out RESULT.json]
+        [--kernels dense,matmul,gauss,stats,sweep,sub,linear]
+        [--out RESULT.json]
 
 Each ``--src`` is the ``src`` directory of a checkout (default: this
 checkout's). With two, the checkouts run in turns, A, B, B, A, each turn a
@@ -41,7 +43,24 @@ checkout's ``build/``) and times them:
   launches (``torch.profiler``: the tiled step (e) and the (f) + fold
   kernel above d = 16, the one fused kernel at and below it).
 
-``--kernels`` picks the groups to time (default: all five).
+- ``sub_assign_gauss_cuda`` (``sub``) at the d = 256 fit's state (4e5 x
+  256, 32 slots, 16 live), the sweep group's states (2e5 x 128, 10^6 x
+  32), a ragged N at an odd width and 2e5 x 64 / x 65 (the two sides of
+  ``assign.sub_plan``'s route switch), labels from ``assign_gauss`` on the
+  same operands, each beside its plain version and bound, split by kernel
+  (``torch.profiler``);
+- ``sweep_linear_cuda`` (``linear``) at the multinomial fit's final state
+  (a 10^6 x 128 fit, ``chip_smoke.py`` ``fit_linear_args``), the
+  20newsgroups width (11,314 x 20,000, 32 slots), a diagonal-Gaussian
+  state (d' = 64), a Poisson state, a ragged N at an odd d' and
+  10^6 x 64 / x 68 (the two sides of ``sweep.linear_plan``'s step-(f)
+  route switch), beside its plain version, its bound and the Threefry
+  draws it makes, split by
+  kernel (``torch.profiler``) and by the three-pass kernels on the same
+  operands (``assign_linear``, ``sub_assign_linear``, ``moments_labels``
+  over the sweep's segments).
+
+``--kernels`` picks the groups to time (default: all seven).
 
 Every time is given two ways, with ``chip_smoke.py``'s timers: the median
 single-call time (``cuda_ms``: what one caller sees, host time included)
@@ -57,9 +76,16 @@ changed bit changes it) over a grid of seeded shapes: d in {1, 3, 4, 31,
 32, 33, 63, 64, 65, 100, 127, 128} (and 129, 200, 255, 256 for the stats),
 K in {1, 2, 17, 64, 300}, N in {1, 1023, 1025, 4097}, plus blocks whose
 points are all invalid, blocks that are one segment, random valid-mask
-zeros, and the timed fit states. Prints one JSON line per turn and a
-summary line (medians by checkout), and with ``--out`` writes all of it
-to that file.
+zeros, and the timed fit states. The ``sub`` group's grid: d in {1, 3, 4,
+31, 32, 33, 63, 64, 65, 100, 127, 128, 129, 160, 200, 255, 256}, the same
+K and N, labels in [-1, K] (outside [0, K): sub-label 0), every label one
+and all labels distinct. The ``linear`` group's: d' in {1, 3, 4, 127, 128,
+129, 1000, 20000}, K in {1, 2, 17, 64, 300, 2048}, N in {1, 1023, 1025,
+11314}, the three block edge cases and a misaligned feature view (the
+scalar path), each beside the count of its inactive slots' draws in the
+Threefry top bin. Prints one JSON line per turn and a summary line
+(medians by checkout), and with ``--out`` writes all of it to that
+file.
 """
 import argparse
 import json
@@ -106,10 +132,45 @@ SWEEP_CASES = (("fit_d32", 1_000_000, 32, 64, 17),
                ("ragged", 100_003, 33, 64, 17),
                ("d8", 1_000_000, 8, 64, 17),
                ("d16", 1_000_000, 16, 64, 17))
-KERNEL_GROUPS = ("dense", "matmul", "gauss", "stats", "sweep")
+# (name, N, d, K slots, live slots): sub_assign_gauss at the Gaussian
+# fits' states (the sweep group's operands; labels from assign_gauss, which
+# are the sweep's), a ragged N at an odd width, and d = 64 and 65, the two
+# sides of assign.sub_plan's route switch
+SUB_CASES = (("fit_d256", 400_000, 256, 32, 16),
+             ("fit_d128", 200_000, 128, 32, 16),
+             ("fit_d32", 1_000_000, 32, 64, 17),
+             ("ragged", 100_003, 33, 64, 17),
+             ("d64", 200_000, 64, 32, 16),
+             ("d65", 200_000, 65, 32, 16))
+# (name, family, generator, N, d, true clusters, seed, compact slots):
+# sweep_linear at the 20newsgroups width (chip_smoke.py's news20 state),
+# the diagonal-Gaussian pack (d' = 2 d), a Poisson state, a ragged N at
+# an odd d' (the scalar path) and d' = 64 / 68, the two sides of
+# linear_plan's step-(f) route switch; "fit_multinomial" is the
+# multinomial fit's final state (chip_smoke.py fit_linear_args)
+LINEAR_CASES = (("news20", "multinomial", "generate_mnmm", 11_314, 20_000,
+                 20, 0, 32),
+                ("diag_gaussian", "diag_gaussian", "generate_gmm",
+                 1_000_000, 32, 16, 1, 32),
+                ("poisson", "poisson", "generate_pmm", 1_000_000, 32, 16, 1,
+                 32),
+                ("ragged", "multinomial", "generate_mnmm", 100_003, 33, 16,
+                 1, 32),
+                ("d64", "multinomial", "generate_mnmm", 1_000_000, 64, 16,
+                 1, 32),
+                ("d68", "multinomial", "generate_mnmm", 1_000_000, 68, 16,
+                 1, 32))
+LINEAR_FIT = (1_000_000, 128, 16)
+KERNEL_GROUPS = ("dense", "matmul", "gauss", "stats", "sweep", "sub",
+                 "linear")
 BITS_STATS_D = (1, 3, 4, 31, 32, 33, 63, 64, 65, 100, 127, 128, 129, 200,
                 255, 256)
 BITS_SWEEP_D = (1, 3, 4, 31, 32, 33, 63, 64, 65, 100, 127, 128)
+BITS_SUB_D = (1, 3, 4, 31, 32, 33, 63, 64, 65, 100, 127, 128, 129, 160,
+              200, 255, 256)
+BITS_LINEAR_D = (1, 3, 4, 127, 128, 129, 1000, 20_000)
+BITS_LINEAR_K = (1, 2, 17, 64, 300, 2048)
+BITS_LINEAR_N = (1, 1023, 1025, 11_314)
 BITS_GRID_K = (1, 2, 17, 64, 300)
 BITS_GRID_N = (1, 1023, 1025, 4097)
 # the edge cases' N and K: four blocks and a ragged one, 17 slots
@@ -289,14 +350,84 @@ def grid_stats_args(n, d, k, dev, seed, kind="grid"):
     return (x.to(dev), lab.to(dev), sub.to(dev), valid.to(dev), k)
 
 
-def bits_cases(ds):
-    """(name, n, d, k, kind) of the bits grid and its edge cases."""
+def grid_sub_args(n, d, k, dev, seed, kind="grid"):
+    """Seeded ``sub_assign_gauss`` operands of the bits grid (made with a
+    generator on the card, so both checkouts get the same): labels in
+    [-1, k] (outside [0, k) they get sub-label 0); ``kind`` "one_label":
+    every label k // 2; "distinct": a permutation of k = n labels."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, d, device=dev, generator=g) * 3
+    smu = torch.randn(k, 2, d, device=dev, generator=g) * 3
+    sf = (torch.randn(k, 2, d, d, device=dev, generator=g) * 0.2
+          + torch.eye(d, device=dev))
+    sld = torch.randn(k, 2, device=dev, generator=g)
+    slw = torch.log_softmax(torch.randn(k, 2, device=dev, generator=g), 1)
+    if kind == "one_label":
+        lab = torch.full((n,), k // 2, device=dev, dtype=torch.int32)
+    elif kind == "distinct":
+        lab = torch.randperm(k, device=dev, generator=g).to(torch.int32)
+    else:
+        lab = torch.randint(-1, k + 1, (n,), device=dev, generator=g,
+                            dtype=torch.int32)
+    gidx = torch.arange(n, device=dev, dtype=torch.int64) + 7
+    kzb = torch.randint(0, 1 << 32, (2,), device=dev, generator=g,
+                        dtype=torch.int64)
+    return (x, smu, sf, sld, slw, lab, gidx, kzb)
+
+
+def grid_linear_args(n, dp, k, dev, seed, kind="grid"):
+    """Seeded ``sweep_linear`` operands of the bits grid (made on the
+    card): Poisson counts, log-probability weights, about 60 % of the slots
+    live; ``kind`` as in ``grid_sweep_args``, and "misaligned": the
+    features a contiguous view one float into its buffer (the scalar
+    path)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    feats = torch.poisson(torch.full((n, dp), 3.0, device=dev), generator=g)
+    logp = lambda *s: torch.log_softmax(
+        torch.randn(*s, device=dev, generator=g) * 2, -1)
+    w = logp(k, dp)
+    cst = torch.randn(k, device=dev, generator=g)
+    lw = torch.log_softmax(torch.randn(k, device=dev, generator=g), 0)
+    act = (torch.rand(k, device=dev, generator=g) < 0.6).to(torch.int32)
+    act[0] = 1
+    subw = logp(k, 2, dp)
+    subc = torch.randn(k, 2, device=dev, generator=g)
+    slw = torch.log_softmax(torch.randn(k, 2, device=dev, generator=g), 1)
+    valid = torch.ones(n, device=dev)
+    if kind == "empty":
+        valid.zero_()
+    elif kind == "valid_zeros":
+        valid = (torch.rand(n, device=dev, generator=g) < 0.5).float()
+    elif kind == "one_segment":
+        act.zero_()
+        act[k // 2] = 1
+        subc[:, 1] -= 1e4
+    elif kind == "misaligned":
+        buf = torch.empty(n * dp + 1, device=dev)
+        buf[1:] = feats.flatten()
+        feats = buf[1:].view(n, dp)
+    gidx = torch.arange(n, device=dev, dtype=torch.int64) + 7
+    kz = torch.randint(0, 1 << 32, (2,), device=dev, generator=g,
+                       dtype=torch.int64)
+    kzb = torch.randint(0, 1 << 32, (2,), device=dev, generator=g,
+                        dtype=torch.int64)
+    slots = torch.randperm(2 * k, device=dev, generator=g)[:k].to(
+        torch.int32)
+    return (feats, w, cst, lw, act, subw, subc, slw, valid, gidx, kz, kzb,
+            slots)
+
+
+def bits_cases(ds, ks=BITS_GRID_K, ns=BITS_GRID_N,
+               kinds=("empty", "one_segment", "valid_zeros")):
+    """(name, n, d, k, kind) of the bits grid and its edge cases (the
+    "distinct" kind at n = k = 1025)."""
     for d in ds:
-        for k in BITS_GRID_K:
-            for n in BITS_GRID_N:
+        for k in ks:
+            for n in ns:
                 yield f"{n}x{d}x{k}", n, d, k, "grid"
-        for kind in ("empty", "one_segment", "valid_zeros"):
-            yield f"{kind}_{EDGE_N}x{d}x{EDGE_K}", EDGE_N, d, EDGE_K, kind
+        for kind in kinds:
+            n, k = (1025, 1025) if kind == "distinct" else (EDGE_N, EDGE_K)
+            yield f"{kind}_{n}x{d}x{k}", n, d, k, kind
 
 
 def time_stats(suffstats, gauss_work, bound, cuda_ms, run_ms, dev,
@@ -359,16 +490,145 @@ def time_sweep(sweep, assign, suffstats, gauss_work, bound, cuda_ms, run_ms,
     return out
 
 
-def bits_grid(fn, ds, make, prints) -> None:
-    """Fingerprints of ``fn``'s outputs over the bits grid; a shape the
-    wrapper refuses is kept as its message."""
-    for i, (name, n, d, k, kind) in enumerate(bits_cases(ds)):
+def sub_work(n, d, k):
+    """(FLOP, bytes) of ``sub_assign_gauss``: two whitening products a
+    point, x, labels, indices and sub-labels, and the sub-components."""
+    return (4 * n * d * (d + 1), 4 * n * d + 16 * n + 8 * k * (d * d + d + 2))
+
+
+def time_sub(assign, bound, cuda_ms, run_ms, dev, prints) -> dict:
+    out = {}
+    for name, n, d, k, live in SUB_CASES:
+        a, _ = mixture_operands(n, d, k, live, dev, seed=2)
+        lab = assign.assign_gauss_cuda(*(a[:6] + (a[11], a[12], a[14])))
+        f_args = (a[0], a[6], a[7], a[8], a[9], lab, a[11], a[13])
+        r = {"n": n, "d": d, "k": k, "k_live": live}
+        r["bound_ms"], r["bound_by"] = bound(*sub_work(n, d, k))
+        prints[f"fit_{name}"] = [fingerprint(
+            assign.sub_assign_gauss_cuda(*f_args))]
+        runs = 10 if n * d * d > 10 ** 10 else 20
+        r["kernel"] = timed(lambda: assign.sub_assign_gauss_cuda(*f_args),
+                            runs, cuda_ms, run_ms)
+        r["plain"] = {"single_ms": cuda_ms(
+            lambda: assign.sub_assign_gauss_plain(*f_args), 1)}
+        r["split"] = kernel_split(
+            lambda: assign.sub_assign_gauss_cuda(*f_args), 5)
+        out[name] = r
+        del a, lab, f_args
+        torch.cuda.empty_cache()
+    return out
+
+
+def linear_work(args):
+    """(FLOP, bytes) of ``sweep_linear`` on ``args`` (chip_smoke.py
+    time_linear's count) and the Threefry draws it makes: one a (point,
+    slot) of step (e), two a point of step (f)."""
+    feats = args[0]
+    n, dp = feats.shape
+    k = args[1].shape[0]
+    live = int(args[4].sum())
+    nsb = -(-n // 1024)
+    return ((2 * n * dp * (live + 3),
+             n * dp * 4 + n * (4 + 8) + 8 * n + k * (3 * dp + 6) * 4
+             + nsb * 2 * k * (1 + dp) * 4),
+            {"step_e_live": n * live, "step_e_inactive": n * (k - live),
+             "step_f": 2 * n})
+
+
+def linear_states(dev):
+    """(name, operands) of the linear group: the multinomial fit's final
+    state (a fit of LINEAR_FIT's mixture as chip_smoke.py runs it) and the
+    synthetic states of LINEAR_CASES."""
+    from chip_smoke import FIT_CFG, fit_linear_args, linear_sweep_args
+    from repro_torch.configs import DPMMConfig
+    from repro_torch.core import gibbs, sampler
+    from repro_torch.core.family import get_family
+    from repro_torch.core.sampler import DPMM
+    from repro_torch.data import synthetic
+    n, d, k = LINEAR_FIT
+    x_np, _ = synthetic.generate_mnmm(n, d, k, seed=1)
+    res = DPMM(DPMMConfig(component="multinomial", **FIT_CFG)).fit(x_np)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    args, _ = fit_linear_args(get_family("multinomial"), res.state,
+                              torch.as_tensor(x_np, device=dev), gibbs,
+                              sampler, gen)
+    yield "fit_multinomial", args
+    del args, res
+    for name, fam, make, n, d, k_true, seed, k_c in LINEAR_CASES:
+        x_np, y_np = getattr(synthetic, make)(n, d, k_true, seed=seed)
+        yield name, linear_sweep_args(get_family(fam),
+                                      torch.as_tensor(x_np, device=dev),
+                                      y_np, k_c, dev)
+
+
+def time_linear_group(sweep, assign, suffstats, bound, cuda_ms, run_ms, dev,
+                      prints) -> dict:
+    out = {}
+    for name, a in linear_states(dev):
+        n, dp = a[0].shape
+        k = a[1].shape[0]
+        work, draws = linear_work(a)
+        r = {"n": n, "d_feat": dp, "k": k, "k_live": int(a[4].sum()),
+             "draws": draws}
+        r["bound_ms"], r["bound_by"] = bound(*work)
+        res = sweep.sweep_linear_cuda(*a)
+        prints[f"fit_{name}"] = [fingerprint(t) for t in res]
+        r["kernel"] = timed(lambda: sweep.sweep_linear_cuda(*a), 20, cuda_ms,
+                            run_ms)
+        r["plain"] = {"single_ms": cuda_ms(
+            lambda: sweep.sweep_linear_plain(*a), 1)}
+        r["split"] = kernel_split(lambda: sweep.sweep_linear_cuda(*a), 10)
+        # the three-pass kernels on the same operands: steps (e), (f) and
+        # the fold, one at a time, with the sweep's own labels
+        e_args = a[:5] + (a[9], a[10], a[12])
+        f_args = (a[0], a[5], a[6], a[7], res[0], a[9], a[11])
+        m_args = (a[0], res[0], res[1], a[8], k)
+        r["three_pass"] = {
+            "assign_linear": timed(lambda: assign.assign_linear_cuda(*e_args),
+                                   20, cuda_ms, run_ms),
+            "sub_assign_linear": timed(
+                lambda: assign.sub_assign_linear_cuda(*f_args), 20, cuda_ms,
+                run_ms),
+            "moments_labels": timed(
+                lambda: suffstats.moments_labels_cuda(*m_args), 20, cuda_ms,
+                run_ms)}
+        out[name] = r
+        del a, res, e_args, f_args, m_args
+        torch.cuda.empty_cache()
+    return out
+
+
+def top_bin_draws(args) -> int:
+    """(point, inactive slot) pairs of ``sweep_linear`` operands whose
+    step-(e) draw lies in the Threefry top bin (an inactive slot's logit
+    +inf), counted with the plain Threefry of ``kernels/prng.py``."""
+    from repro_torch.kernels import prng
+    slots = args[12][args[4] == 0].long()
+    if slots.numel() == 0:
+        return 0
+    total = 0
+    for g in args[9].split(4096):
+        bits, _ = prng.threefry2x32(args[10][0], args[10][1], g[:, None],
+                                    slots[None, :])
+        total += int((bits >= 0xFFFFFF00).sum())
+    return total
+
+
+def bits_grid(fn, cases, make, prints, note=None) -> None:
+    """Fingerprints of ``fn``'s outputs over the bits grid ``cases``
+    (``bits_cases``); a shape the wrapper refuses is kept as its message.
+    ``note(args)``, if given, is kept beside each shape's prints."""
+    for i, (name, n, d, k, kind) in enumerate(cases):
         args = make(n, d, k, DEV, 1000 + i, kind)
+        if note is not None:
+            prints[f"{name}/note"] = note(args)
         try:
             res = fn(*args)
         except ValueError as e:
             prints[name] = str(e)
             continue
+        if isinstance(res, torch.Tensor):
+            res = (res,)
         prints[name] = [fingerprint(t) for t in res]
         del res, args
     torch.cuda.synchronize()
@@ -379,7 +639,10 @@ GROUP_SOURCES = {"dense": ("suffstats_dense",), "matmul": ("matmul",),
                  "gauss": ("assign_gauss", "loglik_gauss"),
                  "stats": ("suffstats_labels",),
                  "sweep": ("sweep_gauss", "assign_gauss", "sub_assign_gauss",
-                           "suffstats_labels")}
+                           "suffstats_labels"),
+                 "sub": ("sub_assign_gauss", "assign_gauss"),
+                 "linear": ("sweep_linear", "assign_linear",
+                            "sub_assign_linear", "moments_labels")}
 
 
 def worker(src: str, save: str, groups) -> dict:
@@ -397,22 +660,38 @@ def worker(src: str, save: str, groups) -> dict:
                          .splitlines() if "registers" in ln or "spill" in ln
                          or "Compiling" in ln]
                      for grp in groups for n in GROUP_SOURCES[grp]}}
-    out.update({"nvidia_smi": card(), "dense": {},
-           "matmul": {}, "gauss": {}, "stats": {}, "sweep": {}})
+    out.update({"nvidia_smi": card(), **{grp: {} for grp in KERNEL_GROUPS}})
     bits = {}
     g = torch.Generator(device=dev).manual_seed(0)
     if "stats" in groups:
         bits["stats"] = {}
         out["stats"] = time_stats(suffstats, gauss_work, bound, cuda_ms,
                                   run_ms, dev, bits["stats"])
-        bits_grid(suffstats.suffstats_labels_cuda, BITS_STATS_D,
+        bits_grid(suffstats.suffstats_labels_cuda, bits_cases(BITS_STATS_D),
                   grid_stats_args, bits["stats"])
     if "sweep" in groups:
         bits["sweep"] = {}
         out["sweep"] = time_sweep(sweep, assign, suffstats, gauss_work,
                                   bound, cuda_ms, run_ms, dev, bits["sweep"])
-        bits_grid(sweep.sweep_gauss_cuda, BITS_SWEEP_D,
+        bits_grid(sweep.sweep_gauss_cuda, bits_cases(BITS_SWEEP_D),
                   grid_sweep_args, bits["sweep"])
+    if "sub" in groups:
+        bits["sub"] = {}
+        out["sub"] = time_sub(assign, bound, cuda_ms, run_ms, dev,
+                              bits["sub"])
+        bits_grid(assign.sub_assign_gauss_cuda,
+                  bits_cases(BITS_SUB_D, kinds=("one_label", "distinct")),
+                  grid_sub_args, bits["sub"])
+    if "linear" in groups:
+        bits["linear"] = {}
+        out["linear"] = time_linear_group(sweep, assign, suffstats, bound,
+                                          cuda_ms, run_ms, dev,
+                                          bits["linear"])
+        bits_grid(sweep.sweep_linear_cuda,
+                  bits_cases(BITS_LINEAR_D, BITS_LINEAR_K, BITS_LINEAR_N,
+                             ("empty", "one_segment", "valid_zeros",
+                              "misaligned")),
+                  grid_linear_args, bits["linear"], note=top_bin_draws)
     if "gauss" in groups:
         out["gauss"] = time_gauss(assign, loglik, bound, cuda_ms, run_ms,
                                   dev, g)
@@ -484,13 +763,18 @@ def bits_report(a: dict, b: dict) -> dict:
 
 
 def median_of(turns, path) -> float:
+    """The median of the value at ``path`` over the turns that have it (a
+    profiler's split may miss an activity, such as a memset, in a turn)."""
     vals = []
     for t in turns:
         v = t
         for key in path:
-            v = v[key]
-        vals.append(v)
-    return float(np.median(vals))
+            v = v.get(key) if isinstance(v, dict) else None
+            if v is None:
+                break
+        if v is not None:
+            vals.append(v)
+    return float(np.median(vals)) if vals else float("nan")
 
 
 def summary(trees, results) -> dict:
@@ -498,9 +782,8 @@ def summary(trees, results) -> dict:
     out = {}
     for src in trees:
         turns = [r for r in results if r["src"] == src]
-        s = {"dense": {}, "matmul": {}, "gauss": {}, "stats": {},
-             "sweep": {}}
-        for group in ("stats", "sweep"):
+        s = {grp: {} for grp in KERNEL_GROUPS}
+        for group in ("stats", "sweep", "sub", "linear"):
             for name, case in turns[0][group].items():
                 row = {"bound_ms": case["bound_ms"],
                        "plain_single_ms": median_of(
@@ -512,10 +795,12 @@ def summary(trees, results) -> dict:
                     row[f"{kern}_device_ms"] = median_of(
                         turns, (group, name, "three_pass", kern,
                                 "device_ms"))
-                if "split" in case:
+                split = {kern for t in turns
+                         for kern in t[group][name].get("split", {})}
+                if split:
                     row["split_device_ms"] = {
                         kern: median_of(turns, (group, name, "split", kern))
-                        for kern in case["split"]}
+                        for kern in sorted(split)}
                 s[group][name] = row
         for name, case in turns[0]["gauss"].items():
             s["gauss"][name] = {}
