@@ -8,8 +8,9 @@ holds each against its plain PyTorch version on the card (phases
 sweep_linear, moments_labels, at the multinomial fit's width, the diagonal
 Gaussian pack and the 20newsgroups width d' = 20,000;
 ``kernel_check_serve``: loglik_gauss, assign_gauss at d = 32 and 128,
-assign_linear at d' = 128 and 20,000, matmul, at one serving step of
-8192 rows; ``kernel_check_wide``: loglik_gauss and assign_gauss past
+with ragged requests through other slot groups bitwise the whole's and
+both kernels' per-launch device times, assign_linear at d' = 128 and
+20,000, matmul, at one serving step of 8192 rows; ``kernel_check_wide``: loglik_gauss and assign_gauss past
 d = 256, at d = 300 and 512, with ragged rows bitwise the whole's). Then
 it runs
 ``DPMM.fit`` (k_max = 64, 40 iterations, 16 true clusters) on a
@@ -702,7 +703,10 @@ def check_serve_kernels(sweep, suffstats, assign, loglik, matmul, news_np,
     """Each serving kernel against its plain version on the card at the
     serving step's B = SERVE_B rows: labels exact except float64-proven
     near-ties, log-likelihoods and products within SERVE_RTOL, repeat
-    launches bitwise equal."""
+    launches bitwise equal. The Gaussian kernels' rows of ragged requests
+    (through other slot groups of ``assign.gauss_plan``) are bitwise those
+    of the whole request, and both kernels' per-launch device times
+    (``run_ms``) at the step are given."""
     from repro_torch.core.family import get_family
     from repro_torch.data import synthetic
     out = {}
@@ -715,13 +719,32 @@ def check_serve_kernels(sweep, suffstats, assign, loglik, matmul, news_np,
         if not (torch.equal(ll, loglik.loglik_cuda(*args[:4]))
                 and torch.equal(lab, assign.assign_gauss_cuda(*args))):
             fail(f"d={d}: two launches on the same inputs differ")
+        plans = {}
+        for lo, hi in ((0, 1), (5, 305), (1000, 3048)):
+            part = (args[0][lo:hi].contiguous(),) + args[1:6] + (
+                args[6][lo:hi].contiguous(),) + args[7:]
+            if not (torch.equal(loglik.loglik_cuda(*part[:4]), ll[lo:hi])
+                    and torch.equal(assign.assign_gauss_cuda(*part),
+                                    lab[lo:hi])):
+                fail(f"d={d}: the rows of a {hi - lo}-row request differ "
+                     "from the whole's")
+            plans[hi - lo] = assign.gauss_plan(hi - lo, d, SERVE_KC).groups
         ties = assign_ties(assign, True, args, lab,
                            assign.assign_gauss_plain(*args))
+        times = {}
+        for name, fn in (("assign_gauss",
+                          lambda: assign.assign_gauss_cuda(*args)),
+                         ("loglik_gauss",
+                          lambda: loglik.loglik_cuda(*args[:4]))):
+            times[f"{name}_device_ms"], times[f"{name}_host_ms"] = run_ms(
+                fn, 100)
         out[f"gauss_d{d}"] = {
+            "plan": assign.gauss_plan(SERVE_B, d, SERVE_KC)._asdict(),
+            "ragged_groups": plans,
             "loglik_gauss_max_abs_err": rel_err(
                 ll, loglik.loglik_plain(*args[:4]), SERVE_RTOL,
                 f"loglik_gauss d={d}"),
-            "assign_gauss_near_tie_mismatches": ties}
+            "assign_gauss_near_tie_mismatches": ties, **times}
     fam = get_family("multinomial")
     for name, (xn, yn) in (
             ("linear_d128", synthetic.generate_mnmm(SERVE_B, 128, FIT_K,
@@ -1048,6 +1071,8 @@ def time_serve_kernels(engines, xq, assign, loglik, matmul, dev) -> dict:
         flop=2 * SERVE_B * k * d * (d + 1),
         bytes=4 * (SERVE_B * d + k * (d * d + d + 1) + SERVE_B * k),
         library_ms=None, shape=f"B={SERVE_B} d={d} K={k}",
+        **dict(zip(("device_ms", "host_ms"),
+                   run_ms(lambda: loglik.loglik_cuda(*gargs[:4]), 100))),
         max_abs_err=rel_err(loglik.loglik_cuda(*gargs[:4]),
                             loglik.loglik_plain(*gargs[:4]), SERVE_RTOL,
                             "loglik_gauss at the serve step"))
@@ -1058,6 +1083,8 @@ def time_serve_kernels(engines, xq, assign, loglik, matmul, dev) -> dict:
         bytes=(4 * SERVE_B * d + 12 * SERVE_B
                + 4 * k * (d * d + d + 4)),
         library_ms=None, shape=f"B={SERVE_B} d={d} K={k} live={live}",
+        **dict(zip(("device_ms", "host_ms"),
+                   run_ms(lambda: assign.assign_gauss_cuda(*gargs), 100))),
         max_abs_err=float(assign_ties(
             assign, True, gargs, assign.assign_gauss_cuda(*gargs),
             assign.assign_gauss_plain(*gargs))))

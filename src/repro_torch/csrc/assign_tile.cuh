@@ -5,21 +5,21 @@
 //          + Gumbel(key_z, gidx_i, slots_k)
 //
 // shared by the one-read sweep_gauss.cu at d <= 16 and the standalone
-// assignment kernels (assign_gauss.cu, assign_linear.cu; sweep_linear.cu
-// keeps linear_assign's chains in a tile of its own);
-// the Gaussian whitening product is also the body of loglik_gauss.cu. It is
-// the device half of the TPU kernels src/repro/kernels/assign.py:
-// assign_gauss / assign_linear and of step (e) of
-// src/repro/kernels/sweep.py. Above d = 16 sweep_gauss.cu runs step (e) as
-// a register-tiled product of its own that keeps these functions' chains
-// and order. The linear step (f) (the own cluster's two sub-weight rows) is
-// here too, shared by sub_assign_linear.cu; the Gaussian step (f) of the
-// sweep and of sub_assign_gauss.cu runs maha_narrow / maha_wide on staged
-// operands (sub_tile.cuh), so the three-pass path draws the one-read
-// sweep's sub-labels bit for bit.
+// assignment kernels (assign_gauss.cu at d <= 16, assign_linear.cu;
+// sweep_linear.cu keeps linear_assign's chains in a tile of its own); the
+// narrow Gaussian whitening is also the body of loglik_gauss.cu at
+// d <= 16. It is the device half of the TPU kernels
+// src/repro/kernels/assign.py: assign_gauss / assign_linear and of step (e)
+// of src/repro/kernels/sweep.py. Above d = 16 the three Gaussian kernels
+// run the register tile of te_tile.cuh, which keeps these functions'
+// chains and order. The linear step (f) (the own cluster's two sub-weight
+// rows) is here too, shared by sub_assign_linear.cu; the Gaussian step (f)
+// of the sweep and of sub_assign_gauss.cu runs maha_narrow / maha_wide on
+// staged operands (sub_tile.cuh), so the three-pass path draws the
+// one-read sweep's sub-labels bit for bit.
 //
-// The narrow, wide and linear step-(e) functions are called by all threads
-// of the block (they hold __syncthreads) and leave, for the block's np
+// The narrow and linear step-(e) functions are called by all threads of
+// the block (they hold __syncthreads) and leave, for the block's np
 // points, best[p] (the running maximum) and lab[p] (its slot) in shared
 // memory. A slot replaces the best
 // only when its value is strictly larger, so the first maximum wins, as
@@ -29,16 +29,18 @@
 //
 // Gaussian: loglik_k(x) = 0.5 (logdet_k - |F_k^T (x - mu_k)|^2)
 //                         - 0.5 d log(2 pi),
-// with F_k the factor of the precision. Three layouts:
+// with F_k the factor of the precision. Layouts:
 //  - narrow (d <= 64, template DP = d rounded up to a power of two): one
 //    thread per point keeps x and the whitened vector y in registers; a tile
 //    of TILE_FLOATS of factors is staged in shared memory and its rows are
-//    broadcast to all threads (one 16-byte load per four FMAs);
-//  - wide (64 < d <= 128): a point's 128 output columns are spread over the
-//    four lanes of a lane group (32 each, in 16-byte chunks 4j + 16t), its
-//    x row is staged in shared memory, one 64 KiB factor is staged per tile,
-//    and |y|^2 is reduced over the four lanes with two xor shuffles (the
-//    same bits in every lane: float addition is commutative);
+//    broadcast to all threads (one 16-byte load per four FMAs); step (e)
+//    and the log-likelihood at d <= 16, and step (f) (sub_tile.cuh);
+//  - wide (64 < d <= 128, maha_wide): a point's 128 output columns are
+//    spread over the four lanes of a lane group (32 each, in 16-byte chunks
+//    4j + 16t), its x row staged in shared memory, and |y|^2 is reduced
+//    over the four lanes with two xor shuffles (the same bits in every
+//    lane: float addition is commutative); the sweep's step (f) at d > 64,
+//    and the order te_tile.cuh keeps at DP = 128;
 //  - panel (d > 128, step (e) and loglik only; gauss_panel below): a
 //    register-tiled product of a block's points and the factor, streamed in
 //    row slabs, |y|^2 summed over 128-column tiles in order.
@@ -252,63 +254,6 @@ __device__ void gauss_assign_narrow(
       }
       best[p] = b;
       lab[p] = l;
-    }
-  }
-  __syncthreads();
-}
-
-// Step (e), wide layout (64 < d <= 128). blockDim.x is a multiple of 32;
-// tile_smem holds gauss_tile_floats(WIDE_D, bk_max) and xsm
-// wide_x_floats(blockDim.x).
-__device__ void gauss_assign_wide(
-    const float* __restrict__ xb, int np, int d,
-    const long long* __restrict__ gidx_b, const float* __restrict__ mu,
-    const float* __restrict__ chol, const float* __restrict__ logdet,
-    const float* __restrict__ logw, const int* __restrict__ active,
-    const int* __restrict__ slots, int K, int bk_max, uint32_t kz0,
-    uint32_t kz1, float half_d_log2pi, float* tile_smem, float* xsm,
-    float* best, int* lab) {
-  for (int p = threadIdx.x; p < np; p += blockDim.x) {
-    best[p] = NEG_INF;
-    lab[p] = 0;
-  }
-  const int groups = blockDim.x / WIDE_LANES;
-  const int grp = threadIdx.x / WIDE_LANES, j = threadIdx.x % WIDE_LANES;
-  float* xs = xsm + grp * WIDE_XSTRIDE;
-  const GaussTile<WIDE_D> t(tile_smem, bk_max);
-  for (int kt = 0; kt < K; kt += bk_max) {
-    const int bk = min(bk_max, K - kt);
-    stage_gauss_tile<WIDE_D>(t, kt, bk, d, mu, chol, logdet, logw, active,
-                             slots);
-    // every lane runs the same number of passes: the shuffles of
-    // maha_wide need the whole warp
-    for (int p0 = 0; p0 < np; p0 += groups) {
-      const int p = p0 + grp;
-      const bool live = p < np;
-      stage_x_wide(xb, p, live, d, j, xs);
-      __syncwarp();
-      const uint32_t g = live ? (uint32_t)gidx_b[p] : 0u;
-      float b = live ? best[p] : NEG_INF;
-      int l = live ? lab[p] : 0;
-      for (int kk = 0; kk < bk; ++kk) {
-        float v = NEG_INF;
-        if (t.act[kk] != 0) {
-          const float maha = maha_wide(xs, t.f + (size_t)kk * WIDE_D * WIDE_D,
-                                       t.mu + kk * WIDE_D, d, j);
-          v = 0.5f * (t.ld[kk] - maha) - half_d_log2pi;
-          v = v + t.lw[kk];
-        }
-        v = v + gumbel(kz0, kz1, g, (uint32_t)t.slot[kk]);
-        if (v > b) {
-          b = v;
-          l = kt + kk;
-        }
-      }
-      if (live && j == 0) {
-        best[p] = b;
-        lab[p] = l;
-      }
-      __syncwarp();
     }
   }
   __syncthreads();
@@ -641,10 +586,10 @@ __device__ void linear_sub_assign(
 // Slots. A block walks the slots [k_lo, k_hi) of its slot group in order.
 // Step (e) skips the product of an inactive slot (a branch uniform over the
 // block) but still draws its Gumbel (the Threefry top bin, ROADMAP.md §3),
-// with the same counters and strict-`>` first max as gauss_assign_narrow /
-// _wide; each group leaves its running (max, first argmax) per point, and
-// panel_fold_groups takes the groups in slot order with strict `>`, which
-// is the label of one walk over all slots. The wrapper
+// with the same counters and strict-`>` first max as gauss_assign_narrow;
+// each group leaves its running (max, first argmax) per point, and
+// fold_groups merges the groups by (max, least slot), which is the label
+// of one walk over all slots. The wrapper
 // (kernels/assign.py panel_plan, a function of the shape) chooses BM and the
 // groups; the launchers hold each BM's layout once (PanelTile) and refuse
 // any other.
@@ -652,7 +597,6 @@ __device__ void linear_sub_assign(
 constexpr int PANEL_BN = 128;     // columns of Y a column tile
 constexpr int PANEL_STAGES = 3;   // slabs in the shared ring
 constexpr int PANEL_TXN = PANEL_BN / 8;   // threads along a row group
-constexpr int PANEL_FOLD_THREADS = 256;
 
 template <int BM>
 struct PanelTile {
@@ -928,23 +872,34 @@ __device__ __forceinline__ void gauss_panel(
   }
 }
 
-// The labels from the slot groups' (max, first argmax) rows, groups in slot
-// order, strict `>`: the first maximum over all slots, as one walk gives.
-__global__ void __launch_bounds__(PANEL_FOLD_THREADS) panel_fold_groups(
+// The labels from the slot groups' (max, label) rows (the panel layout's
+// and te_tile.cuh's) merged by (max, least slot): the first maximum over
+// all slots, as one walk in slot order gives. Panel groups hold slots in
+// order, so this is also strict `>` over the groups in order.
+constexpr int FOLD_GROUPS_THREADS = 256;
+
+__global__ void __launch_bounds__(FOLD_GROUPS_THREADS) fold_groups(
     const float* __restrict__ best, const int* __restrict__ lab, int n,
     int groups, int* __restrict__ labels) {
-  const long long i = (long long)blockIdx.x * PANEL_FOLD_THREADS + threadIdx.x;
+  const long long i =
+      (long long)blockIdx.x * FOLD_GROUPS_THREADS + threadIdx.x;
   if (i >= n) return;
   float b = NEG_INF;
   int l = 0;
-  for (int gr = 0; gr < groups; ++gr) {
-    const float v = best[(size_t)gr * n + i];
-    if (v > b) {
-      b = v;
-      l = lab[(size_t)gr * n + i];
-    }
-  }
+  for (int gr = 0; gr < groups; ++gr)
+    take_best(best[(size_t)gr * n + i], lab[(size_t)gr * n + i], b, l);
   labels[i] = l;
+}
+
+// fold_groups over n points and `groups` rows on `stream`.
+inline cudaError_t launch_fold_groups(const float* best, const int* lab,
+                                      int n, int groups, int* labels,
+                                      cudaStream_t stream) {
+  fold_groups<<<(unsigned)(((long long)n + FOLD_GROUPS_THREADS - 1) /
+                           FOLD_GROUPS_THREADS),
+                FOLD_GROUPS_THREADS, 0, stream>>>(best, lab, n, groups,
+                                                  labels);
+  return cudaGetLastError();
 }
 
 }  // namespace repro_torch

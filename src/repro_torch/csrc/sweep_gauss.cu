@@ -17,11 +17,12 @@
 // Design. The TPU grid (point blocks, phase, K tiles) ran in order and
 // carried the running (max, argmax) from one K tile to the next in
 // scratch. Here, above d = 16, step (e) is a launch of its own
-// (sweep_assign_tiled, below): a register-tiled product over tiles of 128
-// points, the x tile resident in shared memory and the active slots'
-// factors streamed in row slabs through a cp.async ring (up to four slots
-// side by side in a 128-column tile at d <= 32), |y|^2 finished in the
-// parent layout's order, and the first max merged by (max, least slot).
+// (sweep_assign_tiled, below): the register tile of te_tile.cuh, shared
+// with assign_gauss.cu and loglik_gauss.cu, over tiles of 128 points, the
+// x tile resident in shared memory and the live slots' factors streamed in
+// row slabs through a cp.async ring (up to four slots side by side in a
+// 128-column tile at d <= 32), |y|^2 finished in the one-thread-a-point
+// order, and the first max merged by (max, least slot).
 // At d <= 16 one thread block owns one STATS_BLOCK and loops over K tiles
 // of factors staged in shared memory (gauss_assign_narrow, assign_tile.cuh,
 // shared with assign_gauss.cu). Then one thread block a STATS_BLOCK runs
@@ -56,6 +57,7 @@
 #include "assign_tile.cuh"
 #include "block_stats.cuh"
 #include "sub_tile.cuh"
+#include "te_tile.cuh"
 #include "threefry.cuh"
 
 namespace repro_torch {
@@ -132,168 +134,12 @@ __device__ int group_by_label(const FoldSmem& fs, int np, int K, int*& list,
   return nl;
 }
 
-// ---------------------------------------------------------------------------
 // Step (e) as a register-tiled product (16 < d <= 128): a launch of its own,
 // over tiles of TE_BM points, before the (f) + fold kernel, which reads the
-// labels it wrote. Per active slot k the whitening is Y = (X - mu_k) F_k on
-// the tile's points. A block keeps its points' x resident in shared memory
-// (transposed, DP rows, zero past d and np) and streams the factors of the
-// active slots, SP = 128 / DP of them side by side in a 128-column tile
-// (the slab row holds slot s's DP columns at s FS), in row slabs of BK rows
-// through a ring of TE_STAGES buffers with cp.async. Each of the 256
-// threads holds an 8 x 8 register tile of Y: rows g0 + i and g1 + i (64
-// apart), and columns 4 u + q and DP / 2 + 4 u + q of one slot s (u the
-// thread's place among the slot's TPS = DP / 8 threads); x - mu_k is formed
-// in registers from the resident x and the slab's mean (8 subtractions a row
-// for 64 FMAs), as the parent's per-point loop forms it.
-//
-// Bits. A column is the chain fmaf(x_r - mu_r, F_rc, y_c) over r in order
-// (rows and columns past d add exact zeros), and |y|^2 follows the parent
-// layout's order, carried from thread to thread by shuffles:
-//  - DP = 32, 64 (gauss_assign_narrow): one chain fmaf(y_c, y_c, m) over
-//    c = 0..DP-1, in blocks of 4 columns, block b held by thread b % TPS;
-//  - DP = 128 (gauss_assign_wide): the chain of lane j over columns
-//    4 j + 16 t + q (threads j + 4 (t % 4)), then (s0 + s1) + (s2 + s3) by
-//    the same two xor shuffles.
-// The logit and its Gumbel are the parent's expressions. Each thread keeps
-// a strict-`>` running max over its slots (increasing k) for the rows it
-// owns; the inactive slots' Gumbels are drawn by a second pass (two threads
-// a point), and the partials are merged by (max, least slot), which is the
-// first maximum of one walk over all slots in order, bit for bit: the
-// labels depend on (x, slot, d) alone, not on the tile or the grid.
-// ---------------------------------------------------------------------------
-constexpr int TE_BM = 128;               // points a block
-constexpr int TE_THREADS = 256;
-constexpr int TE_XS = TE_BM + 4;         // row stride of the resident x
-constexpr int TE_STAGES = 3;
-
-template <int DP>
-struct TiledE {
-  static constexpr int SP = 128 / DP;             // slots a column tile
-  static constexpr int TPS = DP / 8;              // threads a slot
-  // slot stride in a slab row: at DP = 32, 48 puts the two slots a
-  // quarter-warp reads on different banks
-  static constexpr int FS = DP == 32 ? 48 : DP;
-  static constexpr int ROW = SP * FS;             // floats a slab row
-  static constexpr int BK = DP == 128 ? 16 : 32;  // rows a slab
-  static constexpr int MS = BK + 1;               // mean stride a slot
-  static constexpr int STAGE = (BK * ROW + SP * MS + 3) / 4 * 4;
-  static constexpr int XT = DP * TE_XS;
-  static constexpr int PARTS = SP + 2;            // partials a point
-  static constexpr int OWN = TPS >= 8 ? 1 : 8 / TPS;   // rows a thread owns
-  static_assert(SP * TPS == 16 && BK * SP <= TE_THREADS &&
-                    (BK * 32) % TE_THREADS == 0 && DP % BK == 0,
-                "tiled step (e)");
-};
-
-// Shared bytes of sweep_assign_tiled<DP> for K slots: the x tile, the ring,
-// the partials, the scan's warp totals and two K-int lists.
-template <int DP>
-__host__ inline size_t te_smem_bytes(int K) {
-  using T = TiledE<DP>;
-  return sizeof(float) * ((size_t)T::XT + (size_t)TE_STAGES * T::STAGE +
-                          2 * (size_t)T::PARTS * TE_BM + 32 + 2 * (size_t)K);
-}
-
-// Copy row slab r0 of column tile tl (the active slots order[tl SP + s],
-// s < SP, those below na) of the factors and means into one stage, zero
-// past d and for missing slots.
-template <int DP>
-__device__ __forceinline__ void te_load(const float* __restrict__ chol,
-                                        const float* __restrict__ mu,
-                                        const int* order, int na, int d,
-                                        int tl, int r0, bool vec,
-                                        float* stage) {
-  using T = TiledE<DP>;
-  float* fs = stage;
-  float* ms = stage + T::BK * T::ROW;
-  const int tid = threadIdx.x;
-  if (vec) {
-    constexpr int Q = DP / 4, E = T::BK * T::SP * Q;
-#pragma unroll
-    for (int i = 0; i < E / TE_THREADS; ++i) {
-      const int e = tid + i * TE_THREADS;
-      const int r = e / (T::SP * Q), rem = e % (T::SP * Q);
-      const int sp = rem / Q, c = 4 * (rem % Q);
-      const int j = tl * T::SP + sp;
-      const bool ok = j < na && r0 + r < d && c < d;
-      cp_async16(fs + r * T::ROW + sp * T::FS + c,
-                 ok ? chol + ((size_t)order[j] * d + r0 + r) * d + c : chol,
-                 ok ? 16 : 0);
-    }
-  } else {
-    constexpr int E = T::BK * T::SP * DP;
-#pragma unroll 4
-    for (int i = 0; i < E / TE_THREADS; ++i) {
-      const int e = tid + i * TE_THREADS;
-      const int r = e / (T::SP * DP), rem = e % (T::SP * DP);
-      const int sp = rem / DP, c = rem % DP;
-      const int j = tl * T::SP + sp;
-      const bool ok = j < na && r0 + r < d && c < d;
-      cp_async4(fs + r * T::ROW + sp * T::FS + c,
-                ok ? chol + ((size_t)order[j] * d + r0 + r) * d + c : chol,
-                ok ? 4 : 0);
-    }
-  }
-  if (tid < T::SP * T::BK) {
-    const int sp = tid / T::BK, r = tid % T::BK;
-    const int j = tl * T::SP + sp;
-    const bool ok = j < na && r0 + r < d;
-    cp_async4(ms + sp * T::MS + r,
-              ok ? mu + (size_t)order[j] * d + r0 + r : mu, ok ? 4 : 0);
-  }
-}
-
-// |y|^2 of the thread's 8 rows for its slot, in the parent layout's order
-// (above); every thread of the slot gets the 8 values.
-template <int DP>
-__device__ __forceinline__ void te_maha(const float (&acc)[8][8], int tx,
-                                        float (&m)[8]) {
-  using T = TiledE<DP>;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) m[i] = 0.f;
-  if constexpr (DP < 128) {
-    const int u = tx % T::TPS;
-#pragma unroll
-    for (int b = 0; b < 2 * T::TPS; ++b) {
-      const int h = b / T::TPS;
-      const bool mine = u == b % T::TPS;
-      const int src = (lane & ~(T::TPS - 1)) | (b % T::TPS);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float v = m[i];
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          v = fmaf(acc[i][4 * h + q], acc[i][4 * h + q], v);
-        m[i] = __shfl_sync(0xffffffffu, mine ? v : m[i], src);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const int h = t / 4;
-      const bool mine = (tx >> 2) == (t & 3);
-      const int src = (lane & 16) | ((t & 3) << 2) | (tx & 3);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float v = m[i];
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          v = fmaf(acc[i][4 * h + q], acc[i][4 * h + q], v);
-        m[i] = __shfl_sync(0xffffffffu, mine ? v : m[i], src);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      m[i] += __shfl_xor_sync(0xffffffffu, m[i], 1);
-      m[i] += __shfl_xor_sync(0xffffffffu, m[i], 2);
-    }
-  }
-}
-
-// Step (e) of TE_BM points (tile blockIdx.x) for 16 < d <= 128 (DP = 32,
-// 64 or 128): labels[i] for the tile's points. smem holds te_smem_bytes<DP>.
+// labels it wrote. The tile is te_tile.cuh's, the device code of
+// assign_gauss.cu at these widths, on one slot group: the labels depend on
+// (x, slot, d) alone, not on the tile or the grid. smem holds
+// te_smem_bytes<DP>(K).
 template <int DP>
 __global__ void __launch_bounds__(TE_THREADS, 2) sweep_assign_tiled(
     const float* __restrict__ x, int n, int d, const float* __restrict__ mu,
@@ -302,173 +148,10 @@ __global__ void __launch_bounds__(TE_THREADS, 2) sweep_assign_tiled(
     const int* __restrict__ slots, int K, const long long* __restrict__ gidx,
     const long long* __restrict__ key_z, float half_d_log2pi, int vec,
     int* __restrict__ labels) {
-  using T = TiledE<DP>;
   extern __shared__ __align__(16) float te_smem[];
-  float* xt = te_smem;
-  float* ring = xt + T::XT;
-  float* pb = ring + TE_STAGES * T::STAGE;
-  int* pl = reinterpret_cast<int*>(pb + T::PARTS * TE_BM);
-  int* tmp = pl + T::PARTS * TE_BM;
-  int* flag = tmp + 32;
-  int* order = flag + K;
-  const int tid = threadIdx.x;
-  const long long base = (long long)blockIdx.x * TE_BM;
-  const int np = (int)min((long long)TE_BM, (long long)n - base);
-  const uint32_t kz0 = (uint32_t)key_z[0], kz1 = (uint32_t)key_z[1];
-
-  // the active slots in order, then the inactive ones in order
-  for (int k = tid; k < K; k += TE_THREADS) flag[k] = active[k] != 0;
-  __syncthreads();
-  const int na = block_scan_excl(flag, K, tmp);
-  for (int k = tid; k < K; k += TE_THREADS) {
-    const int a = flag[k];
-    order[active[k] != 0 ? a : na + k - a] = k;
-  }
-  // the tile's points, transposed, zero past d and np
-  const float* xb = x + base * d;
-  for (int e = tid; e < TE_BM * DP; e += TE_THREADS) {
-    const int p = e / DP, r = e % DP;
-    xt[r * TE_XS + p] =
-        (p < np && r < d) ? __ldg(xb + (size_t)p * d + r) : 0.f;
-  }
-  __syncthreads();
-
-  const int tx = tid % 16, ty = tid / 16;
-  const int s = tx / T::TPS, u = tx % T::TPS;
-  const int g0 = 4 * ty, g1 = g0 + TE_BM / 2;
-  const int cA = s * T::FS + 4 * u, cB = cA + DP / 2;
-  // the rows this thread owns: i = u + o TPS (i < 8), point g(i)
-  float best[T::OWN];
-  int lab[T::OWN];
-  uint32_t gp[T::OWN];
-#pragma unroll
-  for (int o = 0; o < T::OWN; ++o) {
-    const int i = u + o * T::TPS;
-    const int p = i < 4 ? g0 + i : g1 + i - 4;
-    best[o] = NEG_INF;
-    lab[o] = 0;
-    gp[o] = (i < 8 && p < np) ? (uint32_t)gidx[base + p] : 0u;
-  }
-
-  const int ns = (d + T::BK - 1) / T::BK;
-  const int steps = (na + T::SP - 1) / T::SP * ns;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < TE_STAGES - 1; ++i) {
-    if (i < steps)
-      te_load<DP>(chol, mu, order, na, d, i / ns, (i % ns) * T::BK, vec != 0,
-                  ring + i * T::STAGE);
-    cp_async_commit();
-  }
-  for (int t = 0; t < steps; ++t) {
-    cp_async_wait<TE_STAGES - 2>();
-    __syncthreads();
-    const int tn = t + TE_STAGES - 1;
-    if (tn < steps)
-      te_load<DP>(chol, mu, order, na, d, tn / ns, (tn % ns) * T::BK,
-                  vec != 0, ring + (tn % TE_STAGES) * T::STAGE);
-    cp_async_commit();
-    const float* fs = ring + (t % TE_STAGES) * T::STAGE;
-    const float* ms = fs + T::BK * T::ROW + s * T::MS;
-    const float* xr = xt + (t % ns) * T::BK * TE_XS;
-#pragma unroll
-    for (int r = 0; r < T::BK; ++r) {
-      const float4 a0 = *reinterpret_cast<const float4*>(xr + r * TE_XS + g0);
-      const float4 a1 = *reinterpret_cast<const float4*>(xr + r * TE_XS + g1);
-      const float mv = ms[r];
-      const float4 b0 = *reinterpret_cast<const float4*>(fs + r * T::ROW + cA);
-      const float4 b1 = *reinterpret_cast<const float4*>(fs + r * T::ROW + cB);
-      const float av[8] = {a0.x - mv, a0.y - mv, a0.z - mv, a0.w - mv,
-                           a1.x - mv, a1.y - mv, a1.z - mv, a1.w - mv};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
-    if (t % ns == ns - 1) {
-      // the column tile is done: each slot's |y|^2, logit and Gumbel
-      float m[8];
-      te_maha<DP>(acc, tx, m);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      }
-      const int j = (t / ns) * T::SP + s;
-      if (j < na) {
-        const int k = order[j];
-        const float ldk = __ldg(logdet + k), lwk = __ldg(logw + k);
-        const uint32_t sk = (uint32_t)__ldg(slots + k);
-#pragma unroll
-        for (int o = 0; o < T::OWN; ++o) {
-          const int io = u + o * T::TPS;
-          float mi = m[0];
-#pragma unroll
-          for (int i = 1; i < 8; ++i) mi = io == i ? m[i] : mi;
-          if (io < 8) {
-            float v = 0.5f * (ldk - mi) - half_d_log2pi;
-            v = v + lwk;
-            v = v + gumbel(kz0, kz1, gp[o], sk);
-            if (v > best[o]) {
-              best[o] = v;
-              lab[o] = k;
-            }
-          }
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-#pragma unroll
-  for (int o = 0; o < T::OWN; ++o) {
-    const int i = u + o * T::TPS;
-    if (i < 8) {
-      const int p = i < 4 ? g0 + i : g1 + i - 4;
-      pb[s * TE_BM + p] = best[o];
-      pl[s * TE_BM + p] = lab[o];
-    }
-  }
-  {
-    // the inactive slots: -1e30 + Gumbel, two threads a point
-    const int p = tid % TE_BM, h = tid / TE_BM;
-    float b = NEG_INF;
-    int l = 0;
-    if (p < np) {
-      const uint32_t g = (uint32_t)gidx[base + p];
-      for (int j = na + h; j < K; j += 2) {
-        const int k = order[j];
-        const float v = NEG_INF + gumbel(kz0, kz1, g, (uint32_t)__ldg(slots + k));
-        if (v > b) {
-          b = v;
-          l = k;
-        }
-      }
-    }
-    pb[(T::SP + h) * TE_BM + p] = b;
-    pl[(T::SP + h) * TE_BM + p] = l;
-  }
-  __syncthreads();
-  if (tid < np) {
-    float b = NEG_INF;
-    int l = 0;
-#pragma unroll
-    for (int q = 0; q < T::PARTS; ++q) {
-      const float v = pb[q * TE_BM + tid];
-      const int lq = pl[q * TE_BM + tid];
-      if (v > b || (v == b && lq < l)) {
-        b = v;
-        l = lq;
-      }
-    }
-    labels[base + tid] = l;
-  }
+  te_tile<DP, true>(x, n, d, mu, chol, logdet, logw, active, slots, K, gidx,
+                    (uint32_t)key_z[0], (uint32_t)key_z[1], half_d_log2pi,
+                    vec != 0, te_smem, nullptr, nullptr, labels);
 }
 
 // (f) + fold, and step (e) too at DP <= 16 (below the tiled route), one

@@ -26,16 +26,21 @@ Two versions of each function:
 - ``*_cuda``: the hand-written kernels ``csrc/assign_gauss.cu``,
   ``csrc/assign_linear.cu``, ``csrc/sub_assign_gauss.cu`` and
   ``csrc/sub_assign_linear.cu``, whose device code is the one-read sweeps'
-  step (e) and step (f) (``csrc/assign_tile.cuh``); one launch per call,
-  counted in the wrapper's ``launches``;
+  step (e) and step (f) (``csrc/assign_tile.cuh``, ``csrc/te_tile.cuh``);
+  each launch of a call counted in the wrapper's ``launches``;
 - ``*_plain``: steps (e) and (f) of the sweeps' plain versions
   (``kernels/sweep.py``), the same math in plain PyTorch.
 
-``kernels.ops`` picks between them by the tensor's device. Past the
-one-read sweep's d = 128, ``assign_gauss`` (and ``loglik_gauss``) run the
-panel layout, which takes any d: (X - mu_k) F_k as a register-tiled
-product over streamed row slabs, on a grid of point tiles x slot groups
-that ``panel_plan`` chooses from the shape alone. ``sub_assign_gauss``
+``kernels.ops`` picks between them by the tensor's device.
+``assign_gauss`` (and ``loglik_gauss``) run, above d = GAUSS_NARROW_D and
+up to 128, the register tile of the one-read sweep's step (e)
+(``csrc/te_tile.cuh``) on a grid of point tiles x slot groups that
+``gauss_plan`` chooses from the shape alone; at and below it, the narrow
+in-block layout; past d = 128, the panel layout, which takes any d:
+(X - mu_k) F_k as a register-tiled product over streamed row slabs, on a
+grid of point tiles x slot groups that ``panel_plan`` chooses. With
+several slot groups an ``assign_gauss`` call is two launches, the groups'
+rows folded by the second (``assign_gauss_launches``). ``sub_assign_gauss``
 groups the points by label across the batch (three launches a call,
 ``SUB_LAUNCHES``), then stages a label's factors once for a run of its
 points (``sub_plan``: a thread a point at d <= 64, a register-tiled
@@ -51,8 +56,9 @@ import torch
 from repro_torch.kernels import build, prng
 from repro_torch.kernels.launch import check_cuda, launch
 from repro_torch.kernels.suffstats import MAX_D, MAX_DP, MAX_K
-from repro_torch.kernels.sweep import (LOG_2PI, NEG_INF, assign_linear_plain,
-                                       sub_assign_linear_plain)
+from repro_torch.kernels.sweep import (LOG_2PI, NEG_INF, TE_BM,
+                                       assign_linear_plain,
+                                       sub_assign_linear_plain, te_smem)
 from repro_torch.kernels.sweep import MAX_D as WIDE_D
 from repro_torch.kernels.sweep import assign_plain as assign_gauss_plain
 from repro_torch.kernels.sweep import (
@@ -180,6 +186,76 @@ def panel_plan(n: int, d: int, k: int) -> PanelPlan:
     return PanelPlan(bm, tiles, per, -(-k // per), -(-d // PANEL_BN), smem)
 
 
+# The register tile of csrc/te_tile.cuh (assign_gauss and loglik_gauss up
+# to d = 128, the one-read sweep's step (e)), whose launch ``gauss_plan``
+# chooses: 128-point tiles x slot groups, the blocks that fill the card
+# (two an SM of the H100's 132), and the d at and below which the narrow
+# in-block layout (a thread a point, csrc/assign_tile.cuh) runs instead.
+GAUSS_NARROW_D = 16
+TE_BLOCKS = 2 * 132
+
+
+class GaussPlan(NamedTuple):
+    """The launch of ``assign_gauss`` / ``loglik_gauss`` at d <= 128: the
+    narrow in-block layout (``dp`` 0: one group, its shared bytes sized by
+    the launcher) or the register tile at padded width ``dp`` (32, 64 or
+    128) on ``tiles`` x ``groups`` blocks with ``smem`` dynamic shared
+    bytes a block."""
+    dp: int
+    tiles: int    # point tiles, ceil(N / TE_BM)
+    groups: int   # slot groups, each a share of the column tiles
+    smem: int
+
+
+def group_share(total: int, groups: int, g: int) -> range:
+    """Group g's share of ``total`` column tiles (or slots) of the tile,
+    as ``csrc/te_tile.cuh`` cuts them on the card from the live count:
+    [g total // groups, (g + 1) total // groups), each item once."""
+    return range(g * total // groups, (g + 1) * total // groups)
+
+
+@lru_cache(maxsize=256)
+def gauss_plan(n: int, d: int, k: int) -> GaussPlan:
+    """The launch for (n, d <= 128, k), chosen here only, from the shape
+    and not from ``active`` (a host read would sync every sample step).
+    Above GAUSS_NARROW_D: the tile at d rounded up to 32, 64 or 128, whose
+    128-column tiles hold 128 / dp slots; with TE_BLOCKS point tiles or
+    more one group takes every column tile. Else the column tiles of all K
+    slots (the most the live ones can need) are shared among groups: the
+    grid takes about waves x (ceil(tiles / groups) + 1) column tiles' time,
+    waves of TE_BLOCKS blocks, the 1 a block's own work (its x tile, the
+    live count, the inactive slots' draws), and the plan takes the most
+    groups that make that least, so that fewer live slots than K still
+    spread over the card (an 8192-row step, 64 point tiles, of 32 slots at
+    d = 32: 8 column tiles in 4 groups, 256 blocks in one wave). No choice
+    changes a point's bits: the order of every sum is fixed."""
+    if not (1 <= n <= PANEL_MAX and 1 <= d <= WIDE_D
+            and 1 <= k <= PANEL_MAX):
+        raise ValueError(f"gauss_plan: N={n}, d={d}, K={k} outside "
+                         f"[1, {PANEL_MAX}], [1, {WIDE_D}], [1, {PANEL_MAX}]"
+                         " (ints in the kernel)")
+    tiles = -(-n // TE_BM)
+    if d <= GAUSS_NARROW_D:
+        return GaussPlan(0, tiles, 1, 0)
+    dp = next(p for p in (32, 64, 128) if d <= p)
+    nct = -(-k // (128 // dp))
+    best = (-(-tiles // TE_BLOCKS) * (nct + 1), 1)   # (cost, groups)
+    for groups in range(2, min(nct, 65535) + 1) if tiles < TE_BLOCKS \
+            else ():
+        cost = -(-tiles * groups // TE_BLOCKS) * (-(-nct // groups) + 1)
+        if cost <= best[0]:
+            best = (cost, groups)
+    return GaussPlan(dp, tiles, best[1], te_smem(dp, k))
+
+
+def assign_gauss_launches(n: int, d: int, k: int) -> int:
+    """Kernels one ``assign_gauss_cuda`` call launches: the tile or panel
+    of ``gauss_plan`` / ``panel_plan``, then, with several slot groups,
+    the fold of their rows; each is counted in ``launches``."""
+    plan = gauss_plan(n, d, k) if d <= WIDE_D else panel_plan(n, d, k)
+    return 2 if plan.groups > 1 else 1
+
+
 def _check_launch(name, x, width, k, max_width, what, tensors) -> None:
     """Raise on what a kernel does not take: a tensor off the card, a width
     outside [1, ``max_width``], no slots or points, and any of ``tensors``
@@ -213,9 +289,9 @@ def _step_f_rows(n, k, sublogw, labels, gidx, key_zb):
 def assign_gauss_cuda(x, mu, chol_prec, logdet_prec, logw, active, gidx,
                       key_z, slots) -> torch.Tensor:
     """One call of ``csrc/assign_gauss.cu`` on the current stream: the
-    narrow or wide layout for d <= 128, else the panel layout of
-    ``panel_plan`` (and, with several slot groups, its fold of the
-    groups), counted once."""
+    narrow layout or the tile of ``gauss_plan`` for d <= 128, else the
+    panel layout of ``panel_plan``, and with several slot groups the fold
+    of their rows (``assign_gauss_launches``)."""
     n, d = x.shape
     k = mu.shape[0]
     _check_launch("assign_gauss", x, d, k, PANEL_MAX, "d", (
@@ -227,21 +303,22 @@ def assign_gauss_cuda(x, mu, chol_prec, logdet_prec, logw, active, gidx,
             logdet_prec.data_ptr(), logw.data_ptr(), active.data_ptr(),
             slots.data_ptr(), k, gidx.data_ptr(), key_z.data_ptr())
     if d <= WIDE_D:
+        plan = gauss_plan(n, d, k)
         fn = build.c_function("assign_gauss", "assign_gauss_launch",
-                              "piippppppipppp")
-        launch(fn, x.device, *head, labels.data_ptr())
+                              "piippppppipp" + "iiippp")
+        route = (plan.dp, plan.groups, plan.smem)
     else:
         plan = panel_plan(n, d, k)
-        # each group's running max (floats) and argmax (ints), n a group
-        scratch = (torch.empty((2 * plan.groups * n,), device=x.device,
-                               dtype=torch.float32)
-                   if plan.groups > 1 else None)
         fn = build.c_function("assign_gauss", "assign_gauss_panel_launch",
-                              "piippppppippiiiippp")
-        launch(fn, x.device, *head, plan.bm, plan.per, plan.groups,
-               plan.smem, 0 if scratch is None else scratch.data_ptr(),
-               labels.data_ptr())
-    assign_gauss_cuda.launches += 1
+                              "piippppppipp" + "iiiippp")
+        route = (plan.bm, plan.per, plan.groups, plan.smem)
+    # each group's running max (floats) and label (ints), n a group
+    scratch = (torch.empty((2 * plan.groups * n,), device=x.device,
+                           dtype=torch.float32)
+               if plan.groups > 1 else None)
+    launch(fn, x.device, *head, *route,
+           0 if scratch is None else scratch.data_ptr(), labels.data_ptr())
+    assign_gauss_cuda.launches += 2 if plan.groups > 1 else 1
     return labels
 
 

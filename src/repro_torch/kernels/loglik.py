@@ -9,10 +9,11 @@ Port of ``repro.kernels.loglik.loglik`` (the serving query's likelihood):
 Two versions of one function:
 
 - ``loglik_cuda``: the hand-written kernel ``csrc/loglik_gauss.cu`` (the
-  whitening device code of the sweeps' step (e) for d <= 128, the panel
-  layout of ``assign_gauss`` past it, on the grid ``assign.panel_plan``
-  chooses, any d); one launch per call, counted in
-  ``loglik_cuda.launches``;
+  register tile of the one-read sweep's step (e), ``csrc/te_tile.cuh``,
+  up to d = 128 on the grid ``assign.gauss_plan`` chooses, the narrow
+  in-block layout at and below ``assign.GAUSS_NARROW_D``, the panel layout
+  of ``assign_gauss`` past d = 128 on the grid of ``assign.panel_plan``,
+  any d); one launch per call, counted in ``loglik_cuda.launches``;
 - ``loglik_plain``: the same math in plain PyTorch, in the reference's op
   order.
 
@@ -23,7 +24,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.assign import PANEL_MAX, WIDE_D, panel_plan
+from repro_torch.kernels.assign import (PANEL_MAX, WIDE_D, gauss_plan,
+                                        panel_plan)
 from repro_torch.kernels.launch import check_cuda, launch
 
 LOG_2PI = 1.8378770664093453
@@ -58,9 +60,11 @@ def loglik_cuda(x, mu, chol_prec, logdet_prec) -> torch.Tensor:
     head = (x.data_ptr(), n, d, mu.data_ptr(), chol_prec.data_ptr(),
             logdet_prec.data_ptr(), k)
     if d <= WIDE_D:
+        plan = gauss_plan(n, d, k)
         fn = build.c_function("loglik_gauss", "loglik_gauss_launch",
-                              "piipppipp")
-        launch(fn, x.device, *head, out.data_ptr())
+                              "piipppiiiipp")
+        launch(fn, x.device, *head, plan.dp, plan.groups, plan.smem,
+               out.data_ptr())
     else:
         plan = panel_plan(n, d, k)
         fn = build.c_function("loglik_gauss", "loglik_gauss_panel_launch",

@@ -58,18 +58,20 @@ LOG_2PI = 1.8378770664093453
 MAX_D = 128
 MAX_K = 2048
 # Step (e) of ``csrc/sweep_gauss.cu`` as a register-tiled product
-# (``sweep_assign_tiled``, a launch of its own) above d = 16: points a block,
-# threads, ring stages; ``sweep_plan`` holds its layout. The tiled product
-# pads d to at least 32, the in-block step (e) to 4, 8 or 16: at 10^6 points
-# and 17 live slots the sweep takes 0.69 / 1.06 ms in-block against 1.94 /
-# 2.08 tiled at d = 8 / 16, while at d = 32 the in-block step (e) alone
-# (assign_gauss, the same device code) takes 3.14 against the tiled 1.69
-# (PERF.md §6: tools/time_kernels.py --kernels sweep on an H100 80GB HBM3
-# at 700 W).
+# (``sweep_assign_tiled``, a launch of its own, the tile of
+# ``csrc/te_tile.cuh``) above d = 16: points a block, threads, ring
+# stages, and the live slots a block lists at a time; ``sweep_plan`` and
+# ``assign.gauss_plan`` hold its layout. The tiled product pads d to at
+# least 32, the in-block step (e) to 4, 8 or 16: at 10^6 points and 17
+# live slots the sweep takes 0.69 / 1.06 ms in-block against 1.94 / 2.08
+# tiled at d = 8 / 16, while at d = 32 the in-block step (e) alone took
+# 3.14 against the tiled 1.69 (PERF.md §6: tools/time_kernels.py
+# --kernels sweep on an H100 80GB HBM3 at 700 W).
 TE_MIN_D = 17
 TE_BM = 128
 TE_THREADS = 256
 TE_STAGES = 3
+TE_LIST = 2048
 
 SweepOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                  torch.Tensor]
@@ -213,7 +215,7 @@ class SweepPlan(NamedTuple):
 
 def te_layout(dp: int) -> Tuple[int, int, int, int]:
     """(slots a 128-column tile, slot stride of a slab row, rows a slab,
-    floats a ring stage) of ``sweep_assign_tiled<dp>`` (``TiledE``)."""
+    floats a ring stage) of the tile ``te_tile<dp>`` (``TiledE``)."""
     sp = 128 // dp
     fs = 48 if dp == 32 else dp
     bk = 16 if dp == 128 else 32
@@ -221,24 +223,29 @@ def te_layout(dp: int) -> Tuple[int, int, int, int]:
     return sp, fs, bk, stage
 
 
+def te_smem(dp: int, k: int) -> int:
+    """Shared bytes of ``te_tile<dp>`` for ``k`` slots: the tile's x, the
+    ring, the per-point partials, the warp counts (32 ints) and the list
+    of live slots (at most TE_LIST)."""
+    sp, _, _, stage = te_layout(dp)
+    return 4 * (dp * (TE_BM + 4) + TE_STAGES * stage + 2 * (sp + 2) * TE_BM
+                + 32 + min(k, TE_LIST))
+
+
 @lru_cache(maxsize=256)
 def sweep_plan(n: int, d: int, k: int) -> SweepPlan:
     """The sweep's launches for (n, d, k), chosen here only: the launcher
     refuses a route or shared size other than this. Above d = 16 step (e)
-    runs tiled (d rounded up to 32, 64 or 128; its shared memory holds the
-    tile's x, the ring, the per-point partials, the scan's 32 ints and two
-    K-int slot lists); at and below it, in the (f) + fold block. N runs in
-    an int in the kernels."""
+    runs tiled (d rounded up to 32, 64 or 128, one slot group; its shared
+    memory ``te_smem``); at and below it, in the (f) + fold block. N runs
+    in an int in the kernels."""
     if not (1 <= n <= INT_MAX and 1 <= d <= MAX_D and 1 <= k <= MAX_K):
         raise ValueError(f"sweep_gauss: N={n}, d={d}, K={k} outside "
                          f"[1, 2^31), [1, {MAX_D}], [1, {MAX_K}]")
     if d < TE_MIN_D:
         return SweepPlan(0, 0, 0, n_blocks(n))
     dp = 32 if d <= 32 else 64 if d <= 64 else 128
-    sp, _, _, stage = te_layout(dp)
-    smem = 4 * (dp * (TE_BM + 4) + TE_STAGES * stage + 2 * (sp + 2) * TE_BM
-                + 32 + 2 * k)
-    return SweepPlan(dp, -(-n // TE_BM), smem, n_blocks(n))
+    return SweepPlan(dp, -(-n // TE_BM), te_smem(dp, k), n_blocks(n))
 
 
 def sweep_gauss_cuda(x, mu, chol_prec, logdet_prec, logw, active, sub_mu,

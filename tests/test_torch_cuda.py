@@ -406,18 +406,22 @@ def _assign_args(n, d, k, dev, seed=0):
                                    (1100, 129, 5), (700, 200, 6),
                                    (600, 256, 7), (700, 160, 6),
                                    (600, 257, 5), (500, 300, 7),
-                                   (400, 512, 4)])
+                                   (400, 512, 4), (8192, 32, 32),
+                                   (8192, 128, 32), (300, 17, 5),
+                                   (2000, 33, 4097)])
 def test_assign_gauss_kernel_matches_plain(dev, n, d, k):
     a = _assign_args(n, d, k, dev, seed=d)
     before = assign.assign_gauss_cuda.launches
     got = ops.assign_gauss(*a)
     assert torch.equal(got, ops.assign_gauss(*a))
-    assert assign.assign_gauss_cuda.launches == before + 2
+    # a call launches the tile (or panel), then the groups' fold if any
+    assert assign.assign_gauss_cuda.launches == (
+        before + 2 * assign.assign_gauss_launches(n, d, k))
     mism, not_ties = assign.assign_mismatches(
         True, a, got, assign.assign_gauss_plain(*a), rtol=1e-4)
     assert not_ties == 0 and mism <= 1e-3 * n, (mism, not_ties)
     # the sweep's step (e) is the same device code: the same labels
-    if d <= sweep.MAX_D:
+    if d <= sweep.MAX_D and k <= sweep.MAX_K:
         assert torch.equal(got, sweep.sweep_gauss_cuda(*_args(n, d, k, dev,
                                                               seed=d))[0])
 
@@ -447,7 +451,9 @@ def _rel_close(got, want, rtol=1e-5):
                                    (700, 129, 5), (500, 200, 3),
                                    (600, 256, 6), (700, 160, 6),
                                    (600, 257, 5), (500, 300, 7),
-                                   (400, 512, 4)])
+                                   (400, 512, 4), (8192, 32, 32),
+                                   (8192, 128, 32), (300, 17, 5),
+                                   (2000, 33, 4097)])
 def test_loglik_gauss_kernel_matches_plain(dev, n, d, k):
     x, mu, f, ld = _args(n, d, k, dev, seed=d)[:4]
     got = ops.loglik_gauss(x, mu, f, ld)
@@ -479,6 +485,91 @@ def test_panel_rows_do_not_depend_on_the_request(dev):
             a[6][lo:hi].contiguous(),) + a[7:]
         assert torch.equal(assign.assign_gauss_cuda(*part), got[lo:hi])
         assert torch.equal(loglik.loglik_cuda(*part[:4]), ll[lo:hi])
+
+
+def _rows_of_requests(a, got, ll, spans):
+    """Each span's request (rows lo:hi) gives the whole request's labels
+    and log-likelihood rows there, bit for bit."""
+    for lo, hi in spans:
+        part = (a[0][lo:hi].contiguous(),) + a[1:6] + (
+            a[6][lo:hi].contiguous(),) + a[7:]
+        assert torch.equal(assign.assign_gauss_cuda(*part), got[lo:hi])
+        if ll is not None:
+            assert torch.equal(loglik.loglik_cuda(*part[:4]), ll[lo:hi])
+
+
+@pytest.mark.parametrize("d", [17, 32, 128])
+def test_tile_rows_do_not_depend_on_the_request(dev, d):
+    """16 < d <= 128 through the register tile (csrc/te_tile.cuh): a grid
+    of slot groups at 8192 rows (their rows folded by (max, least slot))
+    and at a few hundred, one group at 40,000. Repeat launches give the
+    same bits, labels agree with the plain version but for near-ties, and
+    each row's label and log-likelihoods are those of the same row in any
+    other request."""
+    n, k = 8192, 32
+    a = _assign_args(n, d, k, dev, seed=4)
+    assert assign.gauss_plan(n, d, k).groups > 1
+    assert assign.gauss_plan(300, d, k).groups > assign.gauss_plan(
+        n, d, k).groups
+    got = assign.assign_gauss_cuda(*a)
+    assert torch.equal(got, assign.assign_gauss_cuda(*a))
+    mism, not_ties = assign.assign_mismatches(
+        True, a, got, assign.assign_gauss_plain(*a), rtol=1e-4)
+    assert not_ties == 0 and mism <= 1e-3 * n, (mism, not_ties)
+    ll = loglik.loglik_cuda(*a[:4])
+    assert torch.equal(ll, loglik.loglik_cuda(*a[:4]))
+    _rows_of_requests(a, got, ll, ((0, 1), (5, 305), (1000, 3048),
+                                   (100, 8192)))
+    big = _assign_args(40_000, d, k, dev, seed=5)
+    assert assign.gauss_plan(40_000, d, k).groups == 1
+    _rows_of_requests(big, assign.assign_gauss_cuda(*big),
+                      loglik.loglik_cuda(*big[:4]),
+                      ((0, 300), (20_000, 28_192), (39_000, 40_000)))
+
+
+@pytest.mark.parametrize("n,d", [(5000, 1), (8192, 8), (300, 16)])
+def test_narrow_and_tile_routes_give_the_same_bits(dev, n, d):
+    """At and below the switch (``assign.GAUSS_NARROW_D``) the tile can
+    run too, at d padded to 32 (zero rows and columns add exact zeros):
+    both routes give the same labels and log-likelihood rows, bit for
+    bit, so the switch is a choice of speed alone."""
+    a = _assign_args(n, d, 17, dev, seed=d)
+    assert assign.gauss_plan(n, d, 17).dp == 0
+    want = (assign.assign_gauss_cuda(*a), loglik.loglik_cuda(*a[:4]))
+    keep = assign.GAUSS_NARROW_D
+    assign.GAUSS_NARROW_D = 0
+    assign.gauss_plan.cache_clear()
+    try:
+        assert assign.gauss_plan(n, d, 17).dp == 32
+        got = (assign.assign_gauss_cuda(*a), loglik.loglik_cuda(*a[:4]))
+    finally:
+        assign.GAUSS_NARROW_D = keep
+        assign.gauss_plan.cache_clear()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_tile_lists_many_live_slots_in_chunks(dev):
+    """K = 4097 slots, about 90 % live, at 40,000 rows: one group, whose
+    block lists its live slots TE_LIST at a time (two chunks). Its labels
+    are those of the same rows in small requests (many groups, one chunk
+    each) and agree with the plain version on them."""
+    n, d, k = 40_000, 32, 4097
+    g = torch.Generator().manual_seed(9)
+    a = list(_assign_args(n, d, k, dev, seed=9))
+    a[5] = (torch.rand(k, generator=g) < 0.9).to(torch.int32).to(dev)
+    a = tuple(a)
+    assert int(a[5].sum()) > sweep.TE_LIST
+    assert assign.gauss_plan(n, d, k).groups == 1
+    got = assign.assign_gauss_cuda(*a)
+    spans = ((0, 300), (20_000, 20_700), (39_000, 40_000))
+    _rows_of_requests(a, got, None, spans)
+    for lo, hi in spans:
+        part = (a[0][lo:hi].contiguous(),) + a[1:6] + (
+            a[6][lo:hi].contiguous(),) + a[7:]
+        mism, not_ties = assign.assign_mismatches(
+            True, part, got[lo:hi], assign.assign_gauss_plain(*part),
+            rtol=1e-4)
+        assert not_ties == 0 and mism <= 1e-3 * (hi - lo), (mism, not_ties)
 
 
 @pytest.mark.parametrize("m,k,n", [(8192, 32, 32), (300, 33, 17),
@@ -616,7 +707,12 @@ def test_three_pass_sweep_tile_is_the_one_read_tile_on_the_card(
              "sweep_gauss") if component == "gaussian" else
             ("assign_linear", "sub_assign_linear", "moments_labels",
              "sweep_linear"))
-        assert counts[step_e] == counts[fold] == 1
+        # assign_gauss: the tile, then the fold of its slot groups' rows
+        # when the tile's N makes several (assign_gauss_launches)
+        assert counts[step_e] == (
+            assign.assign_gauss_launches(n, d, k_eff)
+            if component == "gaussian" else 1)
+        assert counts[fold] == 1
         assert counts[step_f] == (assign.SUB_LAUNCHES
                                   if component == "gaussian" else 1)
         assert counts[fused] == 0

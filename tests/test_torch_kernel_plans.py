@@ -12,11 +12,14 @@ choices as given, refusing a tile they do not hold."""
 import numpy as np
 import pytest
 
-from repro_torch.kernels.assign import (PANEL_BK, PANEL_BM, PANEL_BN,
-                                        PANEL_STAGES, SUB_BK, SUB_COLS,
-                                        SUB_LAUNCHES, SUB_NARROW_D,
-                                        SUB_STAGES, SUB_XS,
-                                        panel_plan, sub_col, sub_plan)
+from repro_torch.kernels import assign as assign_mod
+from repro_torch.kernels.assign import (GAUSS_NARROW_D, PANEL_BK, PANEL_BM,
+                                        PANEL_BN, PANEL_STAGES, SUB_BK,
+                                        SUB_COLS, SUB_LAUNCHES, SUB_NARROW_D,
+                                        SUB_STAGES, SUB_XS, TE_BLOCKS,
+                                        assign_gauss_launches, gauss_plan,
+                                        group_share, panel_plan, sub_col,
+                                        sub_plan)
 from repro_torch.kernels.matmul import matmul_bn
 from repro_torch.kernels.suffstats import (DENSE_BN, DENSE_MIN_SLABS,
                                            DENSE_P, DENSE_STAGES, DENSE_TILE,
@@ -29,7 +32,7 @@ from repro_torch.kernels.sweep import MAX_D as SWEEP_MAX_D
 from repro_torch.kernels.sweep import MAX_K as SWEEP_MAX_K
 from repro_torch.kernels.sweep import (LE_BK, LE_BLOCKS, LE_BM, LE_FSTR,
                                        LE_STAGES, LE_THREADS,
-                                       LINEAR_LAUNCHES, TE_BM,
+                                       LINEAR_LAUNCHES, TE_BM, TE_LIST,
                                        TE_MIN_D, TE_STAGES, TE_THREADS,
                                        launches_per_call, linear_plan,
                                        sweep_plan, te_layout)
@@ -224,6 +227,168 @@ def test_stats_plan_refuses_counts_past_an_int():
             stats_plan(n, d, k)
 
 
+GAUSS_PLAN_K = (1, 2, 5, 17, 32, 64, 300, 2049, 4097)
+
+
+@pytest.mark.parametrize("d", [17, 32, 33, 64, 65, 128])
+@pytest.mark.parametrize("n", [1, 256, 300, 8192, 100_003, 1_000_000])
+def test_gauss_plan_gives_every_live_column_tile_one_group(n, d):
+    """Above the narrow switch, ``assign_gauss`` / ``loglik_gauss`` run the
+    register tile on TE_BM-point tiles x slot groups (``gauss_plan``). The
+    card cuts the column tiles of the live slots among the groups from the
+    live count it reads itself, and the slots' inactive draws by slot: for
+    any live count <= K every column tile and every slot has exactly one
+    group. A call launches the tile, and the fold with several groups."""
+    for k in GAUSS_PLAN_K:
+        p = gauss_plan(n, d, k)
+        assert gauss_plan(n, d, k) == p
+        assert p.dp == (32 if d <= 32 else 64 if d <= 64 else 128)
+        sp = 128 // p.dp
+        assert (p.tiles - 1) * TE_BM < n <= p.tiles * TE_BM
+        assert 1 <= p.groups <= min(65535, -(-k // sp))
+        for live in sorted({0, 1, k // 3, k // 2, k - 1, k}):
+            nt = -(-live // sp)
+            got = [t for g in range(p.groups)
+                   for t in group_share(nt, p.groups, g)]
+            assert got == list(range(nt))
+        got = [s for g in range(p.groups) for s in group_share(k, p.groups,
+                                                               g)]
+        assert got == list(range(k))
+        assert assign_gauss_launches(n, d, k) == (2 if p.groups > 1 else 1)
+
+
+@pytest.mark.parametrize("d", [17, 32, 33, 64, 65, 128])
+def test_gauss_plan_fills_the_card_at_the_serving_steps(d):
+    """An 8192-row step has 64 point tiles; its slot groups take the grid
+    to two blocks an SM of the 132 to within one group of point tiles
+    (another group would start a second wave), wherever the column tiles
+    allow. At the fits' states the point tiles fill the card alone: one
+    group, one launch."""
+    for k in (2, 5, 17, 32, 64, 300, 4097):
+        p = gauss_plan(8192, d, k)
+        nct = -(-k // (128 // p.dp))
+        assert (p.tiles * p.groups > TE_BLOCKS - p.tiles
+                or p.groups == nct), (k, p)
+        assert p.tiles * p.groups <= TE_BLOCKS or p.groups <= nct
+    for n, dd, k in ((1_000_000, 32, 64), (200_000, 128, 32),
+                     (100_003, 33, 64), (33_792, 17, 4097)):
+        assert gauss_plan(n, dd, k).groups == 1
+        assert assign_gauss_launches(n, dd, k) == 1
+
+
+def test_gauss_plan_shared_memory_fits_a_hopper_block():
+    """The tile's shared bytes (x tile, ring, partials, warp counts, a list
+    of at most TE_LIST live slots) stop growing at K = TE_LIST and fit two
+    blocks an SM for every K the route takes."""
+    for dp, d in ((32, 17), (64, 64), (128, 128)):
+        sp, _, _, stage = te_layout(dp)
+        fixed = 4 * (dp * (TE_BM + 4) + TE_STAGES * stage
+                     + 2 * (sp + 2) * TE_BM + 32)
+        for k in (1, 64, TE_LIST, TE_LIST + 1, 4097, 2 ** 31 - 1):
+            p = gauss_plan(1, d, k)
+            assert p.smem == fixed + 4 * min(k, TE_LIST)
+            assert p.smem <= SMEM_LIMIT
+            assert 2 * (p.smem + 1024) <= 228 * 1024
+
+
+def test_gauss_plan_refuses_counts_past_an_int():
+    gauss_plan(2 ** 31 - 1, 128, 2 ** 31 - 1)
+    for n, d, k in ((2 ** 31, 32, 4), (0, 32, 4), (10, 0, 4),
+                    (10, 129, 4), (10, 32, 0), (10, 32, 2 ** 31)):
+        with pytest.raises(ValueError, match="ints in the kernel"):
+            gauss_plan(n, d, k)
+
+
+@pytest.mark.parametrize("switch", [GAUSS_NARROW_D, 0])
+def test_gauss_plan_narrow_switch_both_sides(monkeypatch, switch):
+    """At and below GAUSS_NARROW_D the narrow in-block layout (dp 0, one
+    group, shared bytes sized by the launcher, one launch); above it the
+    tile at d padded to 32. With the switch at 0 (the tile at every d, as
+    the timing tool forces it) d = 1 takes the tile too."""
+    monkeypatch.setattr(assign_mod, "GAUSS_NARROW_D", switch)
+    gauss_plan.cache_clear()
+    try:
+        for n in (1, 8192, 1_000_000):
+            for k in (1, 32, 4097):
+                for d in range(1, 18):
+                    p = gauss_plan(n, d, k)
+                    if d <= switch:
+                        assert p == (0, -(-n // TE_BM), 1, 0)
+                        assert assign_gauss_launches(n, d, k) == 1
+                    else:
+                        assert p.dp == 32 and p.smem > 0
+    finally:
+        gauss_plan.cache_clear()
+
+
+def _group_fold_labels(t, active, sp, groups):
+    """The labels csrc/te_tile.cuh and fold_groups draw from logits t
+    (N x K float32; an inactive slot's -1e30 or +inf): per group, each of
+    the SP slot columns of its column tiles keeps a strict-`>` running max
+    over its live slots in order from (-1e30, slot 0), two threads walk the
+    group's share of the inactive slots (by parity), the block merges
+    those partials by (max, least slot), and the fold merges the groups'
+    rows the same way."""
+    n, k = t.shape
+    neg = np.float32(-1e30)
+    live = [j for j in range(k) if active[j]]
+    nt = -(-len(live) // sp)
+
+    def walk(slots):
+        b = np.full(n, neg, np.float32)
+        lab = np.zeros(n, np.int64)
+        for kk in slots:
+            up = t[:, kk] > b
+            b, lab = np.where(up, t[:, kk], b), np.where(up, kk, lab)
+        return b, lab
+
+    def merge(parts):
+        b = np.full(n, neg, np.float32)
+        lab = np.zeros(n, np.int64)
+        for v, lv in parts:
+            up = (v > b) | ((v == b) & (lv < lab))
+            b, lab = np.where(up, v, b), np.where(up, lv, lab)
+        return b, lab
+
+    rows = []
+    for g in range(groups):
+        tiles = group_share(nt, groups, g)
+        parts = [walk([live[tl * sp + s] for tl in tiles
+                       if tl * sp + s < len(live)]) for s in range(sp)]
+        share = group_share(k, groups, g)
+        parts += [walk([kk for kk in share[h::2] if not active[kk]])
+                  for h in (0, 1)]
+        rows.append(merge(parts))
+    return merge(rows)[1]
+
+
+@pytest.mark.parametrize("sp", [1, 2, 4])
+@pytest.mark.parametrize("groups", [1, 2, 3, 5, 8])
+def test_group_fold_is_the_first_argmax_in_slot_order(sp, groups):
+    """The tile walks the live slots first and the inactive ones after,
+    which is not slot order, so its partials and the groups' rows merge by
+    (max, least slot): the first argmax over all slots in order, as one
+    walk gives. Ties at -1e30 (inactive slots) go to the least slot, ties
+    of live logits too, and a +inf top-bin draw wins (the first of two)."""
+    rng = np.random.default_rng(sp * 10 + groups)
+    n = 400
+    for k in (1, 2, 5, 17, 33):
+        for share in (0.0, 0.3, 0.7, 1.0):
+            active = rng.random(k) < share
+            t = rng.normal(size=(n, k)).astype(np.float32) * 3
+            # exact ties between live slots
+            t[:, k // 2] = t[:, 0] if k > 2 else t[:, k // 2]
+            t[:, ~active] = np.float32(-1e30)
+            inactive = np.flatnonzero(~active)
+            if inactive.size:
+                hit = rng.random((n, inactive.size)) < 0.02
+                t[:, inactive] = np.where(hit, np.float32(np.inf),
+                                          t[:, inactive])
+            want = np.argmax(t, axis=1)
+            got = _group_fold_labels(t, active, sp, groups)
+            assert np.array_equal(got, want), (k, share)
+
+
 def _te_threads(dp):
     """(tx, ty, slot s, place u) of each thread of sweep_assign_tiled<dp>."""
     tps = dp // 8
@@ -279,9 +444,9 @@ def test_sweep_plan_tile_covers_every_point_slot_and_column(dp):
 def test_sweep_plan_routes_and_shared_memory():
     """d <= 16 keeps step (e) in the (f) + fold block (one launch a call);
     above, the tiled launch (two a call) covers every point with TE_BM-point blocks, and its shared
-    bytes (the x tile, the ring, the partials, two K-int lists) fit a
-    Hopper block for every d and K the wrapper takes, two blocks an SM at
-    the fits' K <= 64."""
+    bytes (the x tile, the ring, the partials, the warp counts and a list
+    of at most TE_LIST live slots) fit a Hopper block for every d and K
+    the wrapper takes, two blocks an SM."""
     for d in range(1, SWEEP_MAX_D + 1):
         for k in (1, 2, 17, 64, 300, SWEEP_MAX_K):
             for n in (1, 127, 128, 129, 4097, 1_000_000):
@@ -297,10 +462,10 @@ def test_sweep_plan_routes_and_shared_memory():
                 sp, fs, bk, stage = te_layout(p.dp)
                 assert stage % 4 == 0 and stage >= bk * sp * fs + sp * (bk + 1)
                 assert p.smem_e == 4 * (p.dp * (TE_BM + 4) + TE_STAGES * stage
-                                        + 2 * (sp + 2) * TE_BM + 32 + 2 * k)
+                                        + 2 * (sp + 2) * TE_BM + 32
+                                        + min(k, TE_LIST))
                 assert p.smem_e <= SMEM_LIMIT
-                if k <= 64:
-                    assert 2 * (p.smem_e + 1024) <= 228 * 1024
+                assert 2 * (p.smem_e + 1024) <= 228 * 1024
 
 
 def test_sweep_plan_refuses_counts_past_an_int():

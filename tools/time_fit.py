@@ -2,7 +2,7 @@
 
     python3 tools/time_fit.py [--src PATH/TO/src] [--tile-size ROWS]
         [--fits gaussian,multinomial,gaussian_d128,gaussian_d256,
-                gaussian_d128_three_pass]
+                gaussian_d128_three_pass] [--serve]
 
 Fits, with the ``repro_torch`` package under ``--src`` (default: this
 checkout's ``src``), the smoke run's Gaussian (10^6 x 32) and multinomial
@@ -16,7 +16,12 @@ sweep (``gibbs.sweep_tile`` with ``fused=False``: ``assign_gauss``,
 log_every=10)``, seed 0, each ``--repeats`` times in one process (the
 first also builds the kernels and warms up), on the card. Prints one JSON
 line per fit: the steady ms per iteration (the chunks after the first),
-K, and the card's name and power limit. ``--tile-size`` fits through the
+K, and the card's name and power limit. ``--serve`` also serves each
+fitted Gaussian model (``DPMMEngine`` from its checkpoint, the default
+ladder) and gives the host-clock p50 / p99 of SERVE_REQUESTS requests of
+SERVE_B rows of the fit's points, answered (``query``: ``loglik_gauss``)
+and answered with a posterior draw (``sample=True``: ``assign_gauss``
+too), after SERVE_WARM warm-up requests. ``--tile-size`` fits through the
 tiled plane, from a ``HostTiledSource`` over the points in host memory
 (a checkout that has it). To compare two versions, run it on both
 checkouts on one card, in turns (old, new, new, old).
@@ -25,6 +30,8 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -38,6 +45,32 @@ FITS = {"gaussian": ("gaussian", "generate_gmm", 32, None, True),
         "gaussian_d128_three_pass": ("gaussian", "generate_gmm", 128,
                                      200_000, False)}
 
+# --serve: rows a request (the default ladder's largest step), requests
+# timed, and warm-up requests before them
+SERVE_B, SERVE_REQUESTS, SERVE_WARM = 8192, 50, 10
+
+
+def serve_times(res, comp: str, x) -> dict:
+    """p50 / p99 host ms of SERVE_B-row requests to an engine built from
+    ``res``'s checkpoint, answered without and with a posterior draw."""
+    from repro_torch.core import checkpoint
+    from repro_torch.serve.dpmm import DPMMEngine
+    with tempfile.TemporaryDirectory() as tmp:
+        eng = DPMMEngine.from_checkpoint(checkpoint.save_model(
+            str(Path(tmp) / "model.npz"), res.state, comp))
+    out = {}
+    for name, sample in (("query", False), ("query_sample", True)):
+        times = []
+        for i in range(SERVE_WARM + SERVE_REQUESTS):
+            s = (i * 997) % (x.shape[0] - SERVE_B + 1)
+            t0 = time.perf_counter()
+            eng.query(x[s:s + SERVE_B], sample=sample)
+            times.append(time.perf_counter() - t0)
+        times = np.array(times[SERVE_WARM:]) * 1e3
+        out[name] = {"p50_ms": float(np.percentile(times, 50)),
+                     "p99_ms": float(np.percentile(times, 99))}
+    return out
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -46,6 +79,9 @@ def main() -> None:
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--repeats", type=int, default=2)
     ap.add_argument("--tile-size", type=int, default=None)
+    ap.add_argument("--serve", action="store_true",
+                    help="also time SERVE_B-row requests to each fitted "
+                    "Gaussian model")
     ap.add_argument("--fits", default="gaussian,multinomial",
                     help="comma-separated of " + ", ".join(FITS))
     opts = ap.parse_args()
@@ -77,13 +113,15 @@ def main() -> None:
             src = HostTiledSource(x)
         for rep in range(opts.repeats):
             res = DPMM(cfg).fit(src)
+            served = ({"serve": serve_times(res, comp, x)}
+                      if opts.serve and comp == "gaussian" else {})
             print(json.dumps({
                 "src": opts.src, "fit": name, "component": comp, "n": n,
                 "d": d, "tile_size": opts.tile_size, "repeat": rep,
                 "k": res.k,
                 "nmi": res.nmi(y), "steady_ms_per_iter": 1e3 * float(
                     np.mean(res.iter_times_s[cfg.log_every:])),
-                "nvidia_smi": smi}), flush=True)
+                **served, "nvidia_smi": smi}), flush=True)
 
 
 if __name__ == "__main__":

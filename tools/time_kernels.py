@@ -1,5 +1,5 @@
 """Time the dense ``suffstats`` kernel, the ``matmul`` kernel, the
-Gaussian ``assign_gauss`` and ``loglik`` kernels past d = 128,
+Gaussian ``assign_gauss`` and ``loglik`` kernels,
 ``suffstats_labels``, ``sweep_gauss``, ``sub_assign_gauss`` and
 ``sweep_linear`` of one or two checkouts, in turns on one card, and
 compare the two checkouts' bits.
@@ -19,12 +19,16 @@ checkout's ``build/``) and times them:
   ``resp.T @ x``, the einsum; TF32 off) and the bound;
 - ``matmul_cuda`` at the serving products (8192 and 256 rows, K = 32 and
   128, N = 16 slots) beside ``torch.matmul``;
-- ``assign_gauss_cuda`` and ``loglik_cuda`` at the d = 256 fit's state
-  (4e5 x 256, a 32-slot slab with 16 live slots; loglik over all 32),
-  at a d = 256 serving step of 8192 and of 256 rows (K = 32), at an odd
-  width (4e5 x 160) and at d = 512 and d = 1000 (8192 rows, K = 8), each
-  beside its plain version and the bound of its work. A case a checkout's
-  wrapper refuses (d > 256 before the panel redesign) is recorded as
+- ``assign_gauss_cuda`` and ``loglik_cuda`` (``gauss``) at the cases of
+  ``GAUSS_CASES``: past d = 128 the d = 256 fit's state (4e5 x 256, a
+  32-slot slab with 16 live slots; loglik over all 32), a d = 256 serving
+  step of 8192 and of 256 rows, an odd width (4e5 x 160) and d = 512 and
+  1000 (8192 rows, K = 8); at d <= 128 the serving steps (8192 rows, 32
+  slots, 17 live) at d = 32 and 128, a 256-row step, the three-pass fits'
+  states, a ragged N at an odd width and d = 8 and 16 at 8192 and 10^6
+  rows, where a checkout with a d <= 16 switch (``assign.GAUSS_NARROW_D``)
+  is timed on both of its routes; each beside its plain version and the
+  bound of its work. A case a checkout's wrapper refuses is recorded as
   refused with the wrapper's message;
 - ``suffstats_labels_cuda`` (``stats``) at the Gaussian fits' final states
   (10^6 x 32 over 64 slots, 17 live; 2e5 x 128 over 64, 16 live; 4e5 x
@@ -61,6 +65,9 @@ checkout's ``build/``) and times them:
   over the sweep's segments).
 
 ``--kernels`` picks the groups to time (default: all seven).
+``--bits-out FILE`` keeps the first checkout's bits, and a later run's
+``--bits-against FILE`` compares each of its checkouts with them (the
+summary's ``bitwise_against``).
 
 Every time is given two ways, with ``chip_smoke.py``'s timers: the median
 single-call time (``cuda_ms``: what one caller sees, host time included)
@@ -83,12 +90,19 @@ and all labels distinct. The ``linear`` group's: d' in {1, 3, 4, 127, 128,
 129, 1000, 20000}, K in {1, 2, 17, 64, 300, 2048}, N in {1, 1023, 1025,
 11314}, the three block edge cases and a misaligned feature view (the
 scalar path), each beside the count of its inactive slots' draws in the
-Threefry top bin. Prints one JSON line per turn and a summary line
+Threefry top bin. The ``gauss`` group's grid keeps both kernels' outputs
+(labels, log-likelihood rows) at d in {1, 4, 16, 17, 31, 32, 33, 64, 65,
+127, 128}, K in {1, 2, 5, 17, 32, 64, 300, 2049, 4097}, N in {1, 127,
+128, 129, 4097, 8192}, with no slot active, one active, an inactive slot
+whose draw lies in the top bin, 4097 slots 90 % live at N = 40,000, and
+five shapes past d = 128 (the panel layout).
+Prints one JSON line per turn and a summary line
 (medians by checkout), and with ``--out`` writes all of it to that
 file.
 """
 import argparse
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -111,13 +125,41 @@ DENSE_CASES = (("fit_d32_one_hot", 1_000_000, 32, 32, "one_hot"),
 # the multinomial x W^T at d' = 128) at the ladder's top and bottom step
 MATMUL_CASES = ((8192, 32, 16), (8192, 128, 16), (256, 32, 16),
                 (256, 128, 16))
-# (name, N, d, K): assign_gauss (K // 2 live slots) and loglik (all K)
-GAUSS_CASES = (("fit_d256", 400_000, 256, 32),
-               ("serve_d256_8192", 8192, 256, 32),
-               ("serve_d256_256", 256, 256, 32),
-               ("fit_d160", 400_000, 160, 32),
-               ("d512", 8192, 512, 8),
-               ("d1000", 8192, 1000, 8))
+# (name, N, d, K, live): assign_gauss (``live`` slots active) and loglik
+# (all K). Past d = 128: the d = 256 fit's state, serving steps, an odd
+# width, d = 512 and 1000. At d <= 128: chip_smoke.py's serving steps
+# (8192 rows, 32 slots, 17 live) at d = 32 and 128, a 256-row step, the
+# three-pass fits' states (10^6 x 32, 64 slots, 17 live; 2e5 x 128, 32
+# slots, 16 live), a ragged N at an odd width, and d = 8 and 16 at 8192
+# and 10^6 rows, where both routes of the d <= 16 switch are timed.
+GAUSS_CASES = (("fit_d256", 400_000, 256, 32, 16),
+               ("serve_d256_8192", 8192, 256, 32, 16),
+               ("serve_d256_256", 256, 256, 32, 16),
+               ("fit_d160", 400_000, 160, 32, 16),
+               ("d512", 8192, 512, 8, 4),
+               ("d1000", 8192, 1000, 8, 4),
+               ("serve_d32_8192", 8192, 32, 32, 17),
+               ("serve_d128_8192", 8192, 128, 32, 17),
+               ("serve_d32_256", 256, 32, 32, 17),
+               ("fit_d32", 1_000_000, 32, 64, 17),
+               ("fit_d128", 200_000, 128, 32, 16),
+               ("ragged", 100_003, 33, 64, 17),
+               ("serve_d8_8192", 8192, 8, 32, 17),
+               ("serve_d16_8192", 8192, 16, 32, 17),
+               ("d8", 1_000_000, 8, 64, 17),
+               ("d16", 1_000_000, 16, 64, 17))
+# the bits grid of assign_gauss and loglik at d <= 128, and its edge cases
+# (N = 4097, 17 slots): no slot active, one active, an inactive slot whose
+# draw lies in the Threefry top bin (+inf); and many live slots (90 % of
+# 4097) at N = 40,000, where a block lists its live slots in chunks
+BITS_GAUSS_D = (1, 4, 16, 17, 31, 32, 33, 64, 65, 127, 128)
+BITS_GAUSS_K = (1, 2, 5, 17, 32, 64, 300, 2049, 4097)
+BITS_GAUSS_N = (1, 127, 128, 129, 4097, 8192)
+GAUSS_KINDS = ("inactive", "one_active", "top_bin")
+GAUSS_MANY = ((40_000, 32, 4097), (40_000, 128, 4097))
+# and past d = 128 (the panel layout; several slot groups at 8192 rows)
+GAUSS_PANEL = ((1, 129, 5), (8192, 129, 32), (8192, 300, 17),
+               (300, 300, 5), (4097, 257, 300))
 # (name, N, d, K slots, live slots): suffstats_labels at the Gaussian
 # fits' split/merge folds and a ragged N at an odd width
 STATS_CASES = (("fit_d32", 1_000_000, 32, 64, 17),
@@ -186,9 +228,9 @@ def timed(fn, runs: int, cuda_ms, run_ms) -> dict:
             "host_ms": host}
 
 
-def gauss_operands(n, d, k, dev, g):
+def gauss_operands(n, d, k, live, dev, g):
     """``assign_gauss`` operands on the card: x and means of scale 3,
-    factors I + 0.2 N(0, 1) / sqrt(d), the first k // 2 slots live,
+    factors I + 0.2 N(0, 1) / sqrt(d), the first ``live`` slots active,
     dense-slot counters of a slab twice as wide."""
     x = torch.randn(n, d, device=dev, generator=g) * 3
     mu = torch.randn(k, d, device=dev, generator=g) * 3
@@ -196,7 +238,7 @@ def gauss_operands(n, d, k, dev, g):
          + torch.eye(d, device=dev))
     ld = torch.randn(k, device=dev, generator=g)
     lw = torch.log_softmax(torch.randn(k, device=dev, generator=g), 0)
-    act = (torch.arange(k, device=dev) < k // 2).to(torch.int32)
+    act = (torch.arange(k, device=dev) < live).to(torch.int32)
     gidx = torch.arange(n, device=dev, dtype=torch.int64)
     kz = torch.tensor([5, 4_000_000_000], device=dev)
     slots = torch.randperm(2 * k, device=dev, generator=g)[:k].to(
@@ -204,11 +246,37 @@ def gauss_operands(n, d, k, dev, g):
     return x, mu, f, ld, lw, act, gidx, kz, slots
 
 
+def gauss_routes(assign, d) -> dict:
+    """The routes of ``assign_gauss`` / ``loglik`` to time at width d:
+    the checkout's own plan ("kernel") and, at or below the d <= 16 switch
+    of a checkout that has one (``assign.GAUSS_NARROW_D``), each side of
+    it forced: the narrow in-block layout and the register tile."""
+    if d > 16 or not hasattr(assign, "GAUSS_NARROW_D"):
+        return {"kernel": None}
+    return {"kernel": None, "kernel_narrow": 16, "kernel_tiled": 0}
+
+
+def forced(assign, switch, fn):
+    """``fn`` with ``assign.GAUSS_NARROW_D`` set to ``switch`` (None: as
+    the checkout has it), the plan's cache cleared around it."""
+    def run():
+        if switch is None:
+            return fn()
+        keep = assign.GAUSS_NARROW_D
+        assign.GAUSS_NARROW_D = switch
+        assign.gauss_plan.cache_clear()
+        try:
+            return fn()
+        finally:
+            assign.GAUSS_NARROW_D = keep
+            assign.gauss_plan.cache_clear()
+    return run
+
+
 def time_gauss(assign, loglik, bound, cuda_ms, run_ms, dev, g) -> dict:
     out = {}
-    for name, n, d, k in GAUSS_CASES:
-        a = gauss_operands(n, d, k, dev, g)
-        live = k // 2
+    for name, n, d, k, live in GAUSS_CASES:
+        a = gauss_operands(n, d, k, live, dev, g)
         runs = 10 if n * d * d > 10 ** 10 else 50
         r = {"n": n, "d": d, "k": k, "k_live": live}
         for kern, cuda, plain, work in (
@@ -222,18 +290,86 @@ def time_gauss(assign, loglik, bound, cuda_ms, run_ms, dev, g) -> dict:
                   4 * (n * d + k * (d * d + d + 1) + n * k)))):
             t = {}
             t["bound_ms"], t["bound_by"] = bound(*work)
-            try:
-                cuda()
-            except ValueError as e:
-                t["refused"] = str(e)
-            else:
-                t["kernel"] = timed(cuda, runs, cuda_ms, run_ms)
+            for route, switch in gauss_routes(assign, d).items():
+                fn = forced(assign, switch, cuda)
+                try:
+                    fn()
+                except ValueError as e:
+                    t["refused"] = str(e)
+                else:
+                    t[route] = timed(fn, runs, cuda_ms, run_ms)
             t["plain"] = timed(plain, 3, cuda_ms, run_ms)
             r[kern] = t
         out[name] = r
         del a
         torch.cuda.empty_cache()
     return out
+
+
+def top_bin_slot(kz, gidx, lo: int) -> tuple:
+    """(point, slot id >= lo) whose Threefry draw under key ``kz`` lies in
+    the top bin (a +inf Gumbel), the least such slot id found, searched
+    in chunks of 4096 ids over the points' counters ``gidx``."""
+    from repro_torch.kernels import prng
+    for c0 in range(lo, lo + 64 * 4096, 4096):
+        c = torch.arange(c0, c0 + 4096, device=gidx.device)
+        bits, _ = prng.threefry2x32(kz[0], kz[1], gidx[:, None], c[None, :])
+        hit = torch.nonzero(bits >= 0xFFFFFF00)
+        if hit.numel():
+            p, j = (int(v) for v in hit[0])
+            return p, c0 + j
+    raise RuntimeError("no top-bin draw found")
+
+
+def grid_gauss_args(n, d, k, dev, seed, kind="grid"):
+    """Seeded ``assign_gauss`` operands of the bits grid (made with a
+    generator on the card, so both checkouts get the same; ``loglik``
+    takes the first four): about 60 % of the slots live; ``kind``
+    "inactive": none live; "one_active": slot k // 2 alone; "top_bin":
+    the first inactive slot gets a slot id whose draw for some point lies
+    in the Threefry top bin; "many": 90 % live."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, d, device=dev, generator=g) * 3
+    mu = torch.randn(k, d, device=dev, generator=g) * 3
+    f = (torch.randn(k, d, d, device=dev, generator=g) * 0.2
+         + torch.eye(d, device=dev))
+    ld = torch.randn(k, device=dev, generator=g)
+    lw = torch.log_softmax(torch.randn(k, device=dev, generator=g), 0)
+    u = torch.rand(k, device=dev, generator=g)
+    act = (u < (0.9 if kind == "many" else 0.6)).to(torch.int32)
+    act[0] = 1
+    gidx = torch.arange(n, device=dev, dtype=torch.int64) + 7
+    kz = torch.randint(0, 1 << 32, (2,), device=dev, generator=g,
+                       dtype=torch.int64)
+    slots = torch.randperm(2 * k, device=dev, generator=g)[:k].to(
+        torch.int32)
+    if kind == "inactive":
+        act.zero_()
+    elif kind == "one_active":
+        act.zero_()
+        act[k // 2] = 1
+    elif kind == "top_bin":
+        act[1] = 0
+        _, sid = top_bin_slot(kz, gidx, 2 * k)
+        slots[1] = sid
+    return (x, mu, f, ld, lw, act, gidx, kz, slots)
+
+
+def gauss_bits_cases():
+    """(name, n, d, k, kind) of the assign_gauss / loglik bits grid."""
+    yield from bits_cases(BITS_GAUSS_D, BITS_GAUSS_K, BITS_GAUSS_N,
+                          GAUSS_KINDS)
+    for n, d, k in GAUSS_MANY:
+        yield f"many_{n}x{d}x{k}", n, d, k, "many"
+    for n, d, k in GAUSS_PANEL:
+        yield f"panel_{n}x{d}x{k}", n, d, k, "grid"
+
+
+def gauss_bits(assign, loglik):
+    """Both kernels' outputs on the bits grid's operands: the labels,
+    then the log-likelihood rows."""
+    return lambda *a: (assign.assign_gauss_cuda(*a),
+                       loglik.loglik_cuda(*a[:4]))
 
 
 def kernel_split(fn, runs: int) -> dict:
@@ -693,8 +829,11 @@ def worker(src: str, save: str, groups) -> dict:
                               "misaligned")),
                   grid_linear_args, bits["linear"], note=top_bin_draws)
     if "gauss" in groups:
+        bits["gauss"] = {}
         out["gauss"] = time_gauss(assign, loglik, bound, cuda_ms, run_ms,
                                   dev, g)
+        bits_grid(gauss_bits(assign, loglik), gauss_bits_cases(),
+                  grid_gauss_args, bits["gauss"])
     for name, n, d, k, kind in DENSE_CASES if "dense" in groups else ():
         x = torch.randn(n, d, device=dev, generator=g) * 3
         if kind == "one_hot":
@@ -806,7 +945,8 @@ def summary(trees, results) -> dict:
             s["gauss"][name] = {}
             for kern in ("assign_gauss", "loglik"):
                 row = {"bound_ms": case[kern]["bound_ms"]}
-                for route in ("kernel", "plain"):
+                for route in ("kernel", "kernel_narrow", "kernel_tiled",
+                              "plain"):
                     if route in case[kern]:
                         for key in ("single_ms", "device_ms", "host_ms"):
                             row[f"{route}_{key}"] = median_of(
@@ -841,6 +981,11 @@ def main() -> None:
     ap.add_argument("--kernels", default=",".join(KERNEL_GROUPS),
                     help="comma-separated groups of " + ", ".join(
                         KERNEL_GROUPS))
+    ap.add_argument("--bits-out", default="",
+                    help="save the first checkout's bits to this file")
+    ap.add_argument("--bits-against", default="",
+                    help="compare each checkout's bits with a file that "
+                    "--bits-out wrote")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--save", default="", help=argparse.SUPPRESS)
     opts = ap.parse_args()
@@ -880,6 +1025,13 @@ def main() -> None:
         if len(trees) == 2:
             a, b = (torch.load(saved[t]) for t in trees)
             report["bitwise"] = bits_report(a, b)
+        if opts.bits_out:
+            Path(opts.bits_out).parent.mkdir(parents=True, exist_ok=True)
+            shutil.copy(saved[trees[0]], opts.bits_out)
+        if opts.bits_against:
+            ref = torch.load(opts.bits_against)
+            report["bitwise_against"] = {
+                t: bits_report(ref, torch.load(saved[t])) for t in trees}
     if opts.out:
         Path(opts.out).parent.mkdir(parents=True, exist_ok=True)
         Path(opts.out).write_text(json.dumps({"turns": results, **report},
