@@ -47,9 +47,21 @@ to the same rows of the whole), is held against an engine on the kernels'
 plain versions on the same card, must reach NMI >= 0.9 for ``predict``,
 swaps to a redrawn model, and reports latency by request size
 (``serve_<family>``, ``serve_gaussian_d256``). A d = 384 Gaussian model
-built from labelled points of its mixture (no fit: a fit past d = 256
-needs suffstats_labels there) is served the same way
-(``serve_gaussian_wide``). ``kernel_times`` also
+built from labelled points of its mixture is served the same way
+(``serve_gaussian_wide``). Fits past the one-read sweep's slots and past
+d = 256: ``fit_k_large`` fits 100,000 x 16 points with ``k_max=4096,
+compact=False`` (every sweep on the 4096-slot slab, past the one-read
+kernels' 2048 slots: ``sweep_ref``) and with ``k_max=10000`` (its init
+folds past one slot window's 8192: two windows); ``fit_gaussian_wide``
+fits 400,000 x 384 points (8 true clusters; ``sweep_ref``, its label
+folds in stat windows of at most 1 GiB of partials), each to NMI >= 0.9
+with ms/iter and peak device bytes. ``kernel_check_windows`` holds
+``suffstats_labels``, ``moments_labels``, ``sub_assign_gauss`` and the
+dense oracle against their plain versions past one slot window (K = 8193
+and 16,384: a launch a window), past d = 256 (d = 300 and 384: the
+Gram tiles, the sub-factors' column panels, the dense panel tile) and at
+``fit_k_large``'s shapes (a stat window of 50,176 x 16 points over
+10,000 slots; 100,000 x 16 over the 4096-slot slab). ``kernel_times`` also
 times the serving kernels at one step. ``kernel_check_three_pass`` holds
 ``sub_assign_gauss`` (at the d = 32 fit's final state) and
 ``sub_assign_linear`` (at the multinomial and diagonal-Gaussian fits'
@@ -65,9 +77,11 @@ ladder of sizes and at the serving products (8192 and 256 rows, K = 32
 and 128, 16 slots).
 
 Every stat fold of every fit runs through ``fold_partials`` (the per-block
-partials added to the running accumulator left to right); ``fold_check``
-holds it bitwise against the plain loop of adds at the d = 32 fit's final
-state. The tiled (out-of-core) plane: ``fit_tiled`` fits the ``fit``
+partials of every field added to the running accumulator left to right,
+all the fields of a fold in one launch); ``fold_check`` holds it bitwise
+against the plain loop of adds at the d = 32 fit's final state and times
+the one launch beside the three one-field launches a fold took before and
+the bound. The tiled (out-of-core) plane: ``fit_tiled`` fits the ``fit``
 phase's data and seed from a .npy file through ``HostTiledSource.from_npy``
 in 65,536-row tiles, and must give the resident fit's labels, K/score
 history and stats bit for bit; ``fit_tiled_multinomial`` does the same
@@ -188,10 +202,29 @@ DENSE_REF_SHAPES = ((2_000, 16, 16), (10_000, 32, 32))
 DENSE_D256_N = 100_000
 # Past d = 256 (the panel layout of assign_gauss / loglik_gauss): the
 # widths held against the plain versions at one serving step, and a served
-# d = 384 model built from labelled points of its mixture (no fit: a fit
-# past d = 256 needs suffstats_labels there, ROADMAP.md §3).
+# d = 384 model built from labelled points of its mixture (fit_gaussian_wide
+# fits one).
 WIDE_CHECK_DS = (300, 512)
 WIDE_SERVE_D, WIDE_SERVE_FIT_N, WIDE_SERVE_K_MAX = 384, 40_000, 32
+# The Gaussian fit past d = 256 (every sweep through sweep_ref, whose
+# stat and step-(f) kernels take any d): d = 384, 8 true clusters of 50,000
+# points on average (tools/split_evidence.py: the NIW evidence splits all
+# 28 pairs at 400,000 points; at 16 clusters of 25,000 it merges 38 of 120).
+WIDE_FIT_N, WIDE_FIT_D, WIDE_FIT_K = 400_000, 384, 8
+# Fits past the one-read sweep's 2048 slots and one stat window's 8192, at
+# a small N and d: a 4096-slot dense slab (compact off: every sweep through
+# sweep_ref), and k_max = 10,000 (its init folds run two slot windows).
+K_LARGE_N, K_LARGE_D = 100_000, 16
+K_LARGE_FITS = (("k4096_dense", dict(k_max=4096, compact=False)),
+                ("k10000", dict(k_max=10_000)))
+# The stat and step-(f) kernels past one slot window and past d = 256
+# against their plain versions: (name, N, d, K). The last two are
+# fit_k_large's shapes: one stat window of its k_max = 10,000 init fold
+# (49 STATS_BLOCKs at d = 16) and its 4096-slot dense slab.
+WINDOW_CASES = (("k8193", 20_000, 3, 8193), ("k16384", 20_000, 3, 16_384),
+                ("d300", 20_000, 300, 5), ("d384", 20_000, 384, 5),
+                ("fold_k10000", 50_176, K_LARGE_D, 10_000),
+                ("slab_k4096", K_LARGE_N, K_LARGE_D, 4096))
 
 
 def emit(phase: str, **fields) -> None:
@@ -520,11 +553,13 @@ def check_fit_state(family, res, x, gibbs, sampler, gen, sweep,
     return report, largs, lab, sub, k_sm
 
 
-def run_fit(DPMM, cfg, x_np, y_np, kernels, gpu, phase: str):
+def run_fit(DPMM, cfg, x_np, y_np, kernels, gpu, phase: str,
+            emit_phase: bool = True):
     """``DPMM(cfg).fit`` on the card with every launch count set to 0 just
-    before and read just after; emits ``phase`` and raises unless the
-    output is well formed, NMI >= 0.9 and each of ``kernels`` launched.
-    Returns the fit's result and its launch counts."""
+    before and read just after; emits ``phase`` (or, without
+    ``emit_phase``, keeps its fields in ``run_fit.report``) and raises
+    unless the output is well formed, NMI >= 0.9 and each of ``kernels``
+    launched. Returns the fit's result and its launch counts."""
     from repro_torch.kernels import ops
     model = DPMM(cfg)
     ops.reset_launch_counts()
@@ -540,16 +575,19 @@ def run_fit(DPMM, cfg, x_np, y_np, kernels, gpu, phase: str):
     in_inactive = int((~res.state.active.cpu()[
         torch.as_tensor(res.labels).long()]).sum())
     n, d = x_np.shape
-    emit(phase, component=cfg.component, n=n, d=d,
-         k_true=int(y_np.max()) + 1, k_found=res.k, nmi=nmi,
-         ari=res.ari(y_np), iters=cfg.iters, wall_s=wall,
-         steady_ms_per_iter=1e3 * float(np.mean(steady)),
-         first_chunk_ms_per_iter=1e3 * float(np.mean(
-             res.iter_times_s[:cfg.log_every])),
-         peak_bytes=res.peak_bytes, launches=launches,
-         launches_per_iter={k: v / cfg.iters for k, v in launches.items()},
-         labels_in_inactive_slots=in_inactive,
-         k_history=res.history["k"].tolist(), nvidia_smi=gpu)
+    run_fit.report = dict(
+        component=cfg.component, n=n, d=d, k_max=cfg.k_max,
+        compact=cfg.compact, k_true=int(y_np.max()) + 1, k_found=res.k,
+        nmi=nmi, ari=res.ari(y_np), iters=cfg.iters, wall_s=wall,
+        steady_ms_per_iter=1e3 * float(np.mean(steady)),
+        first_chunk_ms_per_iter=1e3 * float(np.mean(
+            res.iter_times_s[:cfg.log_every])),
+        peak_bytes=res.peak_bytes, launches=launches,
+        launches_per_iter={k: v / cfg.iters for k, v in launches.items()},
+        labels_in_inactive_slots=in_inactive,
+        k_history=res.history["k"].tolist(), nvidia_smi=gpu)
+    if emit_phase:
+        emit(phase, **run_fit.report)
     if res.labels.shape != (n,) or not hist_ok:
         fail(f"{phase}: output has the wrong shape or non-finite history")
     if nmi < 0.9:
@@ -1478,30 +1516,55 @@ def kernels_d256(res, launches, x_np, cfg, gibbs, sampler, assign,
 # The stat fold, the dense suffstats oracle and the tiled plane
 # ---------------------------------------------------------------------------
 def fold_check(fold, parts, acc) -> dict:
-    """``fold_partials`` on the fit's per-block partials (the fields of one
-    stat fold) from a nonzero accumulator: two launches bitwise equal and
-    bitwise the plain loop of adds on the card; each field's fold timed
-    against the loop and against ``acc + parts.sum(0)`` (another order, so
-    not the same function: shown, not the library yardstick)."""
+    """The stat fold on the fit's per-block partials (the three fields of
+    one stat fold) from a nonzero accumulator: ``fold_fields_cuda``, all
+    three in one launch, as every fit path folds, two launches bitwise
+    equal and bitwise the plain loop of adds on the card; timed beside
+    each field's own launch (``fold_partials_cuda``: three launches a
+    fold, one a field), the loop, ``acc + parts.sum(0)`` (another
+    order, so not the same function: shown, not the library yardstick)
+    and the bound of the fold's bytes."""
+    names = ("n", "sx", "sxx")
+    accs = [getattr(acc, n).contiguous() for n in names]
+    ps = [getattr(parts, n) for n in names]
+    got = fold.fold_fields_cuda(accs, ps)
+    again = fold.fold_fields_cuda(accs, ps)
+    want = fold.fold_fields_plain(accs, ps)
+    torch.cuda.synchronize()
+    if not all(torch.equal(u, v) and torch.equal(u, w)
+               for u, v, w in zip(got, again, want)):
+        fail("fold_fields is not bitwise the loop of adds")
     out = {}
-    for name in ("n", "sx", "sxx"):
-        a, p = getattr(acc, name).contiguous(), getattr(parts, name)
-        got = fold.fold_partials_cuda(a, p)
-        again = fold.fold_partials_cuda(a, p)
-        want = fold.fold_partials_plain(a, p)
+    for name, a, p in zip(names, accs, ps):
+        one = fold.fold_partials_cuda(a, p)
         torch.cuda.synchronize()
-        if not (torch.equal(got, again) and torch.equal(got, want)):
+        if not torch.equal(one, fold.fold_partials_plain(a, p)):
             fail(f"fold_partials ({name}) is not bitwise the loop of adds")
         t = {"blocks": p.shape[0], "elements": a.numel(), "bitwise": True,
-             "block_sum_first_differs": not torch.equal(got,
+             "block_sum_first_differs": not torch.equal(one,
                                                         a + p.sum(dim=0)),
              "max_abs_err": 0.0,
              "ms": cuda_ms(lambda: fold.fold_partials_cuda(a, p), 20),
              "plain_ms": cuda_ms(lambda: fold.fold_partials_plain(a, p), 3),
              "block_sum_first_ms": cuda_ms(lambda: a + p.sum(dim=0), 20)}
+        t["device_ms"], t["host_ms"] = run_ms(
+            lambda: fold.fold_partials_cuda(a, p), 20)
         t["bound_ms"], t["bound_by"] = bound(
             p.numel(), 4 * (p.numel() + 2 * a.numel()))
         out[name] = t
+    elems = sum(p.numel() for p in ps)
+    one = {"fields": len(names), "launches_a_call": 1, "bitwise": True,
+           "max_abs_err": 0.0,
+           "ms": cuda_ms(lambda: fold.fold_fields_cuda(accs, ps), 20),
+           "plain_ms": cuda_ms(lambda: fold.fold_fields_plain(accs, ps), 3),
+           "per_field_ms_sum": sum(out[n]["ms"] for n in names),
+           "per_field_device_ms_sum": sum(out[n]["device_ms"]
+                                          for n in names)}
+    one["device_ms"], one["host_ms"] = run_ms(
+        lambda: fold.fold_fields_cuda(accs, ps), 20)
+    one["bound_ms"], one["bound_by"] = bound(
+        elems, 4 * (elems + 2 * sum(a.numel() for a in accs)))
+    out["one_launch"] = one
     return out
 
 
@@ -1584,6 +1647,100 @@ def kernel_check_dense(ops, suffstats, cases) -> tuple:
              "calls of ops.suffstats")
     return launches, {name: dense_case(suffstats, x, resp, first[name], oh)
                       for name, (x, resp, oh) in cases.items()}
+
+
+def window_operands(n, d, k, dev, seed):
+    """Operands of the stat and step-(f) kernels: points, labels in
+    [-1, k] (outside [0, k) they add nothing, or get sub-label 0),
+    sub-labels, a valid mask with zeros, whitening sub-components about
+    points of the set, Gumbel counters and key words."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, d, device=dev, generator=g) * 3
+    lab = torch.randint(-1, k + 1, (n,), device=dev, generator=g,
+                        dtype=torch.int32)
+    sub = torch.randint(0, 2, (n,), device=dev, generator=g,
+                        dtype=torch.int32)
+    valid = (torch.rand(n, device=dev, generator=g) < 0.9).float()
+    pick = torch.randint(0, n, (k, 2), device=dev, generator=g)
+    smu = x[pick] + 0.5 * torch.randn(k, 2, d, device=dev, generator=g)
+    sf = (torch.randn(k, 2, d, d, device=dev, generator=g) * (0.2 / d ** 0.5)
+          + torch.eye(d, device=dev))
+    sld = torch.randn(k, 2, device=dev, generator=g)
+    slw = torch.log_softmax(torch.randn(k, 2, device=dev, generator=g), 1)
+    gidx = torch.arange(n, device=dev, dtype=torch.int64) + 9
+    kzb = torch.tensor([77, 3_000_000_001], device=dev)
+    return x, lab, sub, valid, smu, sf, sld, slw, gidx, kzb
+
+
+def kernel_check_windows(ops, suffstats, assign, dev) -> dict:
+    """The stat and step-(f) kernels past one slot window (K > 8192: a
+    launch a window of ``suffstats.slot_windows``, three for
+    sub_assign_gauss), past d = 256 (suffstats_labels' Gram tiles,
+    sub_assign_gauss's column panels, the dense oracle's panel tile) and at
+    fit_k_large's shapes, each against its plain version on WINDOW_CASES: repeat launches bitwise
+    equal, stats within STATS_RTOL with counts exact, sub-labels exact but
+    for near-ties inside [0, K) and 0 outside; each call's launches (the
+    counts set to 0 just before, read just after) and per-launch device
+    times."""
+    out = {}
+    for name, n, d, k in WINDOW_CASES:
+        x, lab, sub, valid, smu, sf, sld, slw, gidx, kzb = window_operands(
+            n, d, k, dev, seed=k + d)
+        inside = (lab >= 0) & (lab < k)
+        resp = torch.nn.functional.one_hot(
+            lab.long().clamp(0, k - 1), k).float() * inside[:, None].float()
+        f_args = (x, smu, sf, sld, slw, lab, gidx, kzb)
+        s_args = (x, lab, sub, valid, k)
+        calls = {
+            "suffstats_labels": (lambda: suffstats.suffstats_labels_cuda(
+                *s_args), lambda: suffstats.suffstats_labels_plain(*s_args)),
+            "moments_labels": (lambda: suffstats.moments_labels_cuda(
+                *s_args), lambda: suffstats.moments_labels_plain(*s_args)),
+            "sub_assign_gauss": (lambda: assign.sub_assign_gauss_cuda(
+                *f_args), None),
+            "suffstats": (lambda: suffstats.suffstats_cuda(x, resp),
+                          lambda: suffstats.suffstats_plain(x, resp))}
+        wins = len(suffstats.slot_windows(k))
+        r = {"n": n, "d": d, "k": k, "slot_windows": wins}
+        for kern, (cuda, plain) in calls.items():
+            ops.reset_launch_counts()
+            got = cuda()
+            again = cuda()
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()[kern]
+            want = wins * (assign.SUB_LAUNCHES if kern == "sub_assign_gauss"
+                           else 1)
+            if launches != 2 * want:
+                fail(f"kernel_check_windows {name}: {kern} launched "
+                     f"{launches} times in two calls, not {2 * want}")
+            if isinstance(got, torch.Tensor):
+                same = torch.equal(got, again)
+            else:
+                same = all(torch.equal(u, v) for u, v in zip(got, again))
+            if not same:
+                fail(f"kernel_check_windows {name}: {kern}: two launches "
+                     "differ")
+            t = {"launches_a_call": want, "repeat_bitwise": True}
+            if kern == "sub_assign_gauss":
+                if int(got[~inside].abs().sum()) != 0:
+                    fail(f"kernel_check_windows {name}: a label outside "
+                         "[0, K) did not get sub-label 0")
+                idx = torch.nonzero(inside).flatten()
+                in_args = (x[idx].contiguous(), smu, sf, sld, slw,
+                           lab[idx].contiguous(), gidx[idx].contiguous(),
+                           kzb)
+                t["near_tie_mismatches"] = sub_ties(
+                    assign, True, in_args, got[idx],
+                    assign.sub_assign_gauss_plain(*in_args))
+            else:
+                t["max_abs_err"] = stats_err(got, plain())
+            del got, again
+            t["device_ms"], t["host_ms"] = run_ms(cuda, 5)
+            r[kern] = t
+        out[name] = r
+        del x, lab, sub, valid, smu, sf, resp
+        torch.cuda.empty_cache()
+    return out
 
 
 def same_chain(a, b) -> dict:
@@ -1963,6 +2120,50 @@ def main() -> None:
                         assign, suffstats, loglik, dev)
     emit("kernels_d256", nvidia_smi=gpu, **k256)
 
+    # past the one-read sweep's 2048 slots and one stat window's 8192: a
+    # 4096-slot dense slab (sweep_ref every iteration) and k_max = 10,000
+    # (the init folds in two slot windows)
+    xk_np, yk_np = generate_gmm(K_LARGE_N, K_LARGE_D, FIT_K, seed=0)
+    k_large = {}
+    for name, extra in K_LARGE_FITS:
+        kcfg = DPMMConfig(**{**FIT_CFG, **extra})
+        path = (GAUSS_PATH if kcfg.compact else
+                ("assign_gauss", "sub_assign_gauss", "suffstats_labels",
+                 "fold_partials"))
+        _, lk = run_fit(DPMM, kcfg, xk_np, yk_np, path, gpu, "fit_k_large",
+                        emit_phase=False)
+        k_large[name] = run_fit.report
+        if not kcfg.compact and not (
+                lk["sweep_gauss"] == 0 and lk["assign_gauss"] == cfg.iters
+                and lk["sub_assign_gauss"]
+                == assign.SUB_LAUNCHES * cfg.iters):
+            fail(f"fit_k_large {name}: launches {lk}")
+        if kcfg.k_max > suffstats.MAX_K and lk["suffstats_labels"] < 4:
+            fail(f"fit_k_large {name}: the init folds' slot windows were "
+                 f"not launched ({lk['suffstats_labels']} launches)")
+    emit("fit_k_large", n=K_LARGE_N, d=K_LARGE_D, **k_large)
+    del xk_np, yk_np
+
+    # the Gaussian fit past d = 256: sweep_ref every iteration, its label
+    # folds in stat windows
+    xw_np, yw_np = generate_gmm(WIDE_FIT_N, WIDE_FIT_D, WIDE_FIT_K, seed=0)
+    _, launchw = run_fit(
+        DPMM, cfg, xw_np, yw_np,
+        ("assign_gauss", "sub_assign_gauss", "suffstats_labels",
+         "fold_partials"), gpu, "fit_gaussian_wide")
+    if not (launchw["sweep_gauss"] == 0
+            and launchw["assign_gauss"] == cfg.iters
+            and launchw["sub_assign_gauss"]
+            == assign.SUB_LAUNCHES * cfg.iters):
+        fail(f"fit_gaussian_wide: launches {launchw}")
+    del xw_np, yw_np
+
+    # the stat and step-(f) kernels past one slot window and past d = 256
+    t0 = time.perf_counter()
+    wcheck = kernel_check_windows(ops, suffstats, assign, dev)
+    emit("kernel_check_windows", stats_rtol=STATS_RTOL, tie_rtol=TIE_RTOL,
+         seconds=time.perf_counter() - t0, nvidia_smi=gpu, **wcheck)
+
     # the dense suffstats oracle through its entry point (ops.suffstats),
     # at the fits' final states (resp the one-hot of the compact labels, or
     # Dirichlet(1) rows), a ragged shape, d = 256 and the reference's
@@ -2250,10 +2451,10 @@ def main() -> None:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             **{key: t[key] for key in ("device_ms", "host_ms") if key in t}})
-    # the stat fold (every fit path; times at the d = 32 fit's sweep sxx
-    # partials) and the dense oracle (its entry point only; times at the
-    # d = 32 fit's final state, one-hot)
-    fx = folds["sxx"]
+    # the stat fold (every fit path, every field of a fold in one launch;
+    # times at the d = 32 fit's sweep partials) and the dense oracle (its
+    # entry point only; times at the d = 32 fit's final state, one-hot)
+    fx = folds["one_launch"]
     rows.append({
         "name": "fold_partials", "route": "cuda",
         "source": "src/repro_torch/csrc/fold_partials.cu",
@@ -2262,7 +2463,9 @@ def main() -> None:
         "launches_per_iter": launches["fold_partials"] / cfg.iters,
         "max_abs_err": 0.0, "ms": fx["ms"], "plain_ms": fx["plain_ms"],
         "bound_ms": fx["bound_ms"], "bound_by": fx["bound_by"],
-        "library_ms": None})
+        "library_ms": None, "device_ms": fx["device_ms"],
+        "host_ms": fx["host_ms"],
+        "per_field_ms_sum": fx["per_field_ms_sum"]})
     dx = dense["fit_d32_one_hot"]
     rows.append({
         "name": "suffstats", "route": "cuda",

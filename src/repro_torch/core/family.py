@@ -15,8 +15,10 @@ through this interface:
   kernels on the card, their plain versions on the CPU;
 - ``sweep_ref``: the same three steps as three passes over the points
   (``assign``, ``sub_assign``, ``stats_from_labels``). ``sweep`` runs it
-  whenever the family's fused sweep declines: the gaussian one declines
-  for d > ``kernels/sweep.py`` ``MAX_D`` (128), as the reference's
+  whenever the family's fused sweep declines: above the one-read
+  kernels' ``kernels/sweep.py`` ``MAX_K`` (2048) slots for every family,
+  as the reference's K-block-tiled sweep takes any K, and the gaussian
+  one for d > ``kernels/sweep.py`` ``MAX_D`` (128), as the reference's
   ``ops.sweep_gauss_pallas`` returns None outside its envelope; the
   linear ones take every d' their kernels take. Like ``matmul_auto``'s
   size rule below, the rule reads the shape only, is decided before any
@@ -27,9 +29,11 @@ through this interface:
   ``core/labelstats.py`` for the linear families), folded into a running
   accumulator. Every stat fold (``sweep``, ``fold_blocked``) adds the
   kernels' per-STATS_BLOCK partials to the accumulator left to right in
-  point order (``labelstats.fold_stats``), as the reference does, so the
-  sums continue across tiles and a tiled fit is the resident fit bit for
-  bit;
+  point order (``labelstats.fold_stats``, every field in one launch), as
+  the reference does, so the sums continue across tiles and a tiled fit
+  is the resident fit bit for bit. Both folds run their kernels on the
+  point windows of ``labelstats.window_rows`` (partials of at most
+  ``labelstats.WINDOW_BYTES`` at once), window after window;
 - ``assign``: step (e) alone (``DPMMEngine.sample``, ``sweep_ref``):
   ``ops.assign_gauss`` for gaussian, the module's ``assign_pack`` and
   ``ops.assign_linear`` for the linear families;
@@ -53,9 +57,10 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from repro_torch.core import diag_gaussian, multinomial, niw, poisson
-from repro_torch.core.labelstats import fold_stats
+from repro_torch.core.labelstats import fold_stats, window_rows
 from repro_torch.kernels import ops
 from repro_torch.kernels.sweep import MAX_D as SWEEP_GAUSS_MAX_D
+from repro_torch.kernels.sweep import MAX_K as SWEEP_MAX_K
 
 
 def fold_blocked(family: "ComponentFamily", k_max: int, body,
@@ -173,6 +178,9 @@ class ComponentFamily:
     sub_assign_step: Callable[..., torch.Tensor]
     # (x, params) -> (N, K) log-likelihoods
     loglik_fn: Callable[..., torch.Tensor]
+    # d -> floats of a (block, sub-cluster slot)'s stat partials, every
+    # field: the stat windows' measure (labelstats.window_rows)
+    slot_floats: Callable[[int], int] = lambda d: 1 + d
     # stats field holding the first moment (sum x) — cluster means read it
     mean_field: str = "sx"
     # widest d the fused sweep takes (None: every d); wider runs sweep_ref
@@ -181,22 +189,33 @@ class ComponentFamily:
     def sweep(self, x, valid, params, subparams, logw, sublogw, active,
               gidx, key_z, key_zb, k_max: int, acc, slots=None):
         """Steps (e) + (f) + stat fold with x read once, or through
-        ``sweep_ref`` when the fused sweep declines x's width. ``params``
-        etc. may be a compact slab; ``slots`` ((K,) int) then carries the
-        dense slot ids, the Gumbel counters of step (e). Returns
+        ``sweep_ref`` when the fused sweep declines x's width or the slab's
+        K. ``params`` etc. may be a compact slab; ``slots`` ((K,) int) then
+        carries the dense slot ids, the Gumbel counters of step (e). The
+        fused sweep runs on the stat windows (``window_rows``), each
+        window's partials folded before the next. Returns
         ``(labels, sublabels, acc')`` with labels in the slab's
         positions."""
-        if self.fused_max_d is not None and x.shape[1] > self.fused_max_d:
+        if ((self.fused_max_d is not None and x.shape[1] > self.fused_max_d)
+                or logw.shape[0] > SWEEP_MAX_K):
             return self.sweep_ref(x, valid, params, subparams, logw,
                                   sublogw, active, gidx, key_z, key_zb,
                                   k_max, acc, slots=slots)
         if slots is None:
             slots = torch.arange(k_max, device=x.device)
-        labels, sublabels, parts = self.fused_sweep(
-            x, valid, params, subparams, logw, sublogw,
-            active.to(torch.int32), gidx, key_z, key_zb,
-            slots.to(torch.int32))
-        return labels, sublabels, fold_stats(acc, parts)
+        active, slots = active.to(torch.int32), slots.to(torch.int32)
+        labels, sublabels = [], []
+        for a, b in self.windows(x, k_max):
+            lab, sub, parts = self.fused_sweep(
+                x[a:b], valid[a:b], params, subparams, logw, sublogw, active,
+                gidx[a:b], key_z, key_zb, slots)
+            acc = fold_stats(acc, parts)
+            del parts          # one window's partials alive at a time
+            labels.append(lab)
+            sublabels.append(sub)
+        if len(labels) == 1:
+            return labels[0], sublabels[0], acc
+        return torch.cat(labels), torch.cat(sublabels), acc
 
     def sweep_ref(self, x, valid, params, subparams, logw, sublogw, active,
                   gidx, key_z, key_zb, k_max: int, acc, slots=None):
@@ -214,11 +233,19 @@ class ComponentFamily:
     def stats_from_labels(self, x, valid, labels, sublabels, k_max: int,
                           acc=None):
         """(k_max, 2) sub-cluster stats straight from int labels, added to
-        ``acc`` (zeros by default) block by block in point order."""
+        ``acc`` (zeros by default) block by block in point order, the
+        partials made and folded window by window (``window_rows``)."""
         if acc is None:
             acc = self.empty_stats((k_max, 2), x.shape[1], x.device)
-        return fold_stats(acc, self.labels_partials(x, valid, labels,
-                                                    sublabels, k_max))
+        for a, b in self.windows(x, k_max):
+            acc = fold_stats(acc, self.labels_partials(
+                x[a:b], valid[a:b], labels[a:b], sublabels[a:b], k_max))
+        return acc
+
+    def windows(self, x, k_max: int):
+        """The stat windows of a fold of x's points over ``k_max``
+        clusters (``labelstats.window_rows``)."""
+        return window_rows(x.shape[0], k_max, self.slot_floats(x.shape[1]))
 
     def assign(self, x, params, logw, active, gidx, key_z,
                slots=None) -> torch.Tensor:
@@ -258,13 +285,13 @@ def _module_family(mod, name: str, params_cls, stats_cls,
 
 
 def _linear_family(mod, name: str, params_cls, stats_cls,
-                   mean_field: str, loglik_fn=None) -> ComponentFamily:
+                   mean_field: str, loglik_fn=None, **kw) -> ComponentFamily:
     return _module_family(mod, name, params_cls, stats_cls,
                           fused_sweep=_linear_sweep(mod),
                           assign_step=_linear_assign(mod),
                           sub_assign_step=_linear_sub_assign(mod),
                           loglik_fn=loglik_fn or _product_loglik(mod),
-                          mean_field=mean_field)
+                          mean_field=mean_field, **kw)
 
 
 GAUSSIAN = _module_family(niw, "gaussian", niw.GaussParams, niw.GaussStats,
@@ -272,6 +299,7 @@ GAUSSIAN = _module_family(niw, "gaussian", niw.GaussParams, niw.GaussStats,
                           assign_step=_gauss_assign,
                           sub_assign_step=_gauss_sub_assign,
                           loglik_fn=_gauss_loglik,
+                          slot_floats=lambda d: 1 + d + d * d,
                           fused_max_d=SWEEP_GAUSS_MAX_D)
 MULTINOMIAL = _linear_family(multinomial, "multinomial",
                              multinomial.MultParams, multinomial.MultStats,
@@ -281,7 +309,8 @@ POISSON = _linear_family(poisson, "poisson", poisson.PoisParams,
 DIAG_GAUSSIAN = _linear_family(diag_gaussian, "diag_gaussian",
                                diag_gaussian.DiagParams,
                                diag_gaussian.DiagStats, mean_field="sx",
-                               loglik_fn=_diag_loglik)
+                               loglik_fn=_diag_loglik,
+                               slot_floats=lambda d: 1 + 2 * d)
 
 _REGISTRY = {f.name: f for f in (GAUSSIAN, MULTINOMIAL, POISSON,
                                  DIAG_GAUSSIAN)}

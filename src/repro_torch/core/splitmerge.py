@@ -2,10 +2,11 @@
 
 Port of ``repro.core.splitmerge``. ``plan_split_merge`` does the O(K)
 decision math (split proposals with a prefix-sum slot allocator, all-pairs
-merge proposals thinned to a disjoint matching, stuck-cluster resets and
-the hyperplane geometry); ``split_merge_tile`` applies the plan to the
-points (relabels, hyperplane sub-label re-init) as whole-tile tensor ops
-and folds the consistency stats with one ``suffstats_labels`` call.
+merge proposals, scored over the live pairs and thinned to a disjoint
+matching, stuck-cluster resets and the hyperplane geometry);
+``split_merge_tile`` applies the plan to the points (relabels, hyperplane
+sub-label re-init) as whole-tile tensor ops and folds the consistency
+stats with one ``suffstats_labels`` call.
 
 The uniform and normal draws come from the fit's generator, or are passed
 in (``SplitMergeDraws``) so a test can feed the JAX package's draws.
@@ -129,6 +130,28 @@ def log_hastings_merge(prior, family, stats_a, stats_b, alpha: float):
             - 2.0 * torch.lgamma(a / 2))
 
 
+# Merge proposals score only the pairs i < j of two live clusters, the
+# only verdicts that can pass (an inactive pair is never accepted), in
+# batches of at most MERGE_PAIR_BYTES of merged stats: all K(K - 1)/2
+# pairs' merged stats would not fit the card (55 GB at K = 10,000 and
+# d = 16; the reference maps its scoring over chunks of 256 pairs). Each
+# pair keeps its uniform and its place in the row-major pair order, so
+# the thinning is the reference's walk.
+MERGE_PAIR_BYTES = 1 << 28
+
+
+def _live_pairs(active: torch.Tensor):
+    """(i, j, pair id) of the pairs i < j of active slots, in the
+    row-major order of ``torch.triu_indices(K, K, 1)``."""
+    k_max = active.shape[0]
+    live = torch.nonzero(active).flatten()
+    a, b = torch.triu_indices(live.shape[0], live.shape[0], 1,
+                              device=active.device)
+    iu, ju = live[a], live[b]
+    pid = iu * (2 * k_max - iu - 1) // 2 + (ju - iu - 1)
+    return iu, ju, pid
+
+
 def propose_merges(u: torch.Tensor, active, stats, prior, family,
                    alpha: float) -> MergeDecision:
     """All-pairs merge proposals (paper §4.1) given the acceptance
@@ -137,14 +160,19 @@ def propose_merges(u: torch.Tensor, active, stats, prior, family,
 
     The thinning is a sequential greedy walk; it runs on the host over the
     accepted pairs only (one device-to-host copy of the pair verdicts).
+    Only the live clusters' pairs are scored, in batches of at most
+    MERGE_PAIR_BYTES of merged stats.
     """
     k_max = active.shape[0]
     dev = active.device
-    iu, ju = torch.triu_indices(k_max, k_max, 1, device=dev)
-    pair_valid = active[iu] & active[ju]
     take = lambda i: tree_map(lambda s: s[i], stats)
-    log_h = log_hastings_merge(prior, family, take(iu), take(ju), alpha)
-    accept = pair_valid & (torch.log(u) < log_h)
+    iu, ju, pid = _live_pairs(active)
+    d = getattr(stats, family.mean_field).shape[-1]
+    step = max(1, MERGE_PAIR_BYTES // (4 * family.slot_floats(d)))
+    log_h = torch.cat([log_hastings_merge(
+        prior, family, take(iu[a:a + step]), take(ju[a:a + step]), alpha)
+        for a in range(0, iu.shape[0], step)] or [u.new_empty((0,))])
+    accept = torch.log(u[pid]) < log_h
 
     acc_np = accept.cpu().numpy()
     keep_np = np.zeros(acc_np.shape, bool)
@@ -153,12 +181,12 @@ def propose_merges(u: torch.Tensor, active, stats, prior, family,
         lh = log_h.cpu().numpy()[cand]
         order = cand[np.argsort(-lh, kind="stable")]
         taken = np.zeros(k_max, bool)
-        iu_np, ju_np = np.triu_indices(k_max, 1)
-        for pid in order:
-            a, b = iu_np[pid], ju_np[pid]
+        iu_np, ju_np = iu.cpu().numpy(), ju.cpu().numpy()
+        for p in order:
+            a, b = iu_np[p], ju_np[p]
             if not taken[a] and not taken[b]:
                 taken[a] = taken[b] = True
-                keep_np[pid] = True
+                keep_np[p] = True
     keep = torch.as_tensor(keep_np, device=dev)
     keep_i = keep.to(torch.int64)
     delta = torch.zeros(k_max, dtype=torch.int64, device=dev).index_add_(

@@ -131,9 +131,9 @@ __device__ void accumulate_moments(const float* __restrict__ f,
 //     order: for each, w x_a once (__fmul_rn) and fmaf(w x_a, x_b, acc),
 //     the parent chain. E is 8, 16, 32 or 64 at d <= 64 (so 256, 64, 16 or
 //     4 teams keep every thread busy) and 128 above (the whole block; a
-//     d > 128 segment is 2 x 2 tiles). The tile's first row of threads
-//     folds sx (fmaf(w, x_b, acc)) and its first thread n (acc + w) in the
-//     same walk. A point's row is read straight from global memory (L1 and
+//     d > 128 segment is ceil(d / 128)^2 tiles). The tile's first row of
+//     threads folds sx (fmaf(w, x_b, acc)) and its first thread n (acc +
+//     w) in the same walk. A point's row is read straight from global memory (L1 and
 //     L2 hold the block's rows; a thread's 8 + 8 values of it are 4 float4
 //     loads for 64 FMAs), the next point's loads issued before the current
 //     point's FMAs. Several blocks (1 to 4) may share a STATS_BLOCK, each

@@ -27,8 +27,14 @@
 // byte streams are about 0.5 GB and 64 MB, so it is bound by device-memory
 // bytes, not by arithmetic.
 //
-// Limits: 1 <= k <= 8192 (segment offsets live in shared memory),
-// 1 <= d' <= 65536.
+// Slot windows. One launch takes the labels of one window [k0, k0 + W) of
+// the k slots (W <= 8192: the window's segment offsets live in shared
+// memory) and writes that window's rows of the (nsb, k, 2, ...) partials;
+// labels outside the window add nothing to it. The wrapper launches the
+// windows of kernels/suffstats.py slot_windows in turn, so every output
+// entry is written by exactly one launch, with the chain it has at any k.
+//
+// Limits: 1 <= W <= 8192 slots a launch, any k, 1 <= d' <= 65536.
 #include <cuda_runtime.h>
 
 #include "block_stats.cuh"
@@ -38,10 +44,13 @@ namespace repro_torch {
 constexpr int MOMENTS_THREADS = 256;
 constexpr int FEAT_CHUNK = 128;
 
+// K: the window's slots (labels k0 .. k0 + K - 1); S_out: segments a
+// block of the partials (2k), whose window rows n2, sf2 point at.
 __global__ void __launch_bounds__(MOMENTS_THREADS) moments_labels_kernel(
     const float* __restrict__ f, int n, int dp, const int* __restrict__ labels,
     const int* __restrict__ sublabels, const float* __restrict__ valid, int K,
-    float* __restrict__ n2, float* __restrict__ sf2) {
+    int k0, long long S_out, float* __restrict__ n2,
+    float* __restrict__ sf2) {
   extern __shared__ int smem_i[];
   const int S = 2 * K;
   int* seg = smem_i;                  // STATS_BLOCK
@@ -53,7 +62,7 @@ __global__ void __launch_bounds__(MOMENTS_THREADS) moments_labels_kernel(
   const long long rest = (long long)n - (long long)base;
   const int np = rest < STATS_BLOCK ? (int)rest : STATS_BLOCK;
   for (int p = threadIdx.x; p < np; p += MOMENTS_THREADS) {
-    const int l = labels[base + p], s = sublabels[base + p];
+    const int l = labels[base + p] - k0, s = sublabels[base + p];
     const bool in = valid[base + p] != 0.f && l >= 0 && l < K && s >= 0 &&
                     s <= 1;
     seg[p] = in ? 2 * l + s : -1;
@@ -62,23 +71,26 @@ __global__ void __launch_bounds__(MOMENTS_THREADS) moments_labels_kernel(
   sort_by_segment(seg, np, S, start, cursor, idx);
   const int c0 = blockIdx.y * FEAT_CHUNK;
   const int dc = min(FEAT_CHUNK, dp - c0);
-  const size_t blk = blockIdx.x;
+  const size_t row = (size_t)blockIdx.x * S_out;
   accumulate_moments(f + base * dp, valid + base, dp, S, start, idx, c0, dc,
-                     blockIdx.y == 0 ? n2 + blk * S : nullptr,
-                     sf2 + blk * S * (size_t)dp);
+                     blockIdx.y == 0 ? n2 + row : nullptr,
+                     sf2 + row * (size_t)dp);
 }
 
 }  // namespace repro_torch
 
+// One slot window [k0, k0 + W) of k slots: n2 and sf2 are the whole
+// (nsb, k, 2, ...) partials, of which it writes the window's rows.
 extern "C" int moments_labels_launch(const float* f, int n, int dp,
                                      const int* labels, const int* sublabels,
-                                     const float* valid, int K, float* n2,
-                                     float* sf2, void* stream) {
+                                     const float* valid, int k, int k0, int W,
+                                     float* n2, float* sf2, void* stream) {
   using namespace repro_torch;
-  if (n <= 0 || dp <= 0 || dp > 65536 || K <= 0 || K > 8192)
+  if (n <= 0 || dp <= 0 || dp > 65536 || k <= 0 || W <= 0 || W > 8192 ||
+      k0 < 0 || k0 > k - W)
     return (int)cudaErrorInvalidValue;
   const size_t smem =
-      sizeof(int) * (2 * (size_t)STATS_BLOCK + 4 * (size_t)K + 1);
+      sizeof(int) * (2 * (size_t)STATS_BLOCK + 4 * (size_t)W + 1);
   cudaError_t err = cudaFuncSetAttribute(
       moments_labels_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -87,7 +99,8 @@ extern "C" int moments_labels_launch(const float* f, int n, int dp,
                   (dp + FEAT_CHUNK - 1) / FEAT_CHUNK);
   moments_labels_kernel<<<grid, MOMENTS_THREADS, smem,
                           static_cast<cudaStream_t>(stream)>>>(
-      f, n, dp, labels, sublabels, valid, K, n2, sf2);
+      f, n, dp, labels, sublabels, valid, W, k0, 2LL * k, n2 + 2 * (size_t)k0,
+      sf2 + 2 * (size_t)k0 * dp);
   return (int)cudaGetLastError();
 }
 

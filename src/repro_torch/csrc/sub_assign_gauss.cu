@@ -12,6 +12,14 @@
 //                           + Gumbel(key_zb, gidx_i, s) ],  s in {0, 1}
 // A label outside [0, K) gets sub-label 0.
 //
+// Slot windows. One call of the launcher takes the labels of one window
+// [k0, k0 + W) of the K slots (W <= 8192: its label counts and offsets
+// live in shared memory) and writes the sub-labels of exactly those
+// points; the window at k0 = 0 also writes the 0 of the points whose label
+// lies outside [0, K). The wrapper runs the windows of
+// kernels/suffstats.py slot_windows in turn, so every point has one
+// writer, and a point's sub-label depends on its own operands only.
+//
 // Design. The TPU kernel kept all (K, 2, d, d) factors resident in VMEM and
 // gathered each point's own two. Here the points are grouped by label
 // across the whole batch, so that a label's two factors are read from L2
@@ -30,14 +38,15 @@
 //       the label's two factors staged in shared memory (sub_tile.cuh),
 //       one thread a point running maha_narrow on them, as the one-read
 //       sweep's step (f) does: the same device code, so the same bits;
-//     - tiled (64 < d <= 256, DP = 128 or 256): Y = (X - mu_s) F_s as a
+//     - tiled (d > 64, DP = 128 or 256): Y = (X - mu_s) F_s as a
 //       register-tiled product of the item's 64 points against 256
-//       columns (both sub-factors at DP = 128, one at a time at 256): row
-//       slabs of the factors (as in device memory), of the points' x
-//       (transposed) and of the means stream through a ring of cp.async
-//       stages; x - mu is formed once a slab in shared memory; each thread
-//       holds 8 points x 8 columns, the columns of one lane of the parent
-//       layout (sub_col).
+//       columns (both sub-factors at DP = 128; at DP = 256 one sub-factor
+//       a pass, in column panels of 256, ceil(d / 256) panels a
+//       sub-factor): row slabs of the factors (as in device memory), of
+//       the points' x (transposed) and of the means stream through a ring
+//       of cp.async stages; x - mu is formed once a slab in shared memory;
+//       each thread holds 8 points x 8 columns, the columns of one lane of
+//       the warp layout (sub_col). The shared bytes do not grow with d.
 //
 // Bits. The parent's chains, whatever the grouping:
 //  - narrow: sub_tile.cuh's maha_narrow, the first version's one thread a
@@ -49,8 +58,9 @@
 //    in order, then s + s^1, then + (s^2's sum): the chain runs through
 //    the four threads that hold its columns (two values of t each, carried
 //    by shuffles), then two xor shuffles;
-//  - |y|^2 at 128 < d <= 256 (the parent's warp layout): lane l's chain
-//    over columns l + 32 t, t = 0..7, in order, then the xor butterfly over
+//  - |y|^2 past d = 128 (the warp layout): lane l's chain over
+//    columns l + 32 t, t = 0, 1, .. in order (t < 8 a panel, the chain
+//    carried from panel to panel past d = 256), then the xor butterfly over
 //    offsets 1, 2, 4, 8, 16: here a thread holds exactly lane l's columns
 //    and lane l of the warp, so the butterfly is the parent's;
 //  - then 0.5 (ld - maha) - half_d_log2pi, + sublogw, + Gumbel, strict `>`.
@@ -63,7 +73,8 @@
 // and feeds 64 FMAs a thread for every 8 (DP = 256) or 2 (DP = 128)
 // shared loads of a factor row.
 //
-// Limits: 1 <= d <= 256, 1 <= K <= 8192 (label counts in shared memory).
+// Limits: any d and K; a launch takes W <= 8192 slots (label counts in
+// shared memory).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,8 +86,7 @@ namespace repro_torch {
 
 constexpr int SUB_THREADS = 256;
 constexpr int SUB_SORT_PB = 1024;     // points a block of sub_count / place
-constexpr int SUB_MAX_D = 256;
-constexpr int SUB_MAX_K = 8192;
+constexpr int SUB_MAX_K = 8192;       // slots a window
 constexpr int SUB_NARROW_PER = SUB_THREADS;   // points a narrow item
 constexpr int ST_PTS = 64;            // points a tiled item, 8 a warp
 constexpr int ST_BK = 16;             // factor rows a slab
@@ -85,11 +95,12 @@ constexpr int ST_XS = ST_PTS + 4;     // row stride of a staged x slab
 constexpr int ST_STAGES = 3;
 
 // The tiled layout at padded width DP (128: both sub-factors in one column
-// tile, an x slab for each; 256: one sub-factor a tile, two passes).
+// tile, an x slab for each; 256: one sub-factor a tile, two passes of
+// ceil(d / 256) column panels each).
 template <int DP>
 struct SubTiled {
   static constexpr int NX = DP == 128 ? 2 : 1;       // x slabs a stage
-  static constexpr int PASSES = DP == 128 ? 1 : 2;   // column tiles
+  static constexpr int PASSES = DP == 128 ? 1 : 2;   // sub-factors a pass
   static constexpr int XOFF = ST_BK * ST_COLS;       // x slabs in a stage
   static constexpr int MOFF = XOFF + NX * ST_BK * ST_XS;   // means
   static constexpr int STAGE = MOFF + NX * ST_BK;
@@ -122,10 +133,16 @@ __device__ __forceinline__ int sub_col(int ln, int k) {
   }
 }
 
-// ---- 1. the label histogram; sub-label 0 outside [0, K) -------------------
+// The window-local label of label l: l - k0 in [0, K), else -1.
+__device__ __forceinline__ int sub_local(int l, int k0, int K) {
+  return l >= k0 && l - k0 < K ? l - k0 : -1;
+}
+
+// ---- 1. the label histogram; sub-label 0 outside [0, k_all) ---------------
+// K: the window's slots (labels k0 .. k0 + K - 1) of k_all.
 __global__ void __launch_bounds__(SUB_THREADS) sub_count_kernel(
-    const int* __restrict__ labels, int n, int K, int* __restrict__ counts,
-    int* __restrict__ sublabels) {
+    const int* __restrict__ labels, int n, int K, int k0, int k_all,
+    int* __restrict__ counts, int* __restrict__ sublabels) {
   extern __shared__ int hist[];                        // K
   for (int l = threadIdx.x; l < K; l += SUB_THREADS) hist[l] = 0;
   __syncthreads();
@@ -133,9 +150,10 @@ __global__ void __launch_bounds__(SUB_THREADS) sub_count_kernel(
   const int np = (int)min((long long)SUB_SORT_PB, (long long)n - b0);
   for (int p = threadIdx.x; p < np; p += SUB_THREADS) {
     const int l = labels[b0 + p];
-    if (l >= 0 && l < K)
-      atomicAdd(hist + l, 1);
-    else
+    const int lw = sub_local(l, k0, K);
+    if (lw >= 0)
+      atomicAdd(hist + lw, 1);
+    else if (k0 == 0 && (l < 0 || l >= k_all))
       sublabels[b0 + p] = 0;
   }
   __syncthreads();
@@ -145,7 +163,7 @@ __global__ void __launch_bounds__(SUB_THREADS) sub_count_kernel(
 
 // ---- 2. point ids grouped by label; the offsets and items ----------------
 __global__ void __launch_bounds__(SUB_THREADS) sub_place_kernel(
-    const int* __restrict__ labels, int n, int K, int per,
+    const int* __restrict__ labels, int n, int K, int k0, int per,
     const int* __restrict__ counts, int* __restrict__ cursor,
     int* __restrict__ start_out, int* __restrict__ items_out,
     int* __restrict__ order) {
@@ -175,8 +193,8 @@ __global__ void __launch_bounds__(SUB_THREADS) sub_place_kernel(
   const long long b0 = (long long)blockIdx.x * SUB_SORT_PB;
   const int np = (int)min((long long)SUB_SORT_PB, (long long)n - b0);
   for (int p = tid; p < np; p += SUB_THREADS) {
-    const int l = labels[b0 + p];
-    if (l >= 0 && l < K) atomicAdd(local + l, 1);
+    const int l = sub_local(labels[b0 + p], k0, K);
+    if (l >= 0) atomicAdd(local + l, 1);
   }
   __syncthreads();
   for (int l = tid; l < K; l += SUB_THREADS) {
@@ -186,9 +204,8 @@ __global__ void __launch_bounds__(SUB_THREADS) sub_place_kernel(
   }
   __syncthreads();
   for (int p = tid; p < np; p += SUB_THREADS) {
-    const int l = labels[b0 + p];
-    if (l >= 0 && l < K)
-      order[base[l] + atomicAdd(local + l, 1)] = (int)(b0 + p);
+    const int l = sub_local(labels[b0 + p], k0, K);
+    if (l >= 0) order[base[l] + atomicAdd(local + l, 1)] = (int)(b0 + p);
   }
 }
 
@@ -253,30 +270,34 @@ __global__ void __launch_bounds__(SUB_THREADS) sub_narrow_kernel(
   sublabels[p] = t2[1] > t2[0] ? 1 : 0;
 }
 
-// ---- 3b. tiled (64 < d <= 256) --------------------------------------------
+// ---- 3b. tiled (d > 64) ---------------------------------------------------
 // Copy row slab `slab` (rows r0 = slab ST_BK ..) of column tile `pass` into
 // one stage: the factor rows (16-byte copies when ``vec``), the item's
 // points' rows of x (transposed, zero past d and the item), and the means.
-// xrow[i] is this thread's point row of copy round i (point tid / ST_BK +
-// 16 i).
+// At DP = 256 pass q is sub-factor q / npan's column panel q % npan
+// (columns 256 (q % npan) ..). xrow[i] is this thread's point row of copy
+// round i (point tid / ST_BK + 16 i).
 template <int DP>
 __device__ __forceinline__ void sub_load(const float* const* xrow,
                                          const float* __restrict__ f0,
                                          const float* __restrict__ m0, int d,
-                                         int slab, int pass, bool vec,
-                                         float* stage) {
+                                         int slab, int pass, int npan,
+                                         bool vec, float* stage) {
   using T = SubTiled<DP>;
   const int tid = threadIdx.x, r0 = slab * ST_BK;
+  const int ps = DP == 128 ? 0 : pass / npan;             // sub-factor
+  const int c0 = DP == 128 ? 0 : ST_COLS * (pass % npan);  // panel column
   // factors: row r of the slab is [F_0 row | F_1 row] at DP = 128, the
-  // pass's F_s row at 256, as in device memory (a copy round of a warp is
-  // one run of a row: coalesced reads, conflict-free shared writes)
+  // pass's F_s panel row at 256, as in device memory (a copy round of a
+  // warp is one run of a row: coalesced reads, conflict-free shared
+  // writes)
   if (vec) {
 #pragma unroll
     for (int i = 0; i < ST_BK * ST_COLS / 4 / SUB_THREADS; ++i) {
       const int e = tid + i * SUB_THREADS;
       const int r = e / (ST_COLS / 4), cc = 4 * (e % (ST_COLS / 4));
-      const int s = DP == 128 ? cc >> 7 : pass;
-      const int c = DP == 128 ? cc & 127 : cc;
+      const int s = DP == 128 ? cc >> 7 : ps;
+      const int c = DP == 128 ? cc & 127 : c0 + cc;
       const bool ok = r0 + r < d && c < d;
       cp_async16(stage + r * ST_COLS + cc,
                  ok ? f0 + ((size_t)s * d + r0 + r) * d + c : f0,
@@ -287,8 +308,8 @@ __device__ __forceinline__ void sub_load(const float* const* xrow,
     for (int i = 0; i < ST_BK; ++i) {
       const int e = tid + i * SUB_THREADS;
       const int r = e / ST_COLS, cc = e % ST_COLS;
-      const int s = DP == 128 ? cc >> 7 : pass;
-      const int c = DP == 128 ? cc & 127 : cc;
+      const int s = DP == 128 ? cc >> 7 : ps;
+      const int c = DP == 128 ? cc & 127 : c0 + cc;
       const bool ok = r0 + r < d && c < d;
       cp_async4(stage + r * ST_COLS + cc,
                 ok ? f0 + ((size_t)s * d + r0 + r) * d + c : f0, ok ? 4 : 0);
@@ -304,7 +325,7 @@ __device__ __forceinline__ void sub_load(const float* const* xrow,
               ok ? xrow[i] + r0 + rr : m0, ok ? 4 : 0);
   }
   if (tid < T::NX * ST_BK) {
-    const int s = T::NX == 2 ? tid / ST_BK : pass, r = tid % ST_BK;
+    const int s = T::NX == 2 ? tid / ST_BK : ps, r = tid % ST_BK;
     const bool ok = r0 + r < d;
     cp_async4(stage + T::MOFF + tid, ok ? m0 + (size_t)s * d + r0 + r : m0,
               ok ? 4 : 0);
@@ -346,17 +367,20 @@ __global__ void __launch_bounds__(SUB_THREADS, 2) sub_tiled_kernel(
   const bool vec = (d & 3) == 0 && ((uintptr_t)sub_chol & 15) == 0;
 
   const int ns = (d + ST_BK - 1) / ST_BK;
-  const int steps = T::PASSES * ns;
-  float acc[8][8];
+  // column panels a sub-factor (DP = 256): ceil(d / 256)
+  const int npan = DP == 128 ? 1 : (d + ST_COLS - 1) / ST_COLS;
+  const int steps = T::PASSES * npan * ns;
+  float acc[8][8], carry[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
+    carry[i] = 0.f;
 #pragma unroll
     for (int k = 0; k < 8; ++k) acc[i][k] = 0.f;
   }
 #pragma unroll
   for (int i = 0; i < ST_STAGES - 1; ++i) {
     if (i < steps)
-      sub_load<DP>(xrow, f0, m0, d, i % ns, i / ns, vec,
+      sub_load<DP>(xrow, f0, m0, d, i % ns, i / ns, npan, vec,
                    ring + i * T::STAGE);
     cp_async_commit();
   }
@@ -368,7 +392,7 @@ __global__ void __launch_bounds__(SUB_THREADS, 2) sub_tiled_kernel(
     __syncthreads();
     const int tn = t + ST_STAGES - 1;
     if (tn < steps)
-      sub_load<DP>(xrow, f0, m0, d, tn % ns, tn / ns, vec,
+      sub_load<DP>(xrow, f0, m0, d, tn % ns, tn / ns, npan, vec,
                    ring + (tn % ST_STAGES) * T::STAGE);
     cp_async_commit();
     float* stage = ring + (t % ST_STAGES) * T::STAGE;
@@ -418,12 +442,22 @@ __global__ void __launch_bounds__(SUB_THREADS, 2) sub_tiled_kernel(
     // the column tile is done: |y|^2 of the 8 points in the parent's order
     float m[8];
     if constexpr (DP == 256) {
+      // lane l's chain over its columns of this panel, carried on from the
+      // sub-factor's earlier panels (carry is 0 at a sub-factor's first)
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        float v = 0.f;
+        float v = carry[i];
 #pragma unroll
         for (int k = 0; k < 8; ++k) v = fmaf(acc[i][k], acc[i][k], v);
-        m[i] = v;
+        carry[i] = v;
+        acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+        acc[i][4] = acc[i][5] = acc[i][6] = acc[i][7] = 0.f;
+      }
+      if ((t / ns) % npan != npan - 1) continue;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        m[i] = carry[i];
+        carry[i] = 0.f;
       }
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1) {
@@ -476,7 +510,7 @@ __global__ void __launch_bounds__(SUB_THREADS, 2) sub_tiled_kernel(
         }
       }
     } else if (owner) {
-      const int s = t / ns;
+      const int s = t / ns / npan;
       const size_t ks = 2 * (size_t)l + s;
       float v = 0.5f * (__ldg(sub_logdet + ks) - mi) - half_d_log2pi;
       v = v + __ldg(sublogw + ks);
@@ -506,36 +540,39 @@ int launch_product(Kernel kernel, int smem, int grid, const float* x, int d,
 
 }  // namespace repro_torch
 
-// scratch: 4 K + 2 + n ints, which the launcher zeroes where it must (the
-// counts and the placement cursors: a memset on the stream, no kernel of
-// the caller's). dp, per, grid, smem and sort_smem are the wrapper's
-// sub_plan.
+// One slot window [k0, k0 + W) of K slots: sub_mu .. sublogw are the whole
+// (K, 2, ...) sub-components, of which it reads the window's. scratch:
+// 4 W + 2 + n ints, which the launcher zeroes where it must (the counts
+// and the placement cursors: a memset on the stream, no kernel of the
+// caller's). dp, per, grid, smem and sort_smem are the wrapper's sub_plan
+// for the window.
 extern "C" int sub_assign_gauss_launch(
-    const float* x, int n, int d, const int* labels, int K,
+    const float* x, int n, int d, const int* labels, int K, int k0, int W,
     const float* sub_mu, const float* sub_chol, const float* sub_logdet,
     const float* sublogw, const long long* gidx, const long long* key_zb,
     int dp, int per, int grid, int smem, int sort_smem, int* scratch,
     int* sublabels, void* stream) {
   using namespace repro_torch;
-  if (n <= 0 || K <= 0 || K > SUB_MAX_K || d <= 0 || d > SUB_MAX_D)
+  if (n <= 0 || K <= 0 || W <= 0 || W > SUB_MAX_K || k0 < 0 || k0 > K - W ||
+      d <= 0)
     return (int)cudaErrorInvalidValue;
   const int want = d <= 4 ? 4 : d <= 8 ? 8 : d <= 16 ? 16 : d <= 32 ? 32
                  : d <= 64 ? 64 : d <= 128 ? 128 : 256;
   const int want_per = want <= 64 ? SUB_NARROW_PER : ST_PTS;
   const long long want_grid =
-      ((long long)n + want_per - 1) / want_per + (K < n ? K : n);
+      ((long long)n + want_per - 1) / want_per + (W < n ? W : n);
   if (dp != want || per != want_per || (long long)grid != want_grid ||
       smem != sub_smem_bytes(want))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* counts = scratch;
-  int* cursor = counts + K;
-  int* start = cursor + K;
-  int* items = start + K + 1;
-  int* order = items + K + 1;
+  int* cursor = counts + W;
+  int* start = cursor + W;
+  int* items = start + W + 1;
+  int* order = items + W + 1;
   const int sort_grid = (n + SUB_SORT_PB - 1) / SUB_SORT_PB;
-  const int count_smem = (int)sizeof(int) * K;
-  const int place_smem = (int)sizeof(int) * (3 * K + 2 + 32);
+  const int count_smem = (int)sizeof(int) * W;
+  const int place_smem = (int)sizeof(int) * (3 * W + 2 + 32);
   if (sort_smem != place_smem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       sub_count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -545,18 +582,24 @@ extern "C" int sub_assign_gauss_launch(
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                place_smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(counts, 0, sizeof(int) * 2 * (size_t)K, s);
+  err = cudaMemsetAsync(counts, 0, sizeof(int) * 2 * (size_t)W, s);
   if (err != cudaSuccess) return (int)err;
   sub_count_kernel<<<sort_grid, SUB_THREADS, count_smem, s>>>(
-      labels, n, K, counts, sublabels);
+      labels, n, W, k0, K, counts, sublabels);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sub_place_kernel<<<sort_grid, SUB_THREADS, place_smem, s>>>(
-      labels, n, K, per, counts, cursor, start, items, order);
+      labels, n, W, k0, per, counts, cursor, start, items, order);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  // the window's sub-components: labels are window-local from here
+  const size_t w0 = 2 * (size_t)k0;
+  sub_mu += w0 * d;
+  sub_chol += w0 * d * d;
+  sub_logdet += w0;
+  sublogw += w0;
 #define REPRO_SUB_PRODUCT(KERNEL)                                           \
-  return launch_product(KERNEL, smem, grid, x, d, K, sub_mu, sub_chol,     \
+  return launch_product(KERNEL, smem, grid, x, d, W, sub_mu, sub_chol,     \
                         sub_logdet, sublogw, gidx, key_zb, start, items,   \
                         order, sublabels, s)
   switch (dp) {

@@ -60,7 +60,20 @@
 // depends on (N, d, K) only and no float atomics are used, so two
 // launches give the same bits.
 //
-// Limits: 1 <= d <= 256, K <= 8192, N < 2^31.
+// Past d = 256 (PANEL): the staged row of a cluster would pass a block's
+// shared memory, so a block stages only the two 128-column panels its
+// tile needs: x columns [128 ta, 128 ta + 128) of its rows and [128 tb,
+// 128 tb + 128) of its columns, side by side in a 256-float row; the grid
+// is K ceil(d / 128)^2 tiles and the shared layout the d <= 256 one's.
+// Every entry keeps the chain above: fmaf(w x_a, x_b, acc) over a chunk's
+// points in order, the chunks folded left to right.
+//
+// Slot windows. One launch takes the responsibility columns of one window
+// [k0, k0 + K) of k_all (K <= 8192, the launcher's grid rule) and writes
+// the window's clusters of n, sx and sxx; the wrapper runs the windows of
+// kernels/suffstats.py slot_windows in turn.
+//
+// Limits: any d, K <= 8192 a window, N < 2^31.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -104,8 +117,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // copy, a tenth of the slab's FMA issue slots at d = 256.
 template <int W, int NCL>
 __device__ __forceinline__ void load_slab(
-    const float* __restrict__ x, const float* __restrict__ r, int d, int K,
-    int k_lo, int nk, int p0, int p_end, bool vec, float* xd, float* rd) {
+    const float* __restrict__ x, const float* __restrict__ r, int d,
+    long long ldr, int k_lo, int nk, int p0, int p_end, bool vec, float* xd,
+    float* rd) {
   const int tid = threadIdx.x;
   const int left = p_end - p0;   // points of the chunk from p0 (p0 + p
                                  // may pass 2^31 - 1 at the last slab)
@@ -146,7 +160,8 @@ __device__ __forceinline__ void load_slab(
         const int p = e / NCL, c = e % NCL;
         const bool ok = p < left;
         cp_async4(rd + p * NCL + c,
-                  ok ? r + (size_t)(p0 + p) * K + k_lo + c : r, ok ? 4 : 0);
+                  ok ? r + (size_t)(p0 + p) * ldr + k_lo + c : r,
+                  ok ? 4 : 0);
       }
     }
   } else {
@@ -154,8 +169,49 @@ __device__ __forceinline__ void load_slab(
       const int p = e / nk, c = e - p * nk;
       const bool ok = p < left;
       cp_async4(rd + p * NCL + c,
-                ok ? r + (size_t)(p0 + p) * K + k_lo + c : r, ok ? 4 : 0);
+                ok ? r + (size_t)(p0 + p) * ldr + k_lo + c : r, ok ? 4 : 0);
     }
+  }
+}
+
+// One slab of the panel layout (d > 256): for points [p0, p0 + P), x
+// columns [a_lo, a_lo + 128) into floats 0..127 of a 256-float row and
+// [b_lo, b_lo + 128) into floats 128..255 (zero past d), and the one
+// cluster's r value.
+__device__ __forceinline__ void load_panel(
+    const float* __restrict__ x, const float* __restrict__ r, int d,
+    long long ldr, int k_lo, int a_lo, int b_lo, int p0, int p_end, bool vec,
+    float* xd, float* rd) {
+  constexpr int SW = 256, H = 128;
+  const int tid = threadIdx.x;
+  const int left = p_end - p0;
+  if (vec) {
+    constexpr int Q = SW / 4, E = DENSE_P * Q;
+#pragma unroll
+    for (int i = 0; i < E / DENSE_THREADS; ++i) {
+      const int e = tid + i * DENSE_THREADS;
+      const int p = e / Q, cs = 4 * (e % Q);
+      const int c = cs < H ? a_lo + cs : b_lo + cs - H;
+      const bool ok = p < left && c < d;
+      cp_async16(xd + p * SW + cs, ok ? x + (size_t)(p0 + p) * d + c : x,
+                 ok ? 16 : 0);
+    }
+  } else {
+    constexpr int E = DENSE_P * SW;
+#pragma unroll 4
+    for (int i = 0; i < E / DENSE_THREADS; ++i) {
+      const int e = tid + i * DENSE_THREADS;
+      const int p = e / SW, cs = e % SW;
+      const int c = cs < H ? a_lo + cs : b_lo + cs - H;
+      const bool ok = p < left && c < d;
+      cp_async4(xd + p * SW + cs, ok ? x + (size_t)(p0 + p) * d + c : x,
+                ok ? 4 : 0);
+    }
+  }
+  if (tid < DENSE_P) {
+    const bool ok = tid < left;
+    cp_async4(rd + tid, ok ? r + (size_t)(p0 + tid) * ldr + k_lo : r,
+              ok ? 4 : 0);
   }
 }
 
@@ -173,35 +229,45 @@ struct DenseTile {
   static_assert(SMEM <= SMEM_LIMIT, "a Hopper block's shared memory");
 };
 
-template <int BN, int W>
+// K: the window's clusters, r its first responsibility column, ldr the
+// row stride of r; PANEL (W = 256, BN = 128, d > 256): nt = ceil(d / 128)
+// column tiles a side.
+template <int BN, int W, bool PANEL>
 __global__ void __launch_bounds__(DENSE_THREADS, 2) suffstats_dense_kernel(
     const float* __restrict__ x, const float* __restrict__ r, int n, int d,
-    int K, int chunk, int vec, float* __restrict__ part) {
+    int K, long long ldr, int nt, int chunk, int vec,
+    float* __restrict__ part) {
   using T = DenseTile<BN, W>;
-  constexpr int BM = T::BM, NBT = T::NBT, NCL = T::NCL;
+  constexpr int BM = T::BM, NCL = T::NCL;
+  static_assert(!PANEL || (BN == 128 && W == 256), "the panel tile");
+  const int NBT = PANEL ? nt : T::NBT;
   constexpr int TXN = BN / 8;                    // threads along columns
   constexpr int RPT = (BM + DENSE_THREADS - 1) / DENSE_THREADS;
   // two threads a row in the a-side pass: faster at d > 128 (10.2 against
   // 10.8 ms at 10^5 x 256, K = 32), slower at d <= 128 (4.95 against 4.83
   // ms at 2 10^5 x 128, where every block also sums sx), on an H100 80GB
   // HBM3 at 700 W
-  constexpr bool SPLIT = 2 * BM == DENSE_THREADS && NBT > 1;
+  constexpr bool SPLIT = 2 * BM == DENSE_THREADS && (PANEL || T::NBT > 1);
   extern __shared__ __align__(16) float smem_f[];
   float* xs = smem_f;                              // STAGES x P x W
   float* rs = xs + DENSE_STAGES * DENSE_P * W;     // STAGES x P x NCL
   float* wx = rs + DENSE_STAGES * DENSE_P * NCL;   // P x BM: w x_a
   const int tid = threadIdx.x;
   const int bt = blockIdx.x % NBT;
+  // the cluster's row space: W rows, or nt 128-row tiles in panels
+  const int vw = PANEL ? nt * BM : W;
   const long long r0 = (long long)(blockIdx.x / NBT) * BM;
-  const int k_lo = (int)(r0 / W);
-  const int a_lo = (int)(r0 - (long long)k_lo * W);   // 0 or 128
+  const int k_lo = (int)(r0 / vw);
+  const int a_lo = (int)(r0 - (long long)k_lo * vw);  // 0, 128, ..
   const int nk = K - k_lo < NCL ? K - k_lo : NCL;
+  // where this block's a-side rows and b-side columns sit in a staged row
+  const int xa = PANEL ? 0 : a_lo, xc = PANEL ? 128 - bt * BN : 0;
 
   // this thread's Gram rows (block-local): two groups of 4, BM / 2 apart;
   // its columns: two groups of 4, BN / 2 apart
   const int tx = tid % TXN, ty = tid / TXN;
   const int g0 = 4 * ty, g1 = g0 + BM / 2;
-  const int c0 = bt * BN + 4 * tx, c1 = c0 + BN / 2;
+  const int c0 = bt * BN + 4 * tx, c1 = c0 + BN / 2;   // output columns
   // rows past the last cluster (a block of fewer clusters, d <= 64) do no
   // work: whole warps of them skip the FMAs at small K. A block of one
   // cluster (d > 64) is all live.
@@ -231,11 +297,18 @@ __global__ void __launch_bounds__(DENSE_THREADS, 2) suffstats_dense_kernel(
   const int ns = p_end > p_begin ? (p_end - p_begin + DENSE_P - 1) / DENSE_P
                                  : 0;
   const bool v = vec != 0;
+  auto load = [&](int s, int b) {
+    if constexpr (PANEL)
+      load_panel(x, r, d, ldr, k_lo, a_lo, bt * BN, p_begin + s * DENSE_P,
+                 p_end, v, xs + b * DENSE_P * W, rs + b * DENSE_P * NCL);
+    else
+      load_slab<W, NCL>(x, r, d, ldr, k_lo, nk, p_begin + s * DENSE_P,
+                        p_end, v, xs + b * DENSE_P * W,
+                        rs + b * DENSE_P * NCL);
+  };
 #pragma unroll
   for (int s = 0; s < DENSE_STAGES - 1; ++s) {
-    if (s < ns)
-      load_slab<W, NCL>(x, r, d, K, k_lo, nk, p_begin + s * DENSE_P, p_end,
-                        v, xs + s * DENSE_P * W, rs + s * DENSE_P * NCL);
+    if (s < ns) load(s, s);
     cp_async_commit();
   }
   for (int s = 0; s < ns; ++s) {
@@ -243,12 +316,7 @@ __global__ void __launch_bounds__(DENSE_THREADS, 2) suffstats_dense_kernel(
     __syncthreads();                     // ... and every thread's; slab
                                          // s - 1's buffers and wx are free
     const int nxt = s + DENSE_STAGES - 1;
-    if (nxt < ns) {
-      const int b = nxt % DENSE_STAGES;
-      load_slab<W, NCL>(x, r, d, K, k_lo, nk, p_begin + nxt * DENSE_P,
-                        p_end, v, xs + b * DENSE_P * W,
-                        rs + b * DENSE_P * NCL);
-    }
+    if (nxt < ns) load(nxt, nxt % DENSE_STAGES);
     cp_async_commit();
     const int b = s % DENSE_STAGES;
     const float* xb = xs + b * DENSE_P * W;
@@ -262,7 +330,7 @@ __global__ void __launch_bounds__(DENSE_THREADS, 2) suffstats_dense_kernel(
     // barrier, so the order stays the points'.
     if (SPLIT) {
       const int g = tid % BM, h = tid / BM;
-      const float* xr = xb + a_lo + g;
+      const float* xr = xb + xa + g;
 #pragma unroll 8
       for (int i = 0; i < DENSE_P / 2; ++i) {
         const int p = h * (DENSE_P / 2) + i;
@@ -312,8 +380,10 @@ __global__ void __launch_bounds__(DENSE_THREADS, 2) suffstats_dense_kernel(
     for (int p = 0; p < DENSE_P; ++p) {
       const float4 va0 = *reinterpret_cast<const float4*>(wx + p * BM + g0);
       const float4 va1 = *reinterpret_cast<const float4*>(wx + p * BM + g1);
-      const float4 vb0 = *reinterpret_cast<const float4*>(xb + p * W + c0);
-      const float4 vb1 = *reinterpret_cast<const float4*>(xb + p * W + c1);
+      const float4 vb0 =
+          *reinterpret_cast<const float4*>(xb + p * W + xc + c0);
+      const float4 vb1 =
+          *reinterpret_cast<const float4*>(xb + p * W + xc + c1);
       const float wa[8] = {va0.x, va0.y, va0.z, va0.w,
                            va1.x, va1.y, va1.z, va1.w};
       const float vb[8] = {vb0.x, vb0.y, vb0.z, vb0.w,
@@ -334,7 +404,7 @@ __global__ void __launch_bounds__(DENSE_THREADS, 2) suffstats_dense_kernel(
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int g = a_lo + (h == 0 ? g0 : g1);
-    const int k = k_lo + g / W, a_base = g % W;
+    const int k = k_lo + g / vw, a_base = g % vw;
     if (k >= K) continue;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -353,7 +423,7 @@ __global__ void __launch_bounds__(DENSE_THREADS, 2) suffstats_dense_kernel(
   for (int q = 0; q < RPT; ++q) {
     const int g = tid + q * DENSE_THREADS;
     if (g >= BM) continue;
-    const int k = k_lo + (a_lo + g) / W, a = (a_lo + g) % W;
+    const int k = k_lo + (a_lo + g) / vw, a = (a_lo + g) % vw;
     if (k >= K || a >= d) continue;
     out_sx[(size_t)k * d + a] = sx[q];
     if (a == 0) out[k] = nn[q];
@@ -361,30 +431,45 @@ __global__ void __launch_bounds__(DENSE_THREADS, 2) suffstats_dense_kernel(
 }
 
 // out[j] = (((0 + part[0][j]) + part[1][j]) + ...): the chunks in order.
+// part holds the window's K clusters' n (K), sx (K, d), sxx (K, d, d); out
+// all k_all clusters', of which the window's start at cluster k0.
 __global__ void __launch_bounds__(FOLD_THREADS) fold_chunks_kernel(
-    const float* __restrict__ part, long long m, int nc,
-    float* __restrict__ out) {
+    const float* __restrict__ part, long long m, int nc, int K, int d,
+    int k0, int k_all, float* __restrict__ out) {
   const long long j = (long long)blockIdx.x * FOLD_THREADS + threadIdx.x;
   if (j >= m) return;
   float s = 0.f;
   for (int c = 0; c < nc; ++c) s = __fadd_rn(s, part[(size_t)c * m + j]);
-  out[j] = s;
+  const long long kd = (long long)K * d, dd = (long long)d * d;
+  long long o;
+  if (j < K)
+    o = k0 + j;
+  else if (j < K + kd)
+    o = k_all + (long long)k0 * d + (j - K);
+  else
+    o = k_all + (long long)k_all * d + (long long)k0 * dd + (j - K - kd);
+  out[o] = s;
 }
 
-template <int BN, int W>
+template <int BN, int W, bool PANEL = false>
 cudaError_t launch_dense(const float* x, const float* r, int n, int d, int K,
-                         int chunk, int nc, int smem, bool vec, float* part,
-                         cudaStream_t s) {
+                         long long ldr, int chunk, int nc, int smem, bool vec,
+                         float* part, cudaStream_t s) {
   using T = DenseTile<BN, W>;
-  if (d > W || smem != T::SMEM) return cudaErrorInvalidValue;
+  if ((PANEL ? d <= W : d > W) || smem != T::SMEM)
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      suffstats_dense_kernel<BN, W>,
+      suffstats_dense_kernel<BN, W, PANEL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const long long gx = ((long long)K * W + T::BM - 1) / T::BM * T::NBT;
-  suffstats_dense_kernel<BN, W><<<dim3((unsigned)gx, nc), DENSE_THREADS,
-                                  smem, s>>>(x, r, n, d, K, chunk,
-                                             vec ? 1 : 0, part);
+  const int nt = (d + T::BM - 1) / T::BM;
+  const long long gx =
+      PANEL ? (long long)K * nt * nt
+            : ((long long)K * W + T::BM - 1) / T::BM * T::NBT;
+  if (gx > 0x7fffffffLL) return cudaErrorInvalidValue;
+  suffstats_dense_kernel<BN, W, PANEL><<<dim3((unsigned)gx, nc),
+                                         DENSE_THREADS, smem, s>>>(
+      x, r, n, d, K, ldr, nt, chunk, vec ? 1 : 0, part);
   return cudaGetLastError();
 }
 
@@ -392,43 +477,52 @@ cudaError_t launch_dense(const float* x, const float* r, int n, int d, int K,
 
 // The launch is the wrapper's choice (kernels/suffstats.py dense_plan, a
 // function of the shape only): the tile (bn, width), one of the five
-// instantiated here, with width >= d; chunks of whole slabs, none empty;
-// smem, which must be that tile's layout.
+// instantiated here, with width >= d, or the panel tile (128, 256) past
+// d = 256; chunks of whole slabs, none empty; smem, which must be that
+// tile's layout. One slot window [k0, k0 + K) of k_all clusters: r is the
+// whole (n, k_all) responsibility matrix, part the window's chunk
+// partials, out all k_all clusters' n, sx, sxx.
 extern "C" int suffstats_dense_launch(const float* x, const float* r, int n,
-                                      int d, int K, int bn, int width,
-                                      int chunk, int nc, int smem,
-                                      float* part, float* out,
+                                      int d, int k_all, int k0, int K,
+                                      int bn, int width, int chunk, int nc,
+                                      int smem, float* part, float* out,
                                       void* stream) {
   using namespace repro_torch;
-  if (n <= 0 || d <= 0 || K <= 0 || K > 8192 || nc <= 0 || nc > 65535 ||
-      chunk <= 0 || chunk % DENSE_P != 0 || (long long)nc * chunk < n ||
-      (long long)(nc - 1) * chunk >= n)
+  if (n <= 0 || d <= 0 || K <= 0 || K > 8192 || k0 < 0 || k0 > k_all - K ||
+      nc <= 0 || nc > 65535 || chunk <= 0 || chunk % DENSE_P != 0 ||
+      (long long)nc * chunk < n || (long long)(nc - 1) * chunk >= n)
     return (int)cudaErrorInvalidValue;
   const bool vec = d % 4 == 0 &&
                    reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* rw = r + k0;
+  const long long ldr = k_all;
   cudaError_t err;
   if (bn == 16 && width == 16)
-    err = launch_dense<16, 16>(x, r, n, d, K, chunk, nc, smem, vec, part,
-                               s);
+    err = launch_dense<16, 16>(x, rw, n, d, K, ldr, chunk, nc, smem, vec,
+                               part, s);
   else if (bn == 32 && width == 32)
-    err = launch_dense<32, 32>(x, r, n, d, K, chunk, nc, smem, vec, part,
-                               s);
+    err = launch_dense<32, 32>(x, rw, n, d, K, ldr, chunk, nc, smem, vec,
+                               part, s);
   else if (bn == 64 && width == 64)
-    err = launch_dense<64, 64>(x, r, n, d, K, chunk, nc, smem, vec, part,
-                               s);
+    err = launch_dense<64, 64>(x, rw, n, d, K, ldr, chunk, nc, smem, vec,
+                               part, s);
   else if (bn == 128 && width == 128)
-    err = launch_dense<128, 128>(x, r, n, d, K, chunk, nc, smem, vec, part,
-                                 s);
+    err = launch_dense<128, 128>(x, rw, n, d, K, ldr, chunk, nc, smem, vec,
+                                 part, s);
+  else if (bn == 128 && width == 256 && d <= 256)
+    err = launch_dense<128, 256>(x, rw, n, d, K, ldr, chunk, nc, smem, vec,
+                                 part, s);
   else if (bn == 128 && width == 256)
-    err = launch_dense<128, 256>(x, r, n, d, K, chunk, nc, smem, vec, part,
-                                 s);
+    err = launch_dense<128, 256, true>(x, rw, n, d, K, ldr, chunk, nc, smem,
+                                       vec, part, s);
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
   const long long m = (long long)K * (1 + d + (long long)d * d);
   fold_chunks_kernel<<<(unsigned)((m + FOLD_THREADS - 1) / FOLD_THREADS),
-                       FOLD_THREADS, 0, s>>>(part, m, nc, out);
+                       FOLD_THREADS, 0, s>>>(part, m, nc, K, d, k0, k_all,
+                                             out);
   return (int)cudaGetLastError();
 }
 

@@ -37,8 +37,16 @@
 // instantiates E in {8, 16, 32, 64, 128}, each with and without 16-byte
 // rows, and refuses any other plan.
 //
-// Limits: 1 <= k <= 8192, 1 <= d <= 256 (a block's 2k d^2 <= 2^30 entries;
-// offsets are 64-bit).
+// Slot windows. One launch folds the labels of one window [k0, k0 + W)
+// of the k slots (W <= 8192: its 2W + 1 offsets and the sort's cursors
+// live in shared memory) into that window's rows of the (nsb, k, 2, ...)
+// partials; labels outside the window add nothing to it, as labels
+// outside [0, k) add nothing at all. The wrapper launches the windows of
+// kernels/suffstats.py slot_windows in turn, so every output entry is
+// written by exactly one launch, with the chain it has at any k.
+//
+// Limits: 1 <= W <= 8192 slots a launch, any k and d (a segment walks
+// ceil(d / 128)^2 Gram tiles past d = 128; offsets are 64-bit).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,12 +64,14 @@ __host__ inline size_t stats_smem_bytes(int K) {
                         sort_scratch_ints(S));
 }
 
+// K: the window's slots (labels k0 .. k0 + K - 1); S_out: segments a
+// block of the partials (2k), whose window rows n2, sx2, sxx2 point at.
 template <int E, bool VEC>
 __global__ void __launch_bounds__(STATS_THREADS, 2) suffstats_labels_kernel(
     const float* __restrict__ x, int n, int d, const int* __restrict__ labels,
     const int* __restrict__ sublabels, const float* __restrict__ valid, int K,
-    float* __restrict__ n2, float* __restrict__ sx2,
-    float* __restrict__ sxx2) {
+    int k0, long long S_out, float* __restrict__ n2,
+    float* __restrict__ sx2, float* __restrict__ sxx2) {
   extern __shared__ int smem_i[];
   const int S = 2 * K;
   int* seg = smem_i;                                      // STATS_BLOCK
@@ -74,24 +84,24 @@ __global__ void __launch_bounds__(STATS_THREADS, 2) suffstats_labels_kernel(
   const long long rest = (long long)n - (long long)base;
   const int np = rest < STATS_BLOCK ? (int)rest : STATS_BLOCK;
   for (int p = threadIdx.x; p < np; p += STATS_THREADS) {
-    const int l = labels[base + p], s = sublabels[base + p];
+    const int l = labels[base + p] - k0, s = sublabels[base + p];
     const float v = valid[base + p];
     const bool in = v != 0.f && l >= 0 && l < K && s >= 0 && s <= 1;
     seg[p] = in ? 2 * l + s : -1;
     w[p] = v;
   }
   __syncthreads();
-  const size_t blk = blockIdx.x;
+  const size_t row = (size_t)blockIdx.x * S_out;
   fold_segments<E, VEC>(x + base * d, w, d, np, S, seg, idx, start, scratch,
-                        n2 + blk * S, sx2 + blk * S * d,
-                        sxx2 + blk * S * d * d, blockIdx.y, gridDim.y);
+                        n2 + row, sx2 + row * d, sxx2 + row * d * d,
+                        blockIdx.y, gridDim.y);
 }
 
 template <int E>
 int launch_edge(bool vec, const float* x, int n, int d, const int* labels,
-                const int* sublabels, const float* valid, int K, int splits,
-                float* n2, float* sx2, float* sxx2, size_t smem,
-                cudaStream_t stream) {
+                const int* sublabels, const float* valid, int K, int k0,
+                long long S_out, int splits, float* n2, float* sx2,
+                float* sxx2, size_t smem, cudaStream_t stream) {
   auto kernel = vec ? suffstats_labels_kernel<E, true>
                     : suffstats_labels_kernel<E, false>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -99,34 +109,41 @@ int launch_edge(bool vec, const float* x, int n, int d, const int* labels,
   if (err != cudaSuccess) return (int)err;
   const int nsb = (n + STATS_BLOCK - 1) / STATS_BLOCK;
   kernel<<<dim3(nsb, splits), STATS_THREADS, smem, stream>>>(
-      x, n, d, labels, sublabels, valid, K, n2, sx2, sxx2);
+      x, n, d, labels, sublabels, valid, K, k0, S_out, n2, sx2, sxx2);
   return (int)cudaGetLastError();
 }
 
 }  // namespace repro_torch
 
-// edge, smem, splits: the wrapper's stats_plan (the tile edge
-// gram_edge(d), the kernel's shared bytes, and the blocks that share a
-// STATS_BLOCK, 1 to 4); any other plan is refused.
+// One slot window [k0, k0 + W) of k slots: n2, sx2, sxx2 are the whole
+// (nsb, k, 2, ...) partials, of which it writes the window's rows. edge,
+// smem, splits: the wrapper's stats_plan for the window (the tile edge
+// gram_edge(d), the kernel's shared bytes for W slots, and the blocks
+// that share a STATS_BLOCK, 1 to 4); any other plan is refused.
 extern "C" int suffstats_labels_launch(const float* x, int n, int d,
                                        const int* labels,
                                        const int* sublabels,
-                                       const float* valid, int K, int edge,
-                                       int smem, int splits, float* n2,
-                                       float* sx2, float* sxx2,
+                                       const float* valid, int k, int k0,
+                                       int W, int edge, int smem, int splits,
+                                       float* n2, float* sx2, float* sxx2,
                                        void* stream) {
   using namespace repro_torch;
-  if (n <= 0 || d <= 0 || d > 256 || K <= 0 || K > 8192 ||
-      edge != gram_edge(d) || (size_t)smem != stats_smem_bytes(K) ||
-      splits < 1 || splits > 4)
+  if (n <= 0 || d <= 0 || k <= 0 || W <= 0 || W > 8192 || k0 < 0 ||
+      k0 > k - W || edge != gram_edge(d) ||
+      (size_t)smem != stats_smem_bytes(W) || splits < 1 || splits > 4)
     return (int)cudaErrorInvalidValue;
+  const long long S_out = 2LL * k;
+  const size_t off = 2 * (size_t)k0;
+  n2 += off;
+  sx2 += off * d;
+  sxx2 += off * d * d;
   const bool vec = (d & 3) == 0 && ((uintptr_t)x & 15) == 0 &&
                    ((uintptr_t)sxx2 & 15) == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_STATS_EDGE(E)                                                \
   if (edge == E)                                                           \
-  return launch_edge<E>(vec, x, n, d, labels, sublabels, valid, K, splits, \
-                        n2, sx2, sxx2, (size_t)smem, s)
+  return launch_edge<E>(vec, x, n, d, labels, sublabels, valid, W, k0,   \
+                        S_out, splits, n2, sx2, sxx2, (size_t)smem, s)
   REPRO_STATS_EDGE(8);
   REPRO_STATS_EDGE(16);
   REPRO_STATS_EDGE(32);

@@ -41,10 +41,11 @@ in-block layout; past d = 128, the panel layout, which takes any d:
 grid of point tiles x slot groups that ``panel_plan`` chooses. With
 several slot groups an ``assign_gauss`` call is two launches, the groups'
 rows folded by the second (``assign_gauss_launches``). ``sub_assign_gauss``
-groups the points by label across the batch (three launches a call,
-``SUB_LAUNCHES``), then stages a label's factors once for a run of its
-points (``sub_plan``: a thread a point at d <= 64, a register-tiled
-product above), and stops at ``suffstats.MAX_D`` = 256.
+groups the points by label across the batch (three launches a slot
+window, ``SUB_LAUNCHES``, over the windows of ``suffstats.slot_windows``),
+then stages a label's factors once for a run of its points
+(``sub_plan``: a thread a point at d <= 64, a register-tiled product
+above, in column panels of 256 past d = 256), and takes any d and K.
 """
 from __future__ import annotations
 
@@ -55,7 +56,7 @@ import torch
 
 from repro_torch.kernels import build, prng
 from repro_torch.kernels.launch import check_cuda, launch
-from repro_torch.kernels.suffstats import MAX_D, MAX_DP, MAX_K
+from repro_torch.kernels.suffstats import MAX_DP, MAX_K, slot_windows
 from repro_torch.kernels.sweep import (LOG_2PI, NEG_INF, TE_BM,
                                        assign_linear_plain,
                                        sub_assign_linear_plain, te_smem)
@@ -266,8 +267,9 @@ def _check_launch(name, x, width, k, max_width, what, tensors) -> None:
         raise ValueError(f"{name}_cuda takes CUDA tensors; the plain "
                          "version serves the CPU")
     if not 1 <= width <= max_width:
+        why = " (an int in the kernel)" if max_width == PANEL_MAX else ""
         raise ValueError(f"{name}: {what}={width} outside [1, {max_width}]"
-                         " (ROADMAP.md §3)")
+                         f"{why}")
     if k < 1 or n == 0:
         raise ValueError(f"{name}: needs K >= 1 slots and points, got "
                          f"K={k}, N={n}")
@@ -359,13 +361,13 @@ SUB_BK, SUB_COLS, SUB_XS, SUB_STAGES = 16, 256, 64 + 4, 3
 
 
 class SubPlan(NamedTuple):
-    """The launches of ``csrc/sub_assign_gauss.cu``: the histogram and the
-    placement (blocks of 1024 points; the placement with
-    ``sort_smem`` shared bytes: offsets, items, counts, first slots, the
-    scan's warp totals), then the product at padded width ``dp`` (4..64
-    narrow, 128 or 256 tiled), ``per`` points an item, on a ``grid`` of
-    blocks (at least the items, one label's run each) with ``smem`` dynamic
-    shared bytes."""
+    """The launches of ``csrc/sub_assign_gauss.cu`` for one slot window:
+    the histogram and the placement (blocks of 1024 points; the placement
+    with ``sort_smem`` shared bytes: offsets, items, counts, first slots,
+    the scan's warp totals), then the product at padded width ``dp`` (4..64
+    narrow, 128 or 256 tiled; 256 past d = 256 too, in ceil(d / 256) column
+    panels), ``per`` points an item, on a ``grid`` of blocks (at least the
+    items, one label's run each) with ``smem`` dynamic shared bytes."""
     dp: int
     per: int
     grid: int
@@ -375,18 +377,19 @@ class SubPlan(NamedTuple):
 
 @lru_cache(maxsize=256)
 def sub_plan(n: int, d: int, k: int) -> SubPlan:
-    """``sub_assign_gauss``'s layout for (n, d, k), chosen here only: the
-    launcher refuses any other. Up to d = 64 a thread takes a point against
-    the label's two factors staged whole (sub_tile.cuh, the one-read
-    sweep's step (f)); above, the two factors are streamed in row slabs
-    through a register-tiled product of 64 points, whose shared bytes do
-    not grow with d (both sub-factors side by side in a 256-column tile at
-    d <= 128, one a pass at d <= 256). The grid bounds the items: a label
-    of c points has ceil(c / per), so at most ceil(n / per) + min(k, n)."""
-    if not (1 <= n < 2 ** 31 and 1 <= d <= MAX_D and 1 <= k <= MAX_K):
+    """``sub_assign_gauss``'s layout for (n, d) and a slot window of k
+    slots, chosen here only: the launcher refuses any other. Up to d = 64
+    a thread takes a point against the label's two factors staged whole
+    (sub_tile.cuh, the one-read sweep's step (f)); above, the two factors
+    are streamed in row slabs through a register-tiled product of 64
+    points, whose shared bytes do not grow with d (both sub-factors side by
+    side in a 256-column tile at d <= 128, one a pass above, in column
+    panels of 256 past d = 256). The grid bounds the items: a label of c
+    points has ceil(c / per), so at most ceil(n / per) + min(k, n)."""
+    if not (1 <= n < 2 ** 31 and 1 <= d < 2 ** 31 and 1 <= k <= MAX_K):
         raise ValueError(f"sub_assign_gauss: N={n}, d={d}, K={k} outside "
-                         f"[1, 2^31), [1, {MAX_D}], [1, {MAX_K}]")
-    dp = next(p for p in (4, 8, 16, 32, 64, 128, 256) if d <= p)
+                         f"[1, 2^31), [1, 2^31), [1, {MAX_K}]")
+    dp = next((p for p in (4, 8, 16, 32, 64, 128) if d <= p), 256)
     if dp <= SUB_NARROW_D:
         per = SUB_NARROW_PER
         # the staged tile: two factors, two means, and four ints a slot
@@ -416,30 +419,36 @@ def sub_col(dp: int, lane: int, k: int) -> int:
 
 def sub_assign_gauss_cuda(x, sub_mu, sub_chol_prec, sub_logdet_prec,
                           sublogw, labels, gidx, key_zb) -> torch.Tensor:
-    """One call of ``csrc/sub_assign_gauss.cu`` on the current stream:
-    the label histogram, the placement by label and the product of
-    ``sub_plan``, each counted in ``launches``."""
+    """One call of ``csrc/sub_assign_gauss.cu`` on the current stream: for
+    each slot window (``slot_windows``), the label histogram, the
+    placement by label and the product of ``sub_plan``, each counted in
+    ``launches``."""
     n, d = x.shape
     k = sub_mu.shape[0]
-    _check_launch("sub_assign_gauss", x, d, k, MAX_D, "d", (
+    _check_launch("sub_assign_gauss", x, d, k, PANEL_MAX, "d", (
         ("sub_mu", sub_mu, F32, (k, 2, d)),
         ("sub_chol_prec", sub_chol_prec, F32, (k, 2, d, d)),
         ("sub_logdet_prec", sub_logdet_prec, F32, (k, 2)))
         + _step_f_rows(n, k, sublogw, labels, gidx, key_zb))
-    plan = sub_plan(n, d, k)
+    wins = slot_windows(k)
+    plans = [sub_plan(n, d, w) for _, w in wins]
     sublabels = torch.empty((n,), device=x.device, dtype=torch.int32)
-    # the label counts and placement cursors (the launcher zeroes them),
-    # offsets, items and the point ids by label
-    scratch = torch.empty((4 * k + 2 + n,), device=x.device,
+    # a window's label counts and placement cursors (the launcher zeroes
+    # them), offsets, items and the point ids by label, reused window
+    # after window on the stream
+    w_max = max(w for _, w in wins)
+    scratch = torch.empty((4 * w_max + 2 + n,), device=x.device,
                           dtype=torch.int32)
     fn = build.c_function("sub_assign_gauss", "sub_assign_gauss_launch",
-                          "piipipppppp" + "iiiii" + "ppp")
-    launch(fn, x.device, x.data_ptr(), n, d, labels.data_ptr(), k,
-           sub_mu.data_ptr(), sub_chol_prec.data_ptr(),
-           sub_logdet_prec.data_ptr(), sublogw.data_ptr(), gidx.data_ptr(),
-           key_zb.data_ptr(), plan.dp, plan.per, plan.grid, plan.smem,
-           plan.sort_smem, scratch.data_ptr(), sublabels.data_ptr())
-    sub_assign_gauss_cuda.launches += SUB_LAUNCHES
+                          "piipiiipppppp" + "iiiii" + "ppp")
+    for (k0, w), plan in zip(wins, plans):
+        launch(fn, x.device, x.data_ptr(), n, d, labels.data_ptr(), k, k0,
+               w, sub_mu.data_ptr(), sub_chol_prec.data_ptr(),
+               sub_logdet_prec.data_ptr(), sublogw.data_ptr(),
+               gidx.data_ptr(), key_zb.data_ptr(), plan.dp, plan.per,
+               plan.grid, plan.smem, plan.sort_smem, scratch.data_ptr(),
+               sublabels.data_ptr())
+        sub_assign_gauss_cuda.launches += SUB_LAUNCHES
     return sublabels
 
 

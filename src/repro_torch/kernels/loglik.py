@@ -48,7 +48,7 @@ def loglik_cuda(x, mu, chol_prec, logdet_prec) -> torch.Tensor:
                          "serves the CPU")
     if not 1 <= d <= PANEL_MAX:
         raise ValueError(f"loglik_gauss: d={d} outside [1, {PANEL_MAX}] "
-                         "(ROADMAP.md §3)")
+                         "(an int in the kernel)")
     if k < 1 or n == 0:
         raise ValueError(f"loglik_gauss: needs K >= 1 slots and points, got "
                          f"K={k}, N={n}")

@@ -66,8 +66,14 @@ def moments_labels(feats, labels, sublabels, valid, k: int):
 def fold_partials(acc, parts):
     """``acc`` plus the (nb, *acc.shape) partials, added left to right in
     block order (``kernels/fold.py``)."""
-    fn = _route(acc, _fold.fold_partials_cuda, _fold.fold_partials_plain)
-    return fn(acc, parts.contiguous())
+    return fold_fields([acc], [parts])[0]
+
+
+def fold_fields(accs, parts):
+    """``fold_partials`` of every field of a stat fold, one launch on the
+    card (``kernels/fold.py``)."""
+    fn = _route(accs[0], _fold.fold_fields_cuda, _fold.fold_fields_plain)
+    return fn(accs, parts)
 
 
 def suffstats(x, resp):
@@ -141,7 +147,7 @@ _CUDA = {"sweep_gauss": _sweep.sweep_gauss_cuda,
          "matmul": _matmul.matmul_cuda,
          "sub_assign_gauss": _assign.sub_assign_gauss_cuda,
          "sub_assign_linear": _assign.sub_assign_linear_cuda,
-         "fold_partials": _fold.fold_partials_cuda,
+         "fold_partials": _fold.fold_fields_cuda,
          "suffstats": _suffstats.suffstats_cuda}
 
 

@@ -25,16 +25,17 @@ Two versions of each function:
 
 - ``suffstats_labels_cuda`` / ``moments_labels_cuda``: the hand-written
   kernels ``csrc/suffstats_labels.cu`` / ``csrc/moments_labels.cu`` for a
-  CUDA tensor (one launch per call, counted in the wrapper's
-  ``launches``);
+  CUDA tensor (one launch per slot window of ``slot_windows``: one up to
+  MAX_K slots, each counted in the wrapper's ``launches``);
 - ``suffstats_labels_plain`` / ``moments_labels_plain``: the same math in
   plain PyTorch, chunked per STATS_BLOCK so no (N, 2k) one-hot exists
   whole. The CPU path and the tests use them; on the card only the
   comparison in ``chip_smoke.py`` does.
 
-and ``suffstats_cuda`` (``csrc/suffstats_dense.cu``) beside
-``suffstats_plain`` (the reference's jnp route: a sum, a product and an
-einsum, over chunks of points).
+and ``suffstats_cuda`` (``csrc/suffstats_dense.cu``, one call per slot
+window of responsibility columns) beside ``suffstats_plain`` (the
+reference's jnp route: a sum, a product and an einsum, over chunks of
+points).
 
 ``kernels.ops`` picks between them by the tensor's device.
 """
@@ -51,18 +52,15 @@ from repro_torch.kernels.launch import check_cuda, launch
 STATS_BLOCK = 1024
 # Floats of temporaries one chunk of the plain version may hold.
 CHUNK_FLOATS = 1 << 24
+# Slots one launch of the stat and step-(f) kernels takes (suffstats_labels,
+# moments_labels, sub_assign_gauss, the dense oracle): a window's segment
+# offsets, sort cursors and label counts live in shared memory. A call
+# over more slots runs the windows of ``slot_windows`` one after another,
+# each writing its own slots' rows, so any K is taken.
 MAX_K = 8192
-# The widest d of the Gaussian fit's stat and step-(f) kernels
-# (suffstats_labels here, the dense oracle, sub_assign_gauss): the
-# reference kernels stop at 128 and leave wider d to its jnp route, these
-# go on to 256 (sub_assign_gauss reads a point's factors from L2).
-# suffstats_labels indexes a block's 2k d^2 sxx entries with an int: 2^30
-# at k = MAX_K. assign_gauss and loglik_gauss take any d (assign.py
-# PANEL_MAX).
-MAX_D = 256
-# moments_labels: a block's 2k d' partial entries stay below 2^31 for
-# k <= MAX_K (its per-chunk entry index is an int; d' rows use 64-bit
-# offsets), and d' covers the 20newsgroups vocabulary with room.
+# moments_labels: a window's 2 MAX_K d' partial entries stay below 2^31
+# (its per-chunk entry index is an int; d' rows use 64-bit offsets), and
+# d' covers the 20newsgroups vocabulary with room.
 MAX_DP = 1 << 16
 # csrc/suffstats_dense.cu, whose tile this module chooses (``dense_plan``):
 # Gram elements a block (256 threads, 8 x 8 each), points a slab, slabs in
@@ -84,11 +82,13 @@ SCAN_INTS = 32
 # For 64 < d <= 128, or below a full wave, up to STATS_SPLITS blocks share
 # a STATS_BLOCK (each takes every splits-th (segment, tile) item) so that
 # the grid fills about STATS_WAVES waves of two blocks on each of the
-# H100's 132 SMs. Not past d = 128, where one block's four tiles of a
-# segment reuse its rows from L1 (three splits took 6.14 against 5.45 ms
-# at 4e5 x 256 on the H100).
+# H100's 132 SMs. Past d = 128, where one block's four tiles of a segment
+# reuse its rows from L1 (three splits took 6.14 against 5.45 ms at
+# 4e5 x 256 on the H100), only below one wave (a stat window of a wide
+# fit: 31 STATS_BLOCKs at d = 256 over 64 slots), and to one wave.
 STATS_SPLITS = 4
 STATS_WAVES = 4
+STATS_SLOTS = 2 * 132
 INT_MAX = 2 ** 31 - 1
 
 Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -96,6 +96,15 @@ Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 def n_blocks(n: int) -> int:
     return -(-n // STATS_BLOCK)
+
+
+def slot_windows(k: int) -> Tuple[Tuple[int, int], ...]:
+    """Slot windows (k0, W) of a call over k slots: ceil(k / MAX_K)
+    consecutive windows of near-equal width W <= MAX_K covering [0, k),
+    each slot in exactly one. A function of k only."""
+    nw = -(-k // MAX_K)
+    bounds = [k * i // nw for i in range(nw + 1)]
+    return tuple((a, b - a) for a, b in zip(bounds, bounds[1:]))
 
 
 def _segment_rows(labels: torch.Tensor, sublabels: torch.Tensor,
@@ -187,34 +196,37 @@ def moments_labels_plain(feats: torch.Tensor, labels: torch.Tensor,
 def suffstats_labels_cuda(x: torch.Tensor, labels: torch.Tensor,
                           sublabels: torch.Tensor, valid: torch.Tensor,
                           k: int) -> Partials:
-    """One launch of ``csrc/suffstats_labels.cu`` on the current stream."""
+    """``csrc/suffstats_labels.cu`` on the current stream: one launch per
+    slot window (``slot_windows``), each writing its slots' rows of the
+    partials."""
     n, d = x.shape
     if x.device.type != "cuda":
         raise ValueError("suffstats_labels_cuda takes CUDA tensors; the "
                          "plain version serves the CPU")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"suffstats_labels: k={k} outside [1, {MAX_K}]")
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"suffstats_labels: d={d} outside [1, {MAX_D}] "
-                         "(ROADMAP.md §3)")
+    if k < 1 or d < 1:
+        raise ValueError(f"suffstats_labels: needs k >= 1 and d >= 1, got "
+                         f"k={k}, d={d}")
     if n == 0:
         raise ValueError("suffstats_labels: no points")
-    plan = stats_plan(n, d, k)
+    wins = slot_windows(k)
+    plans = [stats_plan(n, d, w) for _, w in wins]
     dev = x.device
     check_cuda("x", x, torch.float32, (n, d), dev)
     check_cuda("labels", labels, torch.int32, (n,), dev)
     check_cuda("sublabels", sublabels, torch.int32, (n,), dev)
     check_cuda("valid", valid, torch.float32, (n,), dev)
-    nsb = plan.nsb
+    nsb = n_blocks(n)
     n2 = torch.empty((nsb, k, 2), device=dev, dtype=torch.float32)
     sx2 = torch.empty((nsb, k, 2, d), device=dev, dtype=torch.float32)
     sxx2 = torch.empty((nsb, k, 2, d, d), device=dev, dtype=torch.float32)
     fn = build.c_function("suffstats_labels", "suffstats_labels_launch",
-                          "piipppiiiipppp")
-    launch(fn, dev, x.data_ptr(), n, d, labels.data_ptr(),
-           sublabels.data_ptr(), valid.data_ptr(), k, plan.edge, plan.smem,
-           plan.splits, n2.data_ptr(), sx2.data_ptr(), sxx2.data_ptr())
-    suffstats_labels_cuda.launches += 1
+                          "piipppiiiiiipppp")
+    for (k0, w), plan in zip(wins, plans):
+        launch(fn, dev, x.data_ptr(), n, d, labels.data_ptr(),
+               sublabels.data_ptr(), valid.data_ptr(), k, k0, w, plan.edge,
+               plan.smem, plan.splits, n2.data_ptr(), sx2.data_ptr(),
+               sxx2.data_ptr())
+        suffstats_labels_cuda.launches += 1
     return n2, sx2, sxx2
 
 
@@ -224,14 +236,15 @@ suffstats_labels_cuda.launches = 0
 def moments_labels_cuda(feats: torch.Tensor, labels: torch.Tensor,
                         sublabels: torch.Tensor, valid: torch.Tensor,
                         k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of ``csrc/moments_labels.cu`` on the current stream."""
+    """``csrc/moments_labels.cu`` on the current stream: one launch per
+    slot window (``slot_windows``), each writing its slots' rows of the
+    partials."""
     n, dp = feats.shape
     if feats.device.type != "cuda":
         raise ValueError("moments_labels_cuda takes CUDA tensors; the "
                          "plain version serves the CPU")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"moments_labels: k={k} outside [1, {MAX_K}] (the "
-                         "segment offsets live in shared memory)")
+    if k < 1:
+        raise ValueError(f"moments_labels: needs k >= 1, got k={k}")
     if not 1 <= dp <= MAX_DP:
         raise ValueError(f"moments_labels: d'={dp} outside [1, {MAX_DP}]")
     if n == 0:
@@ -245,11 +258,12 @@ def moments_labels_cuda(feats: torch.Tensor, labels: torch.Tensor,
     n2 = torch.empty((nsb, k, 2), device=dev, dtype=torch.float32)
     sf2 = torch.empty((nsb, k, 2, dp), device=dev, dtype=torch.float32)
     fn = build.c_function("moments_labels", "moments_labels_launch",
-                          "piipppippp")
-    launch(fn, dev, feats.data_ptr(), n, dp, labels.data_ptr(),
-           sublabels.data_ptr(), valid.data_ptr(), k, n2.data_ptr(),
-           sf2.data_ptr())
-    moments_labels_cuda.launches += 1
+                          "piipppiiippp")
+    for k0, w in slot_windows(k):
+        launch(fn, dev, feats.data_ptr(), n, dp, labels.data_ptr(),
+               sublabels.data_ptr(), valid.data_ptr(), k, k0, w,
+               n2.data_ptr(), sf2.data_ptr())
+        moments_labels_cuda.launches += 1
     return n2, sf2
 
 
@@ -270,43 +284,53 @@ class StatsPlan(NamedTuple):
 
 @lru_cache(maxsize=256)
 def stats_plan(n: int, d: int, k: int) -> StatsPlan:
-    """The segment fold's launch for (n, d, k), chosen here only: the
-    launcher takes it as given and refuses an edge other than its own rule
-    or shared bytes other than its layout. The edge is the least of
-    GRAM_EDGES that holds d, so at d <= 64 several teams share a block
-    (256 at d <= 8, 16 at d = 32) and above it one team of 256 threads
-    walks 1 or 2 x 2 tiles of 128 x 128 a segment. Shared memory: the
-    points' segments, ids and weights (STATS_BLOCK each), the S + 1
-    offsets, the sort's S cursors and its scan's warp totals (S = 2k).
-    For 64 < d <= 128, or where the STATS_BLOCKs are fewer than two an
-    SM (and d <= 128), a STATS_BLOCK's (segment, tile) items are shared
-    by up to STATS_SPLITS blocks, each sorting the block itself, so that
-    a grid of few STATS_BLOCKs (2e5 points at d = 128: 196) still fills
-    the card; no output's bits depend on it. N and the blocks' offsets into the
-    partials are ints or 64-bit in the kernel: N below 2^31 is taken."""
-    if not (1 <= n <= INT_MAX and 1 <= d <= MAX_D and 1 <= k <= MAX_K):
+    """The segment fold's launch for (n, d) and a slot window of k slots,
+    chosen here only: the launcher takes it as given and refuses an edge
+    other than its own rule or shared bytes other than its layout. The
+    edge is the least of GRAM_EDGES that holds d, so at d <= 64 several
+    teams share a block (256 at d <= 8, 16 at d = 32) and above it one
+    team of 256 threads walks ceil(d / 128)^2 tiles of 128 x 128 a
+    segment. Shared memory: the points' segments, ids and weights
+    (STATS_BLOCK each), the S + 1 offsets, the sort's S cursors and its
+    scan's warp totals (S = 2k). For 64 < d <= 128, or where the
+    STATS_BLOCKs are fewer than two an SM, a STATS_BLOCK's (segment,
+    tile) items are shared by up to STATS_SPLITS blocks, each sorting the
+    block itself, so that a grid of few STATS_BLOCKs (2e5 points at
+    d = 128: 196; a stat window of a wide fit) still fills the card (past
+    d = 128 to one wave only); no output's bits depend on it. N, the window's (segment, tile) items and the blocks' offsets
+    into the partials are ints or 64-bit in the kernel: N and the items
+    below 2^31 are taken."""
+    tiles = -(-d // GRAM_EDGES[-1])
+    if not (1 <= n <= INT_MAX and d >= 1 and 1 <= k <= MAX_K
+            and 2 * k * tiles * tiles <= INT_MAX):
         raise ValueError(f"suffstats_labels: N={n}, d={d}, k={k} outside "
-                         f"[1, 2^31), [1, {MAX_D}], [1, {MAX_K}]")
+                         f"[1, 2^31), d >= 1, [1, {MAX_K}] with 2k "
+                         "ceil(d / 128)^2 < 2^31")
     edge = next((e for e in GRAM_EDGES if e >= d), GRAM_EDGES[-1])
     teams = STATS_THREADS // (edge // 8) ** 2
     s = 2 * k
     smem = 4 * (3 * STATS_BLOCK + s + 1 + s + SCAN_INTS)
     nsb = n_blocks(n)
-    splits = 1 if d > 128 or (d <= 64 and nsb >= 2 * 132) else min(
-        STATS_SPLITS, -(-STATS_WAVES * 2 * 132 // nsb))
+    if nsb >= STATS_SLOTS and (d <= 64 or d > 128):
+        splits = 1
+    else:
+        waves = 1 if d > 128 else STATS_WAVES
+        splits = min(STATS_SPLITS, -(-waves * STATS_SLOTS // nsb))
     return StatsPlan(edge, -(-d // edge), teams, nsb, smem, splits)
 
 
 class DensePlan(NamedTuple):
-    """The launch of ``csrc/suffstats_dense.cu``: its template (bn, width),
-    grid (gx blocks a chunk, nc chunks of ``chunk`` points) and dynamic
-    shared bytes."""
+    """The launch of ``csrc/suffstats_dense.cu`` for one slot window: its
+    template (bn, width; past d = 256 the panel tile (128, 256), ``panel``
+    set), grid (gx blocks a chunk, nc chunks of ``chunk`` points) and
+    dynamic shared bytes."""
     bn: int      # Gram columns a block
     width: int   # rows a cluster and staged floats a point: a multiple of bn
     gx: int      # blocks a point chunk
     chunk: int   # points a chunk, whole slabs
     nc: int      # point chunks, none empty
     smem: int    # dynamic shared bytes a block
+    panel: bool = False  # d > 256: two 128-column panels staged a block
 
 
 def dense_chunks(n: int, gx: int) -> Tuple[int, int]:
@@ -333,24 +357,28 @@ def dense_chunks(n: int, gx: int) -> Tuple[int, int]:
 
 @lru_cache(maxsize=256)
 def dense_plan(n: int, d: int, k: int) -> DensePlan:
-    """The dense kernel's launch for (n, d, k), chosen here only: the
-    launcher takes it as given and refuses only a template it does not
-    hold or shared bytes other than that template's layout. Column tile
-    bn from d (the least of DENSE_BN that holds d, else 128 and ceil(d /
-    128) tiles); each cluster ``width`` rows, so a block of DENSE_TILE //
-    bn rows holds whole clusters (d <= 64) or one 128 x 128 tile of one
-    (d > 64); the chunks; and the shared bytes: a ring of DENSE_STAGES
-    slabs of DENSE_P points, each a row of ``width`` x floats and one r
-    value a cluster of the block, and the slab's a-side factors, DENSE_P
-    floats a block row."""
+    """The dense kernel's launch for (n, d) and a slot window of k
+    clusters, chosen here only: the launcher takes it as given and refuses
+    only a template it does not hold or shared bytes other than that
+    template's layout. Column tile bn from d (the least of DENSE_BN that
+    holds d, else 128 and ceil(d / 128) tiles); each cluster ``width``
+    rows, so a block of DENSE_TILE // bn rows holds whole clusters (d <=
+    64) or one 128 x 128 tile of one (d > 64); the chunks; and the shared
+    bytes: a ring of DENSE_STAGES slabs of DENSE_P points, each a row of
+    ``width`` x floats and one r value a cluster of the block, and the
+    slab's a-side factors, DENSE_P floats a block row. Past d = 256 a
+    staged row of the whole cluster would pass a block's shared memory:
+    the panel tile stages the block's two 128-column panels (width 256,
+    the d <= 256 layout) on a grid of k ceil(d / 128)^2 tiles."""
     bn = next((b for b in DENSE_BN if b >= d), DENSE_BN[-1])
     bm = DENSE_TILE // bn
     nbt = -(-d // bn)
-    width = nbt * bn
+    panel = d > 2 * DENSE_BN[-1]
+    width = 2 * bn if panel else nbt * bn
     ncl = max(1, bm // width)
-    gx = -(-(k * width) // bm) * nbt
+    gx = -(-(k * nbt * bn) // bm) * nbt
     smem = 4 * (DENSE_STAGES * DENSE_P * (width + ncl) + DENSE_P * bm)
-    return DensePlan(bn, width, gx, *dense_chunks(n, gx), smem)
+    return DensePlan(bn, width, gx, *dense_chunks(n, gx), smem, panel)
 
 
 def suffstats_plain(x: torch.Tensor, resp: torch.Tensor
@@ -375,8 +403,9 @@ def suffstats_plain(x: torch.Tensor, resp: torch.Tensor
 
 def suffstats_cuda(x: torch.Tensor, resp: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One call of ``csrc/suffstats_dense.cu`` on the current stream (the
-    chunk kernel and its left-to-right fold), counted once in
+    """``csrc/suffstats_dense.cu`` on the current stream (the chunk kernel
+    and its left-to-right fold), one call per slot window of
+    responsibility columns (``slot_windows``), each counted once in
     ``suffstats_cuda.launches``."""
     if x.device.type != "cuda":
         raise ValueError("suffstats_cuda takes CUDA tensors; the plain "
@@ -386,26 +415,27 @@ def suffstats_cuda(x: torch.Tensor, resp: torch.Tensor
                          f"{tuple(resp.shape)} are not (N, d) and (N, K)")
     n, d = x.shape
     k = resp.shape[1]
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"suffstats: d={d} outside [1, {MAX_D}] "
-                         "(ROADMAP.md §3)")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"suffstats: K={k} outside [1, {MAX_K}]")
+    if d < 1 or k < 1:
+        raise ValueError(f"suffstats: needs d >= 1 and K >= 1, got d={d}, "
+                         f"K={k}")
     if not 1 <= n < 2 ** 31:
         raise ValueError(f"suffstats: N={n} outside [1, 2^31)")
     dev = x.device
     check_cuda("x", x, torch.float32, (n, d), dev)
     check_cuda("resp", resp, torch.float32, (n, k), dev)
-    plan = dense_plan(n, d, k)
-    m = k * (1 + d + d * d)
-    part = torch.empty((plan.nc, m), device=dev, dtype=torch.float32)
-    out = torch.empty((m,), device=dev, dtype=torch.float32)
+    wins = slot_windows(k)
+    plans = [dense_plan(n, d, w) for _, w in wins]
+    out = torch.empty((k * (1 + d + d * d),), device=dev,
+                      dtype=torch.float32)
     fn = build.c_function("suffstats_dense", "suffstats_dense_launch",
-                          "ppiiiiiiiippp")
-    launch(fn, dev, x.data_ptr(), resp.data_ptr(), n, d, k, plan.bn,
-           plan.width, plan.chunk, plan.nc, plan.smem, part.data_ptr(),
-           out.data_ptr())
-    suffstats_cuda.launches += 1
+                          "ppiiiiiiiiiippp")
+    for (k0, w), plan in zip(wins, plans):
+        part = torch.empty((plan.nc, w * (1 + d + d * d)), device=dev,
+                           dtype=torch.float32)
+        launch(fn, dev, x.data_ptr(), resp.data_ptr(), n, d, k, k0, w,
+               plan.bn, plan.width, plan.chunk, plan.nc, plan.smem,
+               part.data_ptr(), out.data_ptr())
+        suffstats_cuda.launches += 1
     return (out[:k], out[k:k + k * d].view(k, d),
             out[k + k * d:].view(k, d, d))
 

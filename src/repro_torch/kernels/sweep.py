@@ -53,8 +53,10 @@ NEG_INF = -1e30
 LOG_2PI = 1.8378770664093453
 # The kernel keeps a point's d-vectors in one thread's registers up to
 # d = 64 and spreads them over four lanes up to 128, the reference kernel's
-# own ceiling. Wider d declines to the three-pass ``sweep_ref``
-# (``core/family.py``), whose kernels go on to ``suffstats.MAX_D``.
+# own ceiling, and a block's slot lists and segment offsets in shared
+# memory up to MAX_K slots (csrc/sweep_gauss.cu, csrc/sweep_linear.cu).
+# A wider d or a larger slab declines to the three-pass ``sweep_ref``
+# (``core/family.py``), whose kernels take any d and K.
 MAX_D = 128
 MAX_K = 2048
 # Step (e) of ``csrc/sweep_gauss.cu`` as a register-tiled product
@@ -260,9 +262,10 @@ def sweep_gauss_cuda(x, mu, chol_prec, logdet_prec, logw, active, sub_mu,
                          "version serves the CPU")
     if not 1 <= d <= MAX_D:
         raise ValueError(f"sweep_gauss: d={d} outside [1, {MAX_D}] "
-                         "(ROADMAP.md §3)")
+                         "(wider fits run ComponentFamily.sweep_ref)")
     if not 1 <= k <= MAX_K:
-        raise ValueError(f"sweep_gauss: K={k} outside [1, {MAX_K}]")
+        raise ValueError(f"sweep_gauss: K={k} outside [1, {MAX_K}] "
+                         "(larger slabs run ComponentFamily.sweep_ref)")
     if n == 0:
         raise ValueError("sweep_gauss: no points")
     plan = sweep_plan(n, d, k)
@@ -450,7 +453,8 @@ def sweep_linear_cuda(feats, w, const, logw, active, subw, subconst,
         raise ValueError(f"sweep_linear: d'={dp} outside [1, {MAX_DP}]")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"sweep_linear: K={k} outside [1, {MAX_K}] (the "
-                         "segment offsets live in shared memory)")
+                         "segment offsets live in shared memory; larger "
+                         "slabs run ComponentFamily.sweep_ref)")
     if n == 0:
         raise ValueError("sweep_linear: no points")
     dev = feats.device

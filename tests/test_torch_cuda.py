@@ -333,22 +333,24 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     bad[0] = torch.randn(2048, 129, device=dev)
     with pytest.raises(ValueError, match="d=129"):
         sweep.sweep_gauss_cuda(*bad)
-    # the stat kernels stop at 256, with the ROADMAP hint; the served
-    # kernels (the panel layout) take d = 257 (and any d)
+    # the stat, step-(f) and served kernels take d = 257 (and any d): the
+    # Gram tiles, sub-factor panels and panel layout past d = 256
     wide = torch.randn(2048, 257, device=dev)
-    with pytest.raises(ValueError, match=r"d=257 .*ROADMAP.md §3"):
-        suffstats.suffstats_labels_cuda(wide, a[5][:1].repeat(2048),
-                                        a[5][:1].repeat(2048), a[10], 4)
+    stats = suffstats.suffstats_labels_cuda(wide, a[5][:1].repeat(2048),
+                                            a[5][:1].repeat(2048), a[10], 4)
+    assert stats[2].shape == (2, 4, 2, 257, 257)
     zeros = lambda *s: torch.zeros(s, device=dev)
     assert loglik.loglik_cuda(wide, zeros(4, 257), zeros(4, 257, 257),
                               zeros(4)).shape == (2048, 4)
     assert assign.assign_gauss_cuda(wide, zeros(4, 257), zeros(4, 257, 257),
                                     *a[3:6], a[11], a[12], a[14]
                                     ).shape == (2048,)
-    with pytest.raises(ValueError, match=r"d=257 .*ROADMAP.md §3"):
-        assign.sub_assign_gauss_cuda(wide, zeros(4, 2, 257),
-                                     zeros(4, 2, 257, 257), a[8], a[9],
-                                     a[5][:1].repeat(2048), a[11], a[13])
+    assert assign.sub_assign_gauss_cuda(
+        wide, zeros(4, 2, 257), zeros(4, 2, 257, 257), a[8], a[9],
+        a[5][:1].repeat(2048), a[11], a[13]).shape == (2048,)
+    with pytest.raises(ValueError, match="d=0"):
+        suffstats.suffstats_labels_cuda(wide[:, :0], a[5][:1].repeat(2048),
+                                        a[5][:1].repeat(2048), a[10], 4)
     with pytest.raises(ValueError, match="contiguous"):
         suffstats.suffstats_labels_cuda(
             a[0].t().contiguous().t(), a[5][:1].repeat(2048),
@@ -743,7 +745,10 @@ def test_gaussian_fit_past_d128_runs_the_three_pass_kernels(dev):
 
 @pytest.mark.parametrize("nb,shape", [(977, (64,)), (977, (32, 2, 32)),
                                       (3, (5, 2, 7, 7)), (0, (4,)),
-                                      (40, (70_001,))])
+                                      (40, (70_001,)),
+                                      # past FOLD_WIDE_M: 256-wide tiles
+                                      (63, (2, 2, 512, 512)),
+                                      (31, (1_048_579,))])
 def test_fold_partials_kernel_is_the_loop_bitwise(dev, nb, shape):
     g = torch.Generator().manual_seed(nb)
     acc = (torch.randn(shape, generator=g) * 1e5).to(dev)
@@ -777,8 +782,8 @@ def test_dense_suffstats_kernel_matches_plain(dev, n, k, d):
         assert a.shape == b.shape
         assert bool(((a - b).abs() <= 1e-4 * (b.abs() + b.abs().max()))
                     .all())
-    with pytest.raises(ValueError, match="d=257"):
-        suffstats.suffstats_cuda(torch.zeros(4, 257, device=dev),
+    with pytest.raises(ValueError, match="d=0"):
+        suffstats.suffstats_cuda(torch.zeros(4, 0, device=dev),
                                  torch.zeros(4, 2, device=dev))
 
 
@@ -883,3 +888,179 @@ def test_tiled_fit_on_the_card_is_the_resident_fit(dev, component, gen, d):
         assert torch.equal(getattr(tiled.state.stats, name),
                            getattr(res.state.stats, name))
     assert tiled.nmi(y) > 0.9
+
+
+def _stat_operands(n, d, k, dev, seed):
+    """Points, labels in [-1, k] (outside [0, k) they add nothing or get
+    sub-label 0), sub-labels, a valid mask with zeros, and sub-components
+    whose factors whiten (``sub_assign_gauss``'s operands)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, d, generator=g) * 3
+    lab = torch.randint(-1, k + 1, (n,), generator=g, dtype=torch.int32)
+    sub = torch.randint(0, 2, (n,), generator=g, dtype=torch.int32)
+    valid = (torch.rand(n, generator=g) < 0.9).float()
+    smu = x[torch.randint(0, n, (k, 2), generator=g)] + 0.5 * torch.randn(
+        k, 2, d, generator=g)
+    sf = (torch.randn(k, 2, d, d, generator=g) * (0.2 / d ** 0.5)
+          + torch.eye(d))
+    sld = torch.randn(k, 2, generator=g)
+    slw = torch.log_softmax(torch.randn(k, 2, generator=g), 1)
+    gidx = torch.arange(n, dtype=torch.int64) + 9
+    kzb = torch.tensor([77, 3_000_000_001])
+    return tuple(t.to(dev).contiguous() for t in (
+        x, lab, sub, valid, smu, sf, sld, slw, gidx, kzb))
+
+
+def _check_stat_kernels(dev, n, d, k, seed):
+    """suffstats_labels, moments_labels, sub_assign_gauss and the dense
+    oracle on (n, d, k) against their plain versions: one launch (three
+    for sub_assign_gauss) a slot window, repeat bitwise, stats within
+    rtol 1e-4 and counts exact, sub-labels equal but for near-ties inside
+    [0, k) and 0 outside."""
+    x, lab, sub, valid, smu, sf, sld, slw, gidx, kzb = _stat_operands(
+        n, d, k, dev, seed)
+    wins = len(suffstats.slot_windows(k))
+    before = ops.launch_counts()
+    got = suffstats.suffstats_labels_cuda(x, lab, sub, valid, k)
+    again = suffstats.suffstats_labels_cuda(x, lab, sub, valid, k)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    _close(got, suffstats.suffstats_labels_plain(x, lab, sub, valid, k))
+    del got, again
+    mom = suffstats.moments_labels_cuda(x, lab, sub, valid, k)
+    assert all(torch.equal(u, v) for u, v in zip(
+        mom, suffstats.moments_labels_cuda(x, lab, sub, valid, k)))
+    _close(mom, suffstats.moments_labels_plain(x, lab, sub, valid, k))
+    del mom
+    f_args = (x, smu, sf, sld, slw, lab, gidx, kzb)
+    zb = assign.sub_assign_gauss_cuda(*f_args)
+    assert torch.equal(zb, assign.sub_assign_gauss_cuda(*f_args))
+    inside = (lab >= 0) & (lab < k)
+    assert int(zb[~inside].abs().sum()) == 0
+    idx = torch.nonzero(inside).flatten()
+    in_args = (x[idx].contiguous(), smu, sf, sld, slw,
+               lab[idx].contiguous(), gidx[idx].contiguous(), kzb)
+    mism, not_ties = assign.sub_assign_mismatches(
+        True, in_args, zb[idx], assign.sub_assign_gauss_plain(*in_args),
+        1e-4)
+    assert not_ties == 0 and mism <= 1e-3 * n, (mism, not_ties)
+    resp = torch.nn.functional.one_hot(lab.long().clamp(0, k - 1),
+                                       k).float() * inside[:, None].float()
+    dense = suffstats.suffstats_cuda(x, resp)
+    assert all(torch.equal(u, v) for u, v in zip(
+        dense, suffstats.suffstats_cuda(x, resp)))
+    want = suffstats.suffstats_plain(x, resp)
+    assert torch.equal(dense[0], want[0])
+    for u, v in zip(dense[1:], want[1:]):
+        _rel_close(u, v, 1e-4)
+    after = ops.launch_counts()
+    assert after["suffstats_labels"] - before["suffstats_labels"] == 2 * wins
+    assert after["moments_labels"] - before["moments_labels"] == 2 * wins
+    assert (after["sub_assign_gauss"] - before["sub_assign_gauss"]
+            == 2 * wins * assign.SUB_LAUNCHES)
+    assert after["suffstats"] - before["suffstats"] == 2 * wins
+
+
+@pytest.mark.parametrize("k", [8193, 16384])
+def test_stat_kernels_take_slot_windows_past_8192(dev, k):
+    _check_stat_kernels(dev, 3000, 3, k, seed=k)
+
+
+@pytest.mark.parametrize("d", [257, 300, 384])
+def test_stat_kernels_take_d_past_256(dev, d):
+    """The Gram tiles of suffstats_labels (ceil(d / 128)^2 a segment),
+    sub_assign_gauss's column panels and the dense oracle's panel tile."""
+    _check_stat_kernels(dev, 1500, d, 5, seed=d)
+
+
+@pytest.mark.parametrize("component,gen,d", [
+    ("gaussian", generate_gmm, 8), ("gaussian", generate_gmm, 40),
+    ("gaussian", generate_gmm, 200), ("multinomial", generate_mnmm, 32),
+    ("diag_gaussian", generate_gmm, 8)])
+def test_windowed_folds_are_the_unwindowed_folds_bitwise(dev, monkeypatch,
+                                                         component, gen, d):
+    """With the stat windows' budget down to one block (so the last window
+    is a ragged block of its own, where the one-read kernels pick other
+    point tiles), the family's sweep (one-read below d = 128, three-pass
+    above) and label fold give their one-window results bit for bit."""
+    from repro_torch.core import labelstats
+    from repro_torch.core.state import tree_map
+    fam = get_family(component)
+    n, k = 5 * 1024 + 333, 6
+    x_np, y = gen(n, d, 4, seed=1)
+    x = torch.as_tensor(x_np, device=dev)
+    valid = torch.ones(n, device=dev)
+    lab = torch.as_tensor(y, device=dev).to(torch.int32)
+    sub = (torch.arange(n, device=dev) % 2).to(torch.int32)
+    prior = fam.build_prior(DPMMConfig(component=component),
+                            x.mean(dim=0, keepdim=True))
+    sub_stats = fam.stats_from_labels(x, valid, lab, sub, k)
+    stats = tree_map(lambda a: a.sum(dim=1), sub_stats)
+    live = stats.n > 0
+    packed = lambda p: tree_map(lambda t: t.contiguous(), p)
+    args = (x, valid, packed(fam.expected_params(prior, stats)),
+            packed(fam.expected_params(prior, sub_stats)),
+            torch.where(live, torch.log(stats.n.clamp(min=1) / n), -1e30),
+            torch.full((k, 2), -0.6931472, device=dev), live,
+            torch.arange(n, device=dev) + 3,
+            torch.tensor([1, 2], device=dev), torch.tensor([3, 4],
+                                                           device=dev), k)
+    acc0 = lambda: fam.empty_stats((k, 2), d, dev)
+    whole = fam.sweep(*args, acc0())
+    whole_stats = fam.stats_from_labels(x, valid, lab, sub, k, acc=acc0())
+    monkeypatch.setattr(labelstats, "WINDOW_BYTES", 1)
+    assert len(fam.windows(x, k)) == 6
+    before = ops.launch_counts()["fold_partials"]
+    win = fam.sweep(*args, acc0())
+    assert ops.launch_counts()["fold_partials"] - before == 6
+    win_stats = fam.stats_from_labels(x, valid, lab, sub, k, acc=acc0())
+    assert torch.equal(win[0], whole[0]) and torch.equal(win[1], whole[1])
+    for a, b in ((win[2], whole[2]), (win_stats, whole_stats)):
+        for name in a.__dataclass_fields__:
+            assert torch.equal(getattr(a, name), getattr(b, name))
+
+
+@pytest.mark.parametrize("nb,k,d", [(0, 33, 5), (1, 33, 5), (7, 33, 5),
+                                    (17, 33, 5), (33, 33, 5), (977, 33, 5),
+                                    # sxx of 2^20 elements: 256-wide tiles
+                                    # beside n and sx's 32-wide ones
+                                    (40, 32, 128)])
+def test_one_launch_fold_is_the_per_field_loop_bitwise(dev, nb, k, d):
+    """Every field of a stat fold in one launch (a Gaussian's n, sx, sxx
+    and the diagonal Gaussian's two halves of one moment array, read in
+    place) from a nonzero accumulator: the plain loop of adds field by
+    field, bit for bit, and one launch."""
+    from repro_torch.core import labelstats
+    from repro_torch.core.diag_gaussian import DiagStats
+    from repro_torch.core.niw import GaussStats
+    g = torch.Generator().manual_seed(nb)
+    r = lambda *s: (torch.randn(s, generator=g) * 1e4).to(dev)
+    acc = GaussStats(r(k, 2), r(k, 2, d), r(k, 2, d, d))
+    parts = GaussStats(r(nb, k, 2), r(nb, k, 2, d), r(nb, k, 2, d, d))
+    moments = r(nb, k, 2, 2 * d)
+    dacc = DiagStats(r(k, 2), r(k, 2, d), r(k, 2, d))
+    dparts = DiagStats(r(nb, k, 2), moments[..., :d], moments[..., d:])
+    for a, p in ((acc, parts), (dacc, dparts)):
+        before = fold.fold_fields_cuda.launches
+        got = labelstats.fold_stats(a, p)
+        assert fold.fold_fields_cuda.launches == before + 1
+        again = labelstats.fold_stats(a, p)
+        for name in a.__dataclass_fields__:
+            want = fold.fold_partials_plain(getattr(a, name),
+                                            getattr(p, name))
+            assert torch.equal(getattr(got, name), want)
+            assert torch.equal(getattr(again, name), want)
+
+
+def test_fit_past_the_one_read_slab_runs_sweep_ref(dev):
+    """``k_max = 4096, compact=False``: every sweep on the 4096-slot dense
+    slab, past the one-read kernels' 2048, through the three-pass sweep
+    (one-read kernels would refuse the slab); chip_smoke.py's fit_k_large
+    data and settings."""
+    x, y = generate_gmm(100_000, 16, 16, seed=0)
+    ops.reset_launch_counts()
+    r = DPMM(DPMMConfig(k_max=4096, compact=False, iters=40, burnout=10,
+                        log_every=10)).fit(x)
+    counts = ops.launch_counts()
+    assert counts["sweep_gauss"] == 0 and counts["assign_gauss"] == 40
+    assert counts["sub_assign_gauss"] == 40 * assign.SUB_LAUNCHES
+    assert r.nmi(y) > 0.9, (r.nmi(y), r.history["k"])

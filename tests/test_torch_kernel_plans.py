@@ -23,7 +23,7 @@ from repro_torch.kernels.assign import (GAUSS_NARROW_D, PANEL_BK, PANEL_BM,
 from repro_torch.kernels.matmul import matmul_bn
 from repro_torch.kernels.suffstats import (DENSE_BN, DENSE_MIN_SLABS,
                                            DENSE_P, DENSE_STAGES, DENSE_TILE,
-                                           GRAM_EDGES, MAX_D, MAX_K,
+                                           GRAM_EDGES, MAX_K,
                                            SCAN_INTS, SMEM_LIMIT,
                                            STATS_BLOCK, STATS_SPLITS,
                                            STATS_THREADS,
@@ -37,6 +37,11 @@ from repro_torch.kernels.sweep import (LE_BK, LE_BLOCKS, LE_BM, LE_FSTR,
                                        launches_per_call, linear_plan,
                                        sweep_plan, te_layout)
 from repro_torch.kernels.suffstats import MAX_DP
+
+# widths the plans' shared-memory checks walk: past d = 256 the stat and
+# step-(f) kernels take any d (panels of columns), and their shared bytes
+# must not grow with it
+PLAN_DS = range(1, 1025)
 
 
 @pytest.mark.parametrize("d", [1, 4, 16, 17, 32, 33, 63, 64, 65, 128, 129,
@@ -62,11 +67,11 @@ def test_dense_tile_covers_every_cluster_row_and_column(d):
 
 
 def test_dense_shared_memory_fits_a_hopper_block():
-    """At most SMEM_LIMIT bytes for every 1 <= d <= 256 and 1 <= K <= 8192
+    """At most SMEM_LIMIT bytes for every 1 <= d <= 1024 and 1 <= K <= 8192
     (the bytes depend on d alone), two blocks' worth (with 1 KiB each
     reserved, of the SM's 228 KiB) above d = 16."""
     worst = 0
-    for d in range(1, MAX_D + 1):
+    for d in PLAN_DS:
         by_k = {dense_plan(1, d, k).smem for k in (1, 2, 5, 16, 64, 65, 300,
                                                    MAX_K)}
         assert len(by_k) == 1
@@ -194,7 +199,11 @@ def test_stats_plan_covers_every_segment_row_and_column(d):
             # the blocks sharing a STATS_BLOCK take its (segment, tile)
             # items part mod splits, their teams in turn: each item once
             assert 1 <= p.splits <= STATS_SPLITS
-            assert p.splits == 1 or (d <= 128 and (d > 64 or p.nsb < 264))
+            assert p.splits == 1 or (64 < d <= 128 or p.nsb < 264)
+            if d > 128:
+                # past d = 128 to one wave of 264 blocks only
+                assert p.splits == min(4, -(-264 // p.nsb)) or (
+                    p.nsb >= 264 and p.splits == 1)
             items = 2 * min(k, 17) * p.tiles ** 2
             taken = sorted(it for part in range(p.splits)
                            for team in range(p.teams)
@@ -210,7 +219,7 @@ def test_stats_plan_shared_memory_fits_a_hopper_block():
     blocks' worth at the fits' k <= 1024."""
     for k in (1, 2, 17, 64, 300, 1024, 4096, MAX_K):
         by_shape = {stats_plan(n, d, k).smem for n in (1, 4097, 10 ** 6)
-                    for d in range(1, MAX_D + 1)}
+                    for d in PLAN_DS}
         assert len(by_shape) == 1
         smem = by_shape.pop()
         assert smem == 4 * (3 * STATS_BLOCK + 4 * k + 1 + SCAN_INTS)
@@ -221,8 +230,10 @@ def test_stats_plan_shared_memory_fits_a_hopper_block():
 
 def test_stats_plan_refuses_counts_past_an_int():
     stats_plan(2 ** 31 - 1, 256, MAX_K)
-    for n, d, k in ((2 ** 31, 32, 4), (0, 32, 4), (10, 0, 4), (10, 257, 4),
-                    (10, 32, 0), (10, 32, MAX_K + 1)):
+    stats_plan(10, 1024, MAX_K)
+    # a window's (segment, tile) items are an int in the kernel
+    for n, d, k in ((2 ** 31, 32, 4), (0, 32, 4), (10, 0, 4),
+                    (10, 50_000, MAX_K), (10, 32, 0), (10, 32, MAX_K + 1)):
         with pytest.raises(ValueError, match="suffstats_labels"):
             stats_plan(n, d, k)
 
@@ -558,16 +569,17 @@ def test_sub_tiled_layout_keeps_the_parent_column_order(dp):
 
 def test_sub_plan_shared_memory_fits_a_hopper_block():
     """The product's shared bytes depend on d alone and fit a Hopper block
-    for every d <= 256 (two blocks an SM where tiled); the placement's
-    fit for every K <= 8192; three launches a call."""
+    for every d <= 1024 (two blocks an SM where tiled: past d = 256 the
+    d = 256 layout, in column panels); the placement's fit for every
+    window of K <= 8192; three launches a window."""
     assert SUB_LAUNCHES == 3
-    for d in range(1, MAX_D + 1):
+    for d in PLAN_DS:
         by_k = set()
         for k in (1, 17, 300, 2048, MAX_K):
             p = sub_plan(4097, d, k)
             by_k.add(p.smem)
             assert p.sort_smem == 4 * (3 * k + 34) <= SMEM_LIMIT
-            assert p.dp >= d and (p.dp // 2 < d or p.dp == 4)
+            assert p.dp >= min(d, 256) and (p.dp // 2 < d or p.dp == 4)
         assert len(by_k) == 1
         smem = by_k.pop()
         assert smem <= SMEM_LIMIT
@@ -580,8 +592,9 @@ def test_sub_plan_shared_memory_fits_a_hopper_block():
 
 def test_sub_plan_refuses_counts_past_an_int():
     sub_plan(2 ** 31 - 1, 256, MAX_K)
-    for n, d, k in ((2 ** 31, 32, 4), (0, 32, 4), (10, 0, 4), (10, 257, 4),
-                    (10, 32, 0), (10, 32, MAX_K + 1)):
+    sub_plan(10, 1024, MAX_K)
+    for n, d, k in ((2 ** 31, 32, 4), (0, 32, 4), (10, 0, 4),
+                    (10, 2 ** 31, 4), (10, 32, 0), (10, 32, MAX_K + 1)):
         with pytest.raises(ValueError, match="sub_assign_gauss"):
             sub_plan(n, d, k)
 

@@ -1,12 +1,12 @@
 """Time the dense ``suffstats`` kernel, the ``matmul`` kernel, the
 Gaussian ``assign_gauss`` and ``loglik`` kernels,
-``suffstats_labels``, ``sweep_gauss``, ``sub_assign_gauss`` and
-``sweep_linear`` of one or two checkouts, in turns on one card, and
-compare the two checkouts' bits.
+``suffstats_labels``, ``sweep_gauss``, ``sub_assign_gauss``,
+``sweep_linear`` and the stat fold of one or two checkouts, in turns on
+one card, and compare the two checkouts' bits.
 
     python3 tools/time_kernels.py [--src A/src [--src B/src]]
-        [--kernels dense,matmul,gauss,stats,sweep,sub,linear]
-        [--out RESULT.json]
+        [--kernels dense,matmul,gauss,stats,sweep,sub,linear,moments,fold]
+        [--bits-only] [--out RESULT.json]
 
 Each ``--src`` is the ``src`` directory of a checkout (default: this
 checkout's). With two, the checkouts run in turns, A, B, B, A, each turn a
@@ -32,7 +32,9 @@ checkout's ``build/``) and times them:
   refused with the wrapper's message;
 - ``suffstats_labels_cuda`` (``stats``) at the Gaussian fits' final states
   (10^6 x 32 over 64 slots, 17 live; 2e5 x 128 over 64, 16 live; 4e5 x
-  256 over 32, 16 live) and a ragged N at an odd width, and
+  256 over 32, 16 live) and a ragged N at an odd width, the d = 256 fit's
+  whole label folds over 32 and 64 slots (``stats_from_labels``, in the
+  checkout's stat windows, split by kernel), and
   ``sweep_gauss_cuda`` (``sweep``) at the one-read fits' states (10^6 x 32,
   a 64-slot slab with 17 live; 2e5 x 128, 32 slots, 16 live), a ragged N
   and 10^6 x 8 and x 16 (64 slots, 17 live), each beside its plain version
@@ -64,7 +66,19 @@ checkout's ``build/``) and times them:
   operands (``assign_linear``, ``sub_assign_linear``, ``moments_labels``
   over the sweep's segments).
 
-``--kernels`` picks the groups to time (default: all seven).
+- ``moments``: ``moments_labels``'s bits over d' in {1, 3, 4, 32, 128,
+  129, 1000}, K in {1, 2, 17, 300, 2048, 8192} and the block edge cases
+  (no timing);
+- ``fold``: the fold of the 10^6 x 32 fit's per-block partials (n, sx,
+  sxx of ``sweep_gauss`` on the mixture of 17 live of 64 slots) from a
+  nonzero accumulator, one launch a field (``fold_partials_cuda``) and,
+  where the checkout has it, all three in one launch
+  (``fold_fields_cuda``, held bitwise against the loop of adds), beside
+  the bound; and the fold's bits over nb x m shapes.
+
+``--kernels`` picks the groups to time (default: all nine).
+``--bits-only`` keeps every group's bits grid and times nothing (nor
+keeps the timed states' prints).
 ``--bits-out FILE`` keeps the first checkout's bits, and a later run's
 ``--bits-against FILE`` compares each of its checkouts with them (the
 summary's ``bitwise_against``).
@@ -83,7 +97,11 @@ changed bit changes it) over a grid of seeded shapes: d in {1, 3, 4, 31,
 32, 33, 63, 64, 65, 100, 127, 128} (and 129, 200, 255, 256 for the stats),
 K in {1, 2, 17, 64, 300}, N in {1, 1023, 1025, 4097}, plus blocks whose
 points are all invalid, blocks that are one segment, random valid-mask
-zeros, and the timed fit states. The ``sub`` group's grid: d in {1, 3, 4,
+zeros, and the timed fit states; and many slots: K in {2048, 8192} at d
+in {1, 32, 128, 129, 256} for the stats and ``sub`` (the sweep at
+K = 2048, d in {1, 32, 128}). The ``dense`` group keeps the dense
+oracle's outputs over d in {1, 7, 32, 128, 129, 256}, K in {1, 17, 2048,
+8192}, N in {1, 1025}. The ``sub`` group's grid: d in {1, 3, 4,
 31, 32, 33, 63, 64, 65, 100, 127, 128, 129, 160, 200, 255, 256}, the same
 K and N, labels in [-1, K] (outside [0, K): sub-label 0), every label one
 and all labels distinct. The ``linear`` group's: d' in {1, 3, 4, 127, 128,
@@ -166,6 +184,12 @@ STATS_CASES = (("fit_d32", 1_000_000, 32, 64, 17),
                ("fit_d128", 200_000, 128, 64, 16),
                ("fit_d256", 400_000, 256, 32, 16),
                ("ragged", 100_003, 33, 64, 17))
+# (name, N, d, K slots, live slots): the d = 256 fit's label folds whole,
+# through the family's ``stats_from_labels`` (a checkout with stat
+# windows runs suffstats_labels and the fold a window at a time): over its
+# sweep's 32-slot slab and over its split/merge fold's 64 slots
+LABEL_FOLD_CASES = (("fold_d256_k32", 400_000, 256, 32, 16),
+                    ("fold_d256_k64", 400_000, 256, 64, 16))
 # (name, N, d, K slots, live slots): sweep_gauss at the one-read fits'
 # final states, a ragged N, and the d = 32 fit's state at d = 8 and 16,
 # where step (e) runs in the (f) + fold block (below sweep.TE_MIN_D)
@@ -204,7 +228,7 @@ LINEAR_CASES = (("news20", "multinomial", "generate_mnmm", 11_314, 20_000,
                  1, 32))
 LINEAR_FIT = (1_000_000, 128, 16)
 KERNEL_GROUPS = ("dense", "matmul", "gauss", "stats", "sweep", "sub",
-                 "linear")
+                 "linear", "moments", "fold")
 BITS_STATS_D = (1, 3, 4, 31, 32, 33, 63, 64, 65, 100, 127, 128, 129, 200,
                 255, 256)
 BITS_SWEEP_D = (1, 3, 4, 31, 32, 33, 63, 64, 65, 100, 127, 128)
@@ -215,6 +239,28 @@ BITS_LINEAR_K = (1, 2, 17, 64, 300, 2048)
 BITS_LINEAR_N = (1, 1023, 1025, 11_314)
 BITS_GRID_K = (1, 2, 17, 64, 300)
 BITS_GRID_N = (1, 1023, 1025, 4097)
+# many slots: the stat and step-(f) kernels at K = 2048 and 8192 (8192
+# is the most slots one launch takes; past it a call runs slot windows) and the one-read sweep at its K = 2048, over the
+# widths either side of the Gram tile's and the tiled step (f)'s
+# switches
+BITS_BIG_K = (2048, 8192)
+BITS_BIG_D = (1, 32, 128, 129, 256)
+BITS_BIG_N = (1, 1025)
+BITS_SWEEP_BIG_D = (1, 32, 128)
+# moments_labels: d' either side of its 128-feature chunk, K to 8192
+BITS_MOMENTS_D = (1, 3, 4, 32, 128, 129, 1000)
+BITS_MOMENTS_K = (1, 2, 17, 300, 2048, 8192)
+# the dense oracle: d either side of its column tiles, K to 8192
+BITS_DENSE_D = (1, 7, 32, 128, 129, 256)
+BITS_DENSE_K = (1, 17, 2048, 8192)
+BITS_DENSE_N = (1, 1025)
+# the fold: blocks x elements of one field, from a nonzero accumulator
+BITS_FOLD_NB = (1, 2, 17, 56, 977)
+BITS_FOLD_M = (1, 3, 4, 128, 4097, 131072, 1 << 20)
+# the fold's timed case: the 10^6 x 32 fit's per-block partials (64
+# slots, 17 live: sweep_gauss on the mixture of mixture_operands)
+FOLD_FIT = (1_000_000, 32, 64, 17)
+FP_CHUNK = 1 << 26
 # the edge cases' N and K: four blocks and a ragged one, 17 slots
 EDGE_N, EDGE_K = 4097, 17
 BITS_M = (1, 255, 256, 8192)
@@ -391,12 +437,18 @@ def kernel_split(fn, runs: int) -> dict:
 
 def fingerprint(t: torch.Tensor) -> int:
     """A position-weighted sum of ``t``'s raw 32-bit words (int64,
-    wrapping): equal tensors give equal sums, and a changed bit anywhere
-    changes the sum but for a 2^-64 chance."""
-    bits = t.contiguous().view(torch.int32).flatten().to(torch.int64)
-    pos = torch.arange(bits.numel(), device=t.device, dtype=torch.int64)
-    w = (pos * 2654435761 + 97) % 2147483647 + 1
-    return int((bits * w).sum())
+    wrapping, taken in chunks of FP_CHUNK words so a tensor of 2^30 words
+    needs no 32 GB of temporaries): equal tensors give equal sums, and a
+    changed bit anywhere changes the sum but for a 2^-64 chance."""
+    words = t.contiguous().view(torch.int32).flatten()
+    total = 0
+    for s in range(0, words.numel(), FP_CHUNK):
+        bits = words[s:s + FP_CHUNK].to(torch.int64)
+        pos = torch.arange(s, s + bits.numel(), device=t.device,
+                           dtype=torch.int64)
+        w = (pos * 2654435761 + 97) % 2147483647 + 1
+        total = (total + int((bits * w).sum())) % (1 << 64)
+    return total
 
 
 def mixture_operands(n, d, k, live, dev, seed):
@@ -566,6 +618,98 @@ def bits_cases(ds, ks=BITS_GRID_K, ns=BITS_GRID_N,
             yield f"{kind}_{n}x{d}x{k}", n, d, k, kind
 
 
+def big_cases(ds, ks=BITS_BIG_K, ns=BITS_BIG_N):
+    """(name, n, d, k, "grid") of a grid without edge cases (the many-slot
+    shapes), named as ``bits_cases`` names its grid."""
+    for d in ds:
+        for k in ks:
+            for n in ns:
+                yield f"{n}x{d}x{k}", n, d, k, "grid"
+
+
+def grid_moments_args(n, dp, k, dev, seed, kind="grid"):
+    """Seeded ``moments_labels`` operands (made on the CPU): Poisson
+    counts as features, labels in [-1, k], random sub-labels; ``kind`` as
+    in ``grid_stats_args``."""
+    g = torch.Generator().manual_seed(seed)
+    feats = torch.poisson(torch.full((n, dp), 3.0), generator=g)
+    x, lab, sub, valid, _ = grid_stats_args(n, 1, k, torch.device("cpu"),
+                                            seed, kind)
+    return (feats.to(dev), lab.to(dev), sub.to(dev), valid.to(dev), k)
+
+
+def grid_dense_args(n, d, k, dev, seed, kind="grid"):
+    """Seeded dense-oracle operands (made on the card): points of scale 3
+    and Dirichlet(1) responsibilities."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, d, device=dev, generator=g) * 3
+    gam = torch._standard_gamma(torch.ones(n, k, device=dev), generator=g)
+    return (x, gam / gam.sum(dim=1, keepdim=True))
+
+
+def grid_fold_args(nb, m, k, dev, seed, kind="grid"):
+    """Seeded fold operands (made on the card): a nonzero accumulator of
+    m elements and nb blocks of partials of mixed scale."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    acc = torch.randn(m, device=dev, generator=g) * 100
+    parts = (torch.randn(nb, m, device=dev, generator=g)
+             * torch.rand(nb, 1, device=dev, generator=g) * 1e3)
+    return (acc, parts)
+
+
+def fold_cases():
+    for nb in BITS_FOLD_NB:
+        for m in BITS_FOLD_M:
+            yield f"{nb}x{m}", nb, m, 0, "grid"
+
+
+def time_fold(fold, sweep, bound, cuda_ms, run_ms, dev, prints) -> dict:
+    """The fold of the 10^6 x 32 fit's per-block partials (n, sx, sxx of
+    ``sweep_gauss`` on FOLD_FIT's mixture) from a nonzero accumulator: each
+    field's ``fold_partials_cuda`` (one launch a field), and where the
+    checkout has it the one launch of all three (``fold_fields_cuda``),
+    held bitwise against the per-field folds and the plain loop of adds;
+    each beside the bound of its bytes."""
+    n, d, k, live = FOLD_FIT
+    a, _ = mixture_operands(n, d, k, live, dev, seed=2)
+    parts = sweep.sweep_gauss_cuda(*a)[2:]
+    del a
+    g = torch.Generator(device=dev).manual_seed(5)
+    accs = [torch.randn(p.shape[1:], device=dev, generator=g) * 10
+            for p in parts]
+    out = {"n": n, "d": d, "k": k, "k_live": live, "blocks": parts[0].shape[0]}
+    want = [fold.fold_partials_plain(c, p) for c, p in zip(accs, parts)]
+    per = []
+    total_bytes = 0
+    for name, c, p, w in zip(("n", "sx", "sxx"), accs, parts, want):
+        got = fold.fold_partials_cuda(c, p)
+        if not torch.equal(got, w):
+            raise SystemExit(f"time_kernels: fold ({name}) is not the loop "
+                             "of adds")
+        prints[f"fit_{name}"] = [fingerprint(got)]
+        nbytes = 4 * (p.numel() + 2 * c.numel())
+        total_bytes += nbytes
+        r = {"elements": c.numel(),
+             "kernel": timed(lambda: fold.fold_partials_cuda(c, p), 20,
+                             cuda_ms, run_ms)}
+        r["bound_ms"], r["bound_by"] = bound(p.numel(), nbytes)
+        out[name] = r
+        per.append(r["kernel"]["device_ms"])
+    out["per_field_device_ms_sum"] = float(sum(per))
+    out["bound_ms"], out["bound_by"] = bound(
+        sum(p.numel() for p in parts), total_bytes)
+    if hasattr(fold, "fold_fields_cuda"):
+        got = fold.fold_fields_cuda(accs, parts)
+        if not all(torch.equal(u, v) for u, v in zip(got, want)):
+            raise SystemExit("time_kernels: the one-launch fold is not the "
+                             "loop of adds")
+        out["one_launch"] = {
+            "kernel": timed(lambda: fold.fold_fields_cuda(accs, parts), 20,
+                            cuda_ms, run_ms),
+            "bitwise_loop_of_adds": True}
+    return out
+
+
 def time_stats(suffstats, gauss_work, bound, cuda_ms, run_ms, dev,
                prints) -> dict:
     out = {}
@@ -585,6 +729,24 @@ def time_stats(suffstats, gauss_work, bound, cuda_ms, run_ms, dev,
                                  suffstats.suffstats_labels_cuda(*s_args)]
         out[name] = r
         del a, z, sub, s_args
+        torch.cuda.empty_cache()
+    from repro_torch.core.family import get_family
+    fam = get_family("gaussian")
+    for name, n, d, k, live in LABEL_FOLD_CASES:
+        a, z = mixture_operands(n, d, k, live, dev, seed=1)
+        sub = (a[0][:, 0] > a[1][z.long(), 0]).to(torch.int32)
+        x, valid = a[0], a[10]
+        del a
+
+        def call():
+            return fam.stats_from_labels(x, valid, z, sub, k)
+        r = {"n": n, "d": d, "k": k, "k_live": live,
+             "windows": (len(fam.windows(x, k)) if hasattr(fam, "windows")
+                         else 1)}
+        r["kernel"] = timed(call, 5, cuda_ms, run_ms)
+        r["split"] = kernel_split(call, 3)
+        out[name] = r
+        del x, valid, z, sub
         torch.cuda.empty_cache()
     return out
 
@@ -750,12 +912,13 @@ def top_bin_draws(args) -> int:
     return total
 
 
-def bits_grid(fn, cases, make, prints, note=None) -> None:
+def bits_grid(fn, cases, make, prints, note=None, seed0=1000) -> None:
     """Fingerprints of ``fn``'s outputs over the bits grid ``cases``
-    (``bits_cases``); a shape the wrapper refuses is kept as its message.
-    ``note(args)``, if given, is kept beside each shape's prints."""
+    (``bits_cases``), the i-th case's operands seeded ``seed0 + i``; a
+    shape the wrapper refuses is kept as its message. ``note(args)``, if
+    given, is kept beside each shape's prints."""
     for i, (name, n, d, k, kind) in enumerate(cases):
-        args = make(n, d, k, DEV, 1000 + i, kind)
+        args = make(n, d, k, DEV, seed0 + i, kind)
         if note is not None:
             prints[f"{name}/note"] = note(args)
         try:
@@ -767,26 +930,29 @@ def bits_grid(fn, cases, make, prints, note=None) -> None:
             res = (res,)
         prints[name] = [fingerprint(t) for t in res]
         del res, args
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
 
 
 # sources each group's kernels need
 GROUP_SOURCES = {"dense": ("suffstats_dense",), "matmul": ("matmul",),
                  "gauss": ("assign_gauss", "loglik_gauss"),
-                 "stats": ("suffstats_labels",),
+                 "stats": ("suffstats_labels", "fold_partials"),
                  "sweep": ("sweep_gauss", "assign_gauss", "sub_assign_gauss",
                            "suffstats_labels"),
                  "sub": ("sub_assign_gauss", "assign_gauss"),
                  "linear": ("sweep_linear", "assign_linear",
-                            "sub_assign_linear", "moments_labels")}
+                            "sub_assign_linear", "moments_labels"),
+                 "moments": ("moments_labels",),
+                 "fold": ("fold_partials", "sweep_gauss")}
 
 
-def worker(src: str, save: str, groups) -> dict:
+def worker(src: str, save: str, groups, bits_only: bool) -> dict:
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, src)
     from chip_smoke import bound, card, cuda_ms, dense_work, gauss_work, \
         run_ms
-    from repro_torch.kernels import (assign, build, loglik, matmul,
+    from repro_torch.kernels import (assign, build, fold, loglik, matmul,
                                      suffstats, sweep)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -799,42 +965,75 @@ def worker(src: str, save: str, groups) -> dict:
     out.update({"nvidia_smi": card(), **{grp: {} for grp in KERNEL_GROUPS}})
     bits = {}
     g = torch.Generator(device=dev).manual_seed(0)
+    timing = not bits_only
     if "stats" in groups:
         bits["stats"] = {}
-        out["stats"] = time_stats(suffstats, gauss_work, bound, cuda_ms,
-                                  run_ms, dev, bits["stats"])
+        if timing:
+            out["stats"] = time_stats(suffstats, gauss_work, bound, cuda_ms,
+                                      run_ms, dev, bits["stats"])
         bits_grid(suffstats.suffstats_labels_cuda, bits_cases(BITS_STATS_D),
                   grid_stats_args, bits["stats"])
+        bits_grid(suffstats.suffstats_labels_cuda, big_cases(BITS_BIG_D),
+                  grid_stats_args, bits["stats"], seed0=5000)
     if "sweep" in groups:
         bits["sweep"] = {}
-        out["sweep"] = time_sweep(sweep, assign, suffstats, gauss_work,
-                                  bound, cuda_ms, run_ms, dev, bits["sweep"])
+        if timing:
+            out["sweep"] = time_sweep(sweep, assign, suffstats, gauss_work,
+                                      bound, cuda_ms, run_ms, dev,
+                                      bits["sweep"])
         bits_grid(sweep.sweep_gauss_cuda, bits_cases(BITS_SWEEP_D),
                   grid_sweep_args, bits["sweep"])
+        bits_grid(sweep.sweep_gauss_cuda,
+                  big_cases(BITS_SWEEP_BIG_D, (2048,), BITS_GRID_N),
+                  grid_sweep_args, bits["sweep"], seed0=5000)
     if "sub" in groups:
         bits["sub"] = {}
-        out["sub"] = time_sub(assign, bound, cuda_ms, run_ms, dev,
-                              bits["sub"])
+        if timing:
+            out["sub"] = time_sub(assign, bound, cuda_ms, run_ms, dev,
+                                  bits["sub"])
         bits_grid(assign.sub_assign_gauss_cuda,
                   bits_cases(BITS_SUB_D, kinds=("one_label", "distinct")),
                   grid_sub_args, bits["sub"])
+        bits_grid(assign.sub_assign_gauss_cuda,
+                  big_cases(BITS_BIG_D, BITS_BIG_K, (1, 1025, 4097)),
+                  grid_sub_args, bits["sub"], seed0=5000)
     if "linear" in groups:
         bits["linear"] = {}
-        out["linear"] = time_linear_group(sweep, assign, suffstats, bound,
-                                          cuda_ms, run_ms, dev,
-                                          bits["linear"])
+        if timing:
+            out["linear"] = time_linear_group(sweep, assign, suffstats,
+                                              bound, cuda_ms, run_ms, dev,
+                                              bits["linear"])
         bits_grid(sweep.sweep_linear_cuda,
                   bits_cases(BITS_LINEAR_D, BITS_LINEAR_K, BITS_LINEAR_N,
                              ("empty", "one_segment", "valid_zeros",
                               "misaligned")),
                   grid_linear_args, bits["linear"], note=top_bin_draws)
+    if "moments" in groups:
+        bits["moments"] = {}
+        bits_grid(suffstats.moments_labels_cuda,
+                  bits_cases(BITS_MOMENTS_D, BITS_MOMENTS_K, BITS_GRID_N),
+                  grid_moments_args, bits["moments"])
+    if "fold" in groups:
+        bits["fold"] = {}
+        if timing:
+            out["fold"] = time_fold(fold, sweep, bound, cuda_ms, run_ms, dev,
+                                    bits["fold"])
+        bits_grid(fold.fold_partials_cuda, fold_cases(), grid_fold_args,
+                  bits["fold"])
     if "gauss" in groups:
         bits["gauss"] = {}
-        out["gauss"] = time_gauss(assign, loglik, bound, cuda_ms, run_ms,
-                                  dev, g)
+        if timing:
+            out["gauss"] = time_gauss(assign, loglik, bound, cuda_ms,
+                                      run_ms, dev, g)
         bits_grid(gauss_bits(assign, loglik), gauss_bits_cases(),
                   grid_gauss_args, bits["gauss"])
-    for name, n, d, k, kind in DENSE_CASES if "dense" in groups else ():
+    if "dense" in groups:
+        bits["dense"] = {}
+        bits_grid(suffstats.suffstats_cuda,
+                  big_cases(BITS_DENSE_D, BITS_DENSE_K, BITS_DENSE_N),
+                  grid_dense_args, bits["dense"])
+    for name, n, d, k, kind in (DENSE_CASES if "dense" in groups and timing
+                                else ()):
         x = torch.randn(n, d, device=dev, generator=g) * 3
         if kind == "one_hot":
             lab = torch.randint(0, k, (n,), device=dev, generator=g)
@@ -853,7 +1052,7 @@ def worker(src: str, save: str, groups) -> dict:
         out["dense"][name] = r
         del x, resp
     if "matmul" in groups:
-        for m, k, n in MATMUL_CASES:
+        for m, k, n in MATMUL_CASES if timing else ():
             a = torch.randn(m, k, device=dev, generator=g)
             b = torch.randn(k, n, device=dev, generator=g)
             r = {"kernel": timed(lambda: matmul.matmul_cuda(a, b), 100,
@@ -924,7 +1123,7 @@ def summary(trees, results) -> dict:
         s = {grp: {} for grp in KERNEL_GROUPS}
         for group in ("stats", "sweep", "sub", "linear"):
             for name, case in turns[0][group].items():
-                row = {"bound_ms": case["bound_ms"],
+                row = {"bound_ms": case.get("bound_ms"),
                        "plain_single_ms": median_of(
                            turns, (group, name, "plain", "single_ms"))}
                 for key in ("single_ms", "device_ms", "host_ms"):
@@ -962,6 +1161,17 @@ def summary(trees, results) -> dict:
                 for key in ("single_ms", "device_ms", "host_ms")}
             s["dense"][name]["bound_ms"] = turns[0]["dense"][name][
                 "bound_ms"]
+        if turns[0]["fold"]:
+            f = turns[0]["fold"]
+            s["fold"] = {"bound_ms": f["bound_ms"], "per_field_device_ms_sum":
+                         median_of(turns, ("fold", "per_field_device_ms_sum"))}
+            for name in ("n", "sx", "sxx"):
+                s["fold"][f"{name}_device_ms"] = median_of(
+                    turns, ("fold", name, "kernel", "device_ms"))
+            if "one_launch" in f:
+                for key in ("single_ms", "device_ms", "host_ms"):
+                    s["fold"][f"one_launch_{key}"] = median_of(
+                        turns, ("fold", "one_launch", "kernel", key))
         for name in turns[0]["matmul"]:
             s["matmul"][name] = {
                 f"{route}_{key}": median_of(turns, ("matmul", name, route,
@@ -986,6 +1196,9 @@ def main() -> None:
     ap.add_argument("--bits-against", default="",
                     help="compare each checkout's bits with a file that "
                     "--bits-out wrote")
+    ap.add_argument("--bits-only", action="store_true",
+                    help="keep the bits grids' fingerprints and time "
+                    "nothing")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--save", default="", help=argparse.SUPPRESS)
     opts = ap.parse_args()
@@ -995,8 +1208,8 @@ def main() -> None:
     if not set(groups) <= set(KERNEL_GROUPS):
         raise SystemExit(f"time_kernels: --kernels takes {KERNEL_GROUPS}")
     if opts.worker:
-        print(json.dumps(worker(opts.src[0], opts.save, groups)),
-              flush=True)
+        print(json.dumps(worker(opts.src[0], opts.save, groups,
+                                opts.bits_only)), flush=True)
         return
     trees = [str(Path(s).resolve()) for s in (opts.src or [str(ROOT
                                                              / "src")])]
@@ -1010,7 +1223,8 @@ def main() -> None:
             save = str(Path(tmp) / f"bits_{i}.pt")
             proc = subprocess.run(
                 [sys.executable, __file__, "--worker", "--src", src,
-                 "--save", save, "--kernels", opts.kernels],
+                 "--save", save, "--kernels", opts.kernels]
+                + (["--bits-only"] if opts.bits_only else []),
                 capture_output=True, text=True)
             if proc.returncode != 0:
                 raise SystemExit(f"time_kernels: turn {i} ({src}) failed:\n"
