@@ -61,8 +61,14 @@ dense oracle against their plain versions past one slot window (K = 8193
 and 16,384: a launch a window), past d = 256 (d = 300 and 384: the
 Gram tiles, the sub-factors' column panels, the dense panel tile) and at
 ``fit_k_large``'s shapes (a stat window of 50,176 x 16 points over
-10,000 slots; 100,000 x 16 over the 4096-slot slab). ``kernel_times`` also
-times the serving kernels at one step. ``kernel_check_three_pass`` holds
+10,000 slots; 100,000 x 16 over the 4096-slot slab), and ``assign_linear``
+and ``sub_assign_linear`` past the one-read sweep's 2048 slots (K = 4096
+and 10,000; step (f) under labels in [-1, K]). ``kernel_times`` also
+times the serving kernels at one step, and ``assign_linear`` and
+``sub_assign_linear`` alone (``run_ms``) at the 8192-row multinomial and
+diagonal-Gaussian serving steps, the three-pass multinomial fit's final
+state (200,000 x 128), the multinomial fit's (10^6 x 128) and the
+20newsgroups width. ``kernel_check_three_pass`` holds
 ``sub_assign_gauss`` (at the d = 32 fit's final state) and
 ``sub_assign_linear`` (at the multinomial and diagonal-Gaussian fits'
 final states, the 20newsgroups width and the three-pass multinomial
@@ -92,6 +98,12 @@ points kept in host memory (NMI >= 0.9, device bytes at most 1.5x
 ``fit_tiled``'s and under a quarter of x's). Each reports ms/iter, the
 device bytes above those at the fit's start, the reference's estimate and
 the share of the fit the compute stream waited on tile copies.
+``fit_resume`` fits ``fit``'s data and seed for 15 iterations (a
+``log_every`` chunk cut in two), writes the state with ``save_model``,
+reads it with ``load_model`` and fits 25 more from ``init_state``:
+labels, K/score history and every state tensor must equal the
+40-iteration ``fit`` bit for bit; then the same on the tiled plane
+against ``fit_tiled``.
 ``kernel_check_dense`` holds the dense ``suffstats`` oracle (its entry
 point ``ops.suffstats``) against its plain version at the d = 32 and d =
 128 fits' final states, a ragged shape, d = 256 and the reference's §4.2
@@ -221,6 +233,13 @@ K_LARGE_FITS = (("k4096_dense", dict(k_max=4096, compact=False)),
 # against their plain versions: (name, N, d, K). The last two are
 # fit_k_large's shapes: one stat window of its k_max = 10,000 init fold
 # (49 STATS_BLOCKs at d = 16) and its 4096-slot dense slab.
+# assign_linear and sub_assign_linear past the one-read sweep's 2048 slots:
+# (name, N, d', K)
+LINEAR_WINDOW_CASES = (("linear_k4096", 20_000, 128, 4096),
+                       ("linear_k10000", 20_000, 64, 10_000))
+# the resumed chains: iterations before the save (not a multiple of
+# log_every: a chunk is cut in two)
+RESUME_AT = 15
 WINDOW_CASES = (("k8193", 20_000, 3, 8193), ("k16384", 20_000, 3, 16_384),
                 ("d300", 20_000, 300, 5), ("d384", 20_000, 384, 5),
                 ("fold_k10000", 50_176, K_LARGE_D, 10_000),
@@ -1042,11 +1061,10 @@ def serve_model(name, res, fam_name, xq, yq, x_fit, tmp, gpu) -> dict:
     # swap to the fitted state after one more model-side step (weights
     # and params redrawn); a query before the flip is the old model's, a
     # query after it the new model's, bit for bit
-    g = torch.Generator(device=eng.device).manual_seed(9)
     xf = torch.as_tensor(x_fit, device=eng.device)
     prior = fam.build_prior(DPMMConfig(component=fam_name),
                             xf.mean(dim=0, keepdim=True))
-    nxt = gibbs.sweep_model(res.state, prior, fam, DPMMConfig().alpha, g)
+    nxt = gibbs.sweep_model(res.state, prior, fam, DPMMConfig().alpha)
     path2 = checkpoint.save_model(str(tmp / f"{name}_next.npz"), nxt,
                                   fam_name)
     probe = xq[:SERVE_B]
@@ -1141,6 +1159,8 @@ def time_serve_kernels(engines, xq, assign, loglik, matmul, dev) -> dict:
         flop=2 * SERVE_B * live * dp,
         bytes=4 * SERVE_B * dp + 12 * SERVE_B + 4 * k * (dp + 4),
         library_ms=None, shape=f"B={SERVE_B} d'={dp} K={k} live={live}",
+        **dict(zip(("device_ms", "host_ms"),
+                   run_ms(lambda: assign.assign_linear_cuda(*largs), 100))),
         max_abs_err=float(assign_ties(
             assign, False, largs, assign.assign_linear_cuda(*largs),
             assign.assign_linear_plain(*largs))))
@@ -1743,6 +1763,170 @@ def kernel_check_windows(ops, suffstats, assign, dev) -> dict:
     return out
 
 
+def linear_window_operands(n, dp, k, dev, seed):
+    """``sweep_linear`` operands of K slots (about 60 % live), count
+    features and log-probability weights, made on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    feats = torch.poisson(torch.full((n, dp), 3.0, device=dev), generator=g)
+    logp = lambda *s: torch.log_softmax(
+        torch.randn(*s, device=dev, generator=g) * 2, -1)
+    act = (torch.rand(k, device=dev, generator=g) < 0.6).to(torch.int32)
+    return (feats, logp(k, dp), torch.randn(k, device=dev, generator=g),
+            torch.log_softmax(torch.randn(k, device=dev, generator=g), 0),
+            act, logp(k, 2, dp), torch.randn(k, 2, device=dev, generator=g),
+            torch.log_softmax(torch.randn(k, 2, device=dev, generator=g), 1),
+            torch.ones(n, device=dev),
+            torch.arange(n, device=dev, dtype=torch.int64) + 11,
+            torch.tensor([9, 4_000_000_007], device=dev),
+            torch.tensor([3, 5], device=dev),
+            torch.randperm(2 * k, device=dev, generator=g)[:k].to(
+                torch.int32))
+
+
+def linear_window_checks(ops, assign, dev) -> dict:
+    """``assign_linear`` and ``sub_assign_linear`` past the one-read
+    sweep's 2048 slots (LINEAR_WINDOW_CASES: step (e) walks slot windows,
+    step (f) keeps nothing K-sized) against their plain versions:
+    repeat launches bitwise equal, labels exact but for near-ties,
+    sub-labels under labels in [-1, K] exact but for near-ties inside
+    [0, K) and 0 outside; a launch a call; per-launch device times."""
+    out = {}
+    for name, n, dp, k in LINEAR_WINDOW_CASES:
+        a = linear_window_operands(n, dp, k, dev, seed=k)
+        e_args = a[:5] + (a[9], a[10], a[12])
+        lab = ((a[9] * 2654435761) % (k + 2) - 1).to(torch.int32)
+        f_args = (a[0], a[5], a[6], a[7], lab, a[9], a[11])
+        inside = (lab >= 0) & (lab < k)
+        r = {"n": n, "d_feat": dp, "k": k, "k_live": int(a[4].sum())}
+        for kern, cuda, args in (
+                ("assign_linear", assign.assign_linear_cuda, e_args),
+                ("sub_assign_linear", assign.sub_assign_linear_cuda,
+                 f_args)):
+            ops.reset_launch_counts()
+            got, again = cuda(*args), cuda(*args)
+            torch.cuda.synchronize()
+            if ops.launch_counts()[kern] != 2:
+                fail(f"kernel_check_windows {name}: {kern} launched "
+                     f"{ops.launch_counts()[kern]} times in two calls")
+            if not torch.equal(got, again):
+                fail(f"kernel_check_windows {name}: {kern}: two launches "
+                     "differ")
+            t = {"launches_a_call": 1, "repeat_bitwise": True}
+            if kern == "assign_linear":
+                t["near_tie_mismatches"] = assign_ties(
+                    assign, False, args, got,
+                    assign.assign_linear_plain(*args))
+            else:
+                if int(got[~inside].abs().sum()) != 0:
+                    fail(f"kernel_check_windows {name}: a label outside "
+                         "[0, K) did not get sub-label 0")
+                idx = torch.nonzero(inside).flatten()
+                in_args = (a[0][idx].contiguous(), a[5], a[6], a[7],
+                           lab[idx].contiguous(), a[9][idx].contiguous(),
+                           a[11])
+                t["near_tie_mismatches"] = sub_ties(
+                    assign, False, in_args, got[idx],
+                    assign.sub_assign_linear_plain(*in_args))
+            t["device_ms"], t["host_ms"] = run_ms(lambda: cuda(*args), 5)
+            r[kern] = t
+        out[name] = r
+        del a, e_args, f_args
+        torch.cuda.empty_cache()
+    return out
+
+
+def linear_step_work(a, step: str):
+    """(FLOP, bytes) of ``assign_linear`` ("e": the live slots) or
+    ``sub_assign_linear`` ("f") on ``sweep_linear`` operands ``a``."""
+    n, dp = a[0].shape
+    k = a[1].shape[0]
+    if step == "e":
+        return (2 * n * int(a[4].sum()) * dp,
+                4 * n * dp + 16 * n + 4 * k * (dp + 4) + 16)
+    return 4 * n * dp, 4 * n * dp + 20 * n + 8 * k * (dp + 2) + 16
+
+
+def linear_step_times(assign, states: dict) -> dict:
+    """``assign_linear`` and ``sub_assign_linear`` alone on each of
+    ``states`` (``sweep_linear`` operands; step (f) under step (e)'s
+    labels): single-call (``cuda_ms``), per-launch device and host times
+    (``run_ms``) and the bound of each."""
+    out = {}
+    for name, a in states.items():
+        e_args = a[:5] + (a[9], a[10], a[12])
+        lab = assign.assign_linear_cuda(*e_args)
+        f_args = (a[0], a[5], a[6], a[7], lab, a[9], a[11])
+        r = {"n": a[0].shape[0], "d_feat": a[0].shape[1],
+             "k": a[1].shape[0], "k_live": int(a[4].sum())}
+        for kern, fn, args, step in (
+                ("assign_linear", assign.assign_linear_cuda, e_args, "e"),
+                ("sub_assign_linear", assign.sub_assign_linear_cuda, f_args,
+                 "f")):
+            t = {"ms": cuda_ms(lambda: fn(*args), 20)}
+            t["device_ms"], t["host_ms"] = run_ms(lambda: fn(*args), 50)
+            t["bound_ms"], t["bound_by"] = bound(*linear_step_work(a, step))
+            r[kern] = t
+        out[name] = r
+    return out
+
+
+def same_resumed(first, rest, whole) -> dict:
+    """Which of labels, K/score history (the two halves joined) and every
+    tensor of the final state of a resumed chain equal the uninterrupted
+    chain's bit for bit."""
+    def leaves(st):
+        out = {"it": torch.tensor(st.it)}
+        for f in st.__dataclass_fields__:
+            v = getattr(st, f)
+            if isinstance(v, torch.Tensor):
+                out[f] = v.cpu()
+            elif hasattr(v, "__dataclass_fields__"):
+                out.update({f"{f}.{g}": getattr(v, g).cpu()
+                            for g in v.__dataclass_fields__})
+        return out
+    a, b = leaves(rest.state), leaves(whole.state)
+    return {"labels": bool(np.array_equal(rest.labels, whole.labels)),
+            "history": all(np.array_equal(np.concatenate(
+                [first.history[k], rest.history[k]]), whole.history[k])
+                for k in whole.history),
+            "state": a.keys() == b.keys() and all(
+                a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])
+                for k in a)}
+
+
+def fit_resume(DPMM, checkpoint, cfg, data, y_np, whole, tmp: Path,
+               kernels, gpu) -> dict:
+    """RESUME_AT iterations of ``cfg`` on ``data``, ``save_model``,
+    ``load_model``, then ``cfg.iters - RESUME_AT`` more from ``init_state``
+    (the launch counts set to 0 just before the resumed fit, read just
+    after): raises unless the chain is ``whole`` (the uninterrupted fit)
+    bit for bit, NMI >= 0.9 and each of ``kernels`` launched."""
+    from repro_torch.kernels import ops
+    first = DPMM(cfg).fit(data, RESUME_AT)
+    path = checkpoint.save_model(str(tmp / f"resume_{cfg.component}.npz"),
+                                 first.state, cfg.component)
+    state, _ = checkpoint.load_model(path)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rest = DPMM(cfg).fit(data, cfg.iters - RESUME_AT, init_state=state)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    same = same_resumed(first, rest, whole)
+    report = dict(mode=rest.mode, resumed_at=RESUME_AT, it=rest.state.it,
+                  nmi=rest.nmi(y_np), k_found=rest.k, wall_s=wall,
+                  bitwise_uninterrupted=same, launches=launches)
+    if not all(same.values()):
+        fail(f"fit_resume ({rest.mode}): the resumed chain parts from the "
+             f"uninterrupted one: {same}")
+    if report["nmi"] < 0.9:
+        fail(f"fit_resume ({rest.mode}): NMI {report['nmi']:.4f} < 0.9")
+    for name in kernels:
+        if launches[name] == 0:
+            fail(f"fit_resume ({rest.mode}): kernel {name} was never "
+                 "launched by the resumed fit")
+    return report
+
+
 def same_chain(a, b) -> dict:
     """Which of labels, K/score history and final stats of two fits are
     bitwise equal."""
@@ -1821,7 +2005,7 @@ def main() -> None:
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
     sys.path.insert(0, str(SRC))
     from repro_torch.configs import DPMMConfig
-    from repro_torch.core import gibbs, niw, sampler
+    from repro_torch.core import checkpoint, gibbs, niw, sampler
     from repro_torch.core.family import get_family
     from repro_torch.core.sampler import DPMM
     from repro_torch.data import synthetic
@@ -1962,6 +2146,12 @@ def main() -> None:
         res_t, rep_t = run_tiled(DPMM, tcfg, HostTiledSource.from_npy(path),
                                  y_np, GAUSS_PATH, gpu, "fit_tiled",
                                  resident=res)
+        # a saved chain continues bitwise on both planes
+        emit("fit_resume", nvidia_smi=gpu, resident=fit_resume(
+            DPMM, checkpoint, cfg, x_np, y_np, res, Path(tmp), GAUSS_PATH,
+            gpu), tiled=fit_resume(
+            DPMM, checkpoint, tcfg, HostTiledSource.from_npy(path), y_np,
+            res_t, Path(tmp), GAUSS_PATH, gpu))
         faulty = FaultInjectingSource(HostTiledSource.from_npy(path),
                                       hang_s=0.0, **FAULTS)
 
@@ -2161,6 +2351,7 @@ def main() -> None:
     # the stat and step-(f) kernels past one slot window and past d = 256
     t0 = time.perf_counter()
     wcheck = kernel_check_windows(ops, suffstats, assign, dev)
+    wcheck.update(linear_window_checks(ops, assign, dev))
     emit("kernel_check_windows", stats_rtol=STATS_RTOL, tie_rtol=TIE_RTOL,
          seconds=time.perf_counter() - t0, nvidia_smi=gpu, **wcheck)
 
@@ -2357,6 +2548,27 @@ def main() -> None:
             **({"d256": {key: k256[name][key] for key in (
                 "ms", "device_ms", "plain_ms", "bound_ms")}}
                if name in ("assign_gauss", "loglik_gauss") else {})})
+    # assign_linear and sub_assign_linear alone at the serving steps, the
+    # three-pass multinomial fit's final state, the multinomial fit's and
+    # the 20newsgroups width
+    res3, x3_np = three_fit["multinomial"]
+    a3, _ = fit_linear_args(get_family("multinomial"), res3.state,
+                            torch.as_tensor(x3_np, device=dev), gibbs,
+                            sampler, gen)
+    step_states = {}
+    for name, fam, make, d_s in (
+            ("serve_multinomial", "multinomial", "generate_mnmm", 128),
+            ("serve_diag_gaussian", "diag_gaussian", "generate_gmm",
+             FIT_D)):
+        xs_np, ys_np = getattr(synthetic, make)(SERVE_B, d_s, SERVE_LIVE,
+                                                seed=2)
+        step_states[name] = linear_sweep_args(
+            get_family(fam), torch.as_tensor(xs_np, device=dev), ys_np,
+            SERVE_KC, dev)
+    step_states.update(three_pass_multinomial_fit=a3,
+                       multinomial_fit=largs, news20=news_args)
+    linear_steps = linear_step_times(assign, step_states)
+    del step_states
     emit("kernel_times", n=n, d=d, k_sweep=k_c, k_live=n_act,
          k_stats=k_sm, near_tie_mismatches=ties_fit,
          linear_fit_states=fit_states,
@@ -2364,7 +2576,7 @@ def main() -> None:
          detail={r["name"]: {"ms": r["ms"], "plain_ms": r["plain_ms"],
                              "bound_ms": r["bound_ms"]} for r in rows},
          multinomial_fit_state=lin_times, news20=news_times,
-         serve_step=serve_times, nvidia_smi=gpu)
+         serve_step=serve_times, linear_steps=linear_steps, nvidia_smi=gpu)
 
     # the three-pass path at the fits' final states: each step-(f) kernel
     # against its plain version and the one-read sweep's step (f), and the
@@ -2417,10 +2629,6 @@ def main() -> None:
     # the kernels line's step-(f) rows: each kernel checked and timed at
     # the final state of the fit whose launches the row shows (the d = 256
     # fit's from kernels_d256; the three-pass multinomial fit's here)
-    res3, x3_np = three_fit["multinomial"]
-    a3, _ = fit_linear_args(get_family("multinomial"), res3.state,
-                            torch.as_tensor(x3_np, device=dev), gibbs,
-                            sampler, gen)
     out3 = sweep.sweep_linear_cuda(*a3)
     l3_args = linear_sub_args(a3, out3[0])
     l3 = check_sub_assign(assign, False, l3_args, out3[1])
@@ -2429,7 +2637,9 @@ def main() -> None:
     l3.update(ms=cuda_ms(lambda: assign.sub_assign_linear_cuda(*l3_args),
                          20),
               plain_ms=cuda_ms(
-                  lambda: assign.sub_assign_linear_plain(*l3_args), 3))
+                  lambda: assign.sub_assign_linear_plain(*l3_args), 3),
+              **dict(zip(("device_ms", "host_ms"), run_ms(
+                  lambda: assign.sub_assign_linear_cuda(*l3_args), 50))))
     l3["bound_ms"], l3["bound_by"] = bound(
         4 * n3 * dp3, 4 * n3 * dp3 + 16 * n3 + 8 * kc3 * (dp3 + 2))
     tp["sub_assign_linear"]["multinomial_three_pass_fit"] = l3

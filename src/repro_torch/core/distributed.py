@@ -2,7 +2,7 @@
 
 Port of ``repro.core.distributed.tile_plan`` for one data shard (one
 device, one process). The rest of that module (meshes, sharded points,
-collectives) waits for the multi-GPU slice (ROADMAP.md §1 item 11).
+collectives) waits for the multi-GPU slice (ROADMAP.md §1 item 6).
 """
 from __future__ import annotations
 

@@ -14,16 +14,20 @@ Port of ``repro.core.gibbs`` for one process and one chain:
   words and steps (a)-(d)), ``sweep_compaction``, then ``sweep_tile`` on
   every tile with a running accumulator, then ``sweep_end``.
 
-Per-point noise is the counter-based Threefry keyed on (key words, global
-point index, dense slot id) (``kernels/prng.py``); the key words of an
-iteration are drawn from the fit's generator. Model-side draws (gamma,
-normal) come from the same generator, or are passed in by a test.
+All randomness of an iteration derives from ``(model.key, model.it)`` as
+the reference derives it (``sweep_keys``): six keys ``split(fold_in(key,
+it), 6)``, k_w, k_sw, k_p, k_sp, k_z, k_zb. Per-point noise is the
+counter-based Threefry keyed on (k_z or k_zb, global point index, dense
+slot id) (``kernels/prng.py``), so for the same ``ModelState`` and x the
+point-side draws are the reference's bit for bit. Steps (a)-(d) draw from
+four ``torch.Generator``s, one a key, seeded from k_w, k_sw, k_p and k_sp
+(``prng.generator``); a test may pass the gamma draws in instead.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 
@@ -127,16 +131,26 @@ def compute_stats(family, x, valid, labels, sublabels, k_max: int):
 # ---------------------------------------------------------------------------
 # The sweep: model-side and tile-side halves
 # ---------------------------------------------------------------------------
-def sweep_model(model: ModelState, prior, family, alpha: float,
-                generator: Optional[torch.Generator]) -> ModelState:
-    """Steps (a)-(d): weights, sub-weights, parameters, sub-parameters —
-    drawn from ``generator`` in that order."""
-    logw = sample_weights(generator, model.active, model.stats.n, alpha)
-    sublogw = sample_subweights(generator, model.active,
+def sweep_keys(model: ModelState) -> List[prng.Words]:
+    """The six per-sweep keys' words, derived from (key, it) only as the
+    reference derives them: k_w, k_sw, k_p, k_sp, k_z, k_zb of
+    ``split(fold_in(key, it), 6)``."""
+    return prng.split(prng.fold_in(model.key, model.it), 6)
+
+
+def sweep_model(model: ModelState, prior, family,
+                alpha: float) -> ModelState:
+    """Steps (a)-(d): weights, sub-weights, parameters, sub-parameters,
+    each drawn from a generator of its own seeded from k_w, k_sw, k_p and
+    k_sp (``sweep_keys``)."""
+    dev = model.active.device
+    gen = [prng.generator(k, dev) for k in sweep_keys(model)[:4]]
+    logw = sample_weights(gen[0], model.active, model.stats.n, alpha)
+    sublogw = sample_subweights(gen[1], model.active,
                                 model.substats.n[:, 0],
                                 model.substats.n[:, 1], alpha)
-    params = family.sample_posterior(prior, model.stats, generator)
-    subparams = family.sample_posterior(prior, model.substats, generator)
+    params = family.sample_posterior(prior, model.stats, gen[2])
+    subparams = family.sample_posterior(prior, model.substats, gen[3])
     return model.replace(logweights=logw, sub_logweights=sublogw,
                          params=params, subparams=subparams)
 
@@ -182,16 +196,14 @@ def sweep_tile(model: ModelState, x: torch.Tensor, point: PointState,
                                sublabels=sublabels), acc
 
 
-def sweep_begin(model: ModelState, prior, family, alpha: float,
-                generator: Optional[torch.Generator]
+def sweep_begin(model: ModelState, prior, family, alpha: float
                 ) -> Tuple[ModelState, torch.Tensor, torch.Tensor]:
-    """The iteration's two key words (steps (e), (f)), then steps
-    (a)-(d), drawn from ``generator`` in that order."""
+    """Steps (a)-(d), and the key words of steps (e) and (f) (k_z, k_zb
+    of ``sweep_keys``) as the kernels read them."""
     dev = model.active.device
-    key_z = prng.key_words(generator, dev)
-    key_zb = prng.key_words(generator, dev)
-    return (sweep_model(model, prior, family, alpha, generator), key_z,
-            key_zb)
+    keys = sweep_keys(model)
+    return (sweep_model(model, prior, family, alpha),
+            prng.key_tensor(keys[4], dev), prng.key_tensor(keys[5], dev))
 
 
 def sweep_compaction(model: ModelState, k_compact: Optional[int]
@@ -226,14 +238,12 @@ def sweep_end(model: ModelState, acc, plan: Optional[CompactionPlan]
 
 
 def sweep(model: ModelState, point: PointState, x: torch.Tensor, prior,
-          family, alpha: float, generator: Optional[torch.Generator], *,
-          k_compact: Optional[int] = None
+          family, alpha: float, *, k_compact: Optional[int] = None
           ) -> Tuple[ModelState, PointState]:
     """One restricted Gibbs sweep (steps a-f) over the resident points, on
     the compact slab of ``k_compact`` rows when the live clusters fit in
     it (``sweep_compaction``)."""
-    model, key_z, key_zb = sweep_begin(model, prior, family, alpha,
-                                       generator)
+    model, key_z, key_zb = sweep_begin(model, prior, family, alpha)
     plan = sweep_compaction(model, k_compact)
     acc = sweep_acc(model, family, plan, x.shape[1])
     point, acc = sweep_tile(model, x, point,

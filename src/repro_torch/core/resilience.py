@@ -4,7 +4,7 @@ Port of ``repro.core.resilience``'s ``TileReadError``, ``RetryPolicy``,
 ``read_block_checked`` (the tiled fit reads every tile through it, with the
 reference's event records ``tile_read_fault`` and ``io_retry``) and
 ``model_health``. Divergence rollback and ``fit(resume=True)`` are not
-ported yet (ROADMAP.md §1 item 9).
+ported yet (ROADMAP.md §1 item 2).
 """
 from __future__ import annotations
 

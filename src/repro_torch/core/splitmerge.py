@@ -8,8 +8,12 @@ matching, stuck-cluster resets and the hyperplane geometry);
 sub-label re-init) as whole-tile tensor ops and folds the consistency
 stats with one ``suffstats_labels`` call.
 
-The uniform and normal draws come from the fit's generator, or are passed
-in (``SplitMergeDraws``) so a test can feed the JAX package's draws.
+The move's uniform and normal draws derive from its key as the
+reference's do: ``move_key`` is ``fold_in(key, -(it + 1))``, split into
+k_s, k_m, k_b; the split uniforms come from a generator seeded from k_s,
+the merge uniforms from k_m, the split hyperplanes from k_b and the reset
+hyperplanes from ``fold_in(k_b, 1)`` (``draw_split_merge``). A test can
+pass other draws in (``SplitMergeDraws``), the JAX package's for one.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 
 from repro_torch.core.family import fold_blocked
 from repro_torch.core.state import PointState, tree_map, tree_map2
+from repro_torch.kernels import prng
 
 
 @dataclasses.dataclass
@@ -241,17 +246,28 @@ def relabel_after_merge(labels, sublabels, dec: MergeDecision):
     return dec.into[lab].to(torch.int32), zb.to(torch.int32)
 
 
-def draw_split_merge(generator: Optional[torch.Generator], k_max: int,
-                     d: int, device) -> SplitMergeDraws:
-    """The move's random numbers, drawn from ``generator`` in a fixed
-    order. Uniforms lie in [1e-12, 1), as the reference's."""
-    def uniform(n):
-        u = torch.rand((n,), generator=generator, device=device)
+def move_key(model) -> prng.Words:
+    """The iteration's split/merge key: ``fold_in(key, -(it + 1))``, a
+    stream disjoint from the sweep's ``fold_in(key, it)``."""
+    return prng.fold_in(model.key, -(model.it + 1))
+
+
+def draw_split_merge(key, k_max: int, d: int, device) -> SplitMergeDraws:
+    """The move's random numbers from its key's three sub-keys (k_s, k_m,
+    k_b of ``split(key, 3)``), each draw from a generator of its own.
+    Uniforms lie in [1e-12, 1), as the reference's."""
+    k_s, k_m, k_b = prng.split(key, 3)
+
+    def uniform(k, n):
+        u = torch.rand((n,), generator=prng.generator(k, device),
+                       device=device)
         return torch.clamp(u, min=1e-12)
+    vecs = lambda k: hyperplane_vecs(prng.generator(k, device), k_max, d,
+                                     device)
     return SplitMergeDraws(
-        u_split=uniform(k_max), u_merge=uniform(k_max * (k_max - 1) // 2),
-        vecs_split=hyperplane_vecs(generator, k_max, d, device),
-        vecs_reset=hyperplane_vecs(generator, k_max, d, device))
+        u_split=uniform(k_s, k_max),
+        u_merge=uniform(k_m, k_max * (k_max - 1) // 2),
+        vecs_split=vecs(k_b), vecs_reset=vecs(prng.fold_in(k_b, 1)))
 
 
 def plan_split_merge(draws: SplitMergeDraws, model, prior, family,

@@ -4,21 +4,19 @@
 //   t_ik = loglik_k(x_i) + logw_k  (-1e30 if slot k is inactive)
 //          + Gumbel(key_z, gidx_i, slots_k)
 //
-// shared by the one-read sweep_gauss.cu at d <= 16 and the standalone
-// assignment kernels (assign_gauss.cu at d <= 16, assign_linear.cu;
-// sweep_linear.cu keeps linear_assign's chains in a tile of its own); the
-// narrow Gaussian whitening is also the body of loglik_gauss.cu at
-// d <= 16. It is the device half of the TPU kernels
-// src/repro/kernels/assign.py: assign_gauss / assign_linear and of step (e)
-// of src/repro/kernels/sweep.py. Above d = 16 the three Gaussian kernels
-// run the register tile of te_tile.cuh, which keeps these functions'
-// chains and order. The linear step (f) (the own cluster's two sub-weight
-// rows) is here too, shared by sub_assign_linear.cu; the Gaussian step (f)
-// of the sweep and of sub_assign_gauss.cu runs maha_narrow / maha_wide on
-// staged operands (sub_tile.cuh), so the three-pass path draws the
-// one-read sweep's sub-labels bit for bit.
+// for the Gaussian family, shared by the one-read sweep_gauss.cu at
+// d <= 16 and assign_gauss.cu at d <= 16; the narrow Gaussian whitening is
+// also the body of loglik_gauss.cu at d <= 16. It is the device half of
+// the TPU kernel src/repro/kernels/assign.py: assign_gauss and of step (e)
+// of src/repro/kernels/sweep.py:sweep_gauss. Above d = 16 the three
+// Gaussian kernels run the register tile of te_tile.cuh, which keeps these
+// functions' chains and order. The Gaussian step (f) of the sweep and of
+// sub_assign_gauss.cu runs maha_narrow / maha_wide on staged operands
+// (sub_tile.cuh), so the three-pass path draws the one-read sweep's
+// sub-labels bit for bit. The linear families' steps (e) and (f) are one
+// device function of their own, linear_tile.cuh.
 //
-// The narrow and linear step-(e) functions are called by all threads of
+// The narrow step-(e) function is called by all threads of
 // the block (they hold __syncthreads) and leave, for the block's np
 // points, best[p] (the running maximum) and lab[p] (its slot) in shared
 // memory. A slot replaces the best
@@ -45,12 +43,6 @@
 //    register-tiled product of a block's points and the factor, streamed in
 //    row slabs, |y|^2 summed over 128-column tiles in order.
 // Only the factors of active slots are staged and multiplied.
-//
-// Linear families: loglik_k(x) = f . w_k + const_k over per-point features
-// f of any width d'. Chunks of DC features of PT points and of the tile's
-// active weight rows are copied to shared memory with cp.async (two in
-// flight) and each thread keeps an 8 points x 8 slots block of dot products
-// in registers, in feature order (blockDim.x must be LIN_THREADS).
 #pragma once
 
 #include <limits.h>
@@ -260,23 +252,8 @@ __device__ void gauss_assign_narrow(
 }
 
 // ---------------------------------------------------------------------------
-// Linear families
+// Shared helpers (the linear families' tile is linear_tile.cuh)
 // ---------------------------------------------------------------------------
-constexpr int LIN_THREADS = 256;
-constexpr int PT = 256;        // points per sub-tile
-constexpr int BK = 64;         // slots per K tile
-constexpr int DC = 32;         // features per staged chunk
-constexpr int FSTR = DC + 4;   // padded row stride (16-byte rows) of a chunk
-constexpr int TI = PT / 32;    // points per thread: ty + 32 i
-constexpr int TJ = BK / 8;     // slots per thread: tx + 8 j
-
-// Floats (and ints) of the shared memory linear_assign uses besides best
-// and lab: two chunk buffers of PT + BK rows, the active and inactive slot
-// lists of a tile and their two counts.
-__host__ __device__ inline size_t linear_assign_words() {
-  return 2 * ((size_t)PT * FSTR + (size_t)BK * FSTR) + 2 * (size_t)BK + 2;
-}
-
 // Asynchronous copies global -> shared (sm_80+): ``bytes`` of ``size`` are
 // read and the rest of the destination is zero-filled.
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -299,261 +276,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Stage feature chunk [c0, c0 + DC) of points p0.. (PT rows) and of the
-// active weight rows ``act`` (na rows) into fsb / wsb, zero past the edges;
-// 16-byte copies when every row starts 16-byte aligned (``vec``).
-__device__ __forceinline__ void stage_chunk(
-    const float* __restrict__ fb, const float* __restrict__ w, int dp,
-    int np, int p0, int c0, const int* act, int na, bool vec, float* fsb,
-    float* wsb) {
-  if (vec) {
-    constexpr int Q = DC / 4;
-    for (int e = threadIdx.x; e < (PT + na) * Q; e += LIN_THREADS) {
-      const int r = e / Q, col = c0 + 4 * (e - r * Q);
-      const bool pt = r < PT;
-      const int row = pt ? p0 + r : act[r - PT];
-      const bool in = col < dp && (!pt || row < np);
-      const float* src = pt ? fb + (size_t)row * dp : w + (size_t)row * dp;
-      float* dst = (pt ? fsb + r * FSTR : wsb + (r - PT) * FSTR) + col - c0;
-      cp_async16(dst, in ? src + col : fb, in ? 16 : 0);
-    }
-  } else {
-    for (int e = threadIdx.x; e < (PT + na) * DC; e += LIN_THREADS) {
-      const int r = e / DC, col = c0 + (e - r * DC);
-      const bool pt = r < PT;
-      const int row = pt ? p0 + r : act[r - PT];
-      const bool in = col < dp && (!pt || row < np);
-      const float* src = pt ? fb + (size_t)row * dp : w + (size_t)row * dp;
-      float* dst = (pt ? fsb + r * FSTR : wsb + (r - PT) * FSTR) + col - c0;
-      cp_async4(dst, in ? src + col : fb, in ? 4 : 0);
-    }
-  }
-  cp_async_commit();
-}
-
 // (value, slot) pair order of the argmax: larger value, then smaller slot.
 __device__ __forceinline__ void take_best(float t, int c, float& bv,
                                           int& bl) {
   if (t > bv || (t == bv && c < bl)) {
     bv = t;
     bl = c;
-  }
-}
-
-// Step (e) for the block's np points fb (np x dp), linear families.
-// ``words`` points at linear_assign_words() floats of shared memory.
-__device__ void linear_assign(
-    const float* __restrict__ fb, int np, int dp,
-    const long long* __restrict__ gidx_b, const float* __restrict__ w,
-    const float* __restrict__ cst, const float* __restrict__ logw,
-    const int* __restrict__ active, const int* __restrict__ slots, int K,
-    uint32_t kz0, uint32_t kz1, bool vec, float* words, float* best,
-    int* lab) {
-  float* fs = words;                                   // 2 * PT * FSTR
-  float* ws = fs + 2 * PT * FSTR;                      // 2 * BK * FSTR
-  int* act = reinterpret_cast<int*>(ws + 2 * BK * FSTR);  // BK
-  int* inact = act + BK;                               // BK
-  int* cnt = inact + BK;                               // 2
-  const int tid = threadIdx.x;
-  const int tx = tid & 7, ty = tid >> 3;
-
-  for (int p = tid; p < np; p += LIN_THREADS) {
-    best[p] = NEG_INF;
-    lab[p] = 0;
-  }
-
-  for (int kt = 0; kt < K; kt += BK) {
-    const int bk = min(BK, K - kt);
-    __syncthreads();
-    if (tid == 0) {
-      int na = 0, ni = 0;
-      for (int kk = 0; kk < bk; ++kk) {
-        if (active[kt + kk] != 0)
-          act[na++] = kt + kk;
-        else
-          inact[ni++] = kt + kk;
-      }
-      cnt[0] = na;
-      cnt[1] = ni;
-    }
-    __syncthreads();
-    const int na = cnt[0], ni = cnt[1];
-    const int jmax = (na + 7) / 8;
-    for (int p0 = 0; p0 < np; p0 += PT) {
-      float acc[TI][TJ];
-#pragma unroll
-      for (int i = 0; i < TI; ++i)
-#pragma unroll
-        for (int j = 0; j < TJ; ++j) acc[i][j] = 0.f;
-      // double-buffered chunks: the copy of chunk ci + 1 runs while the
-      // products of chunk ci are summed, in feature order
-      const int nch = na > 0 ? (dp + DC - 1) / DC : 0;
-      if (nch > 0) {
-        __syncthreads();
-        stage_chunk(fb, w, dp, np, p0, 0, act, na, vec, fs, ws);
-      }
-      for (int ci = 0; ci < nch; ++ci) {
-        const int buf = ci & 1;
-        if (ci + 1 < nch) {
-          stage_chunk(fb, w, dp, np, p0, (ci + 1) * DC, act, na, vec,
-                      fs + (buf ^ 1) * PT * FSTR, ws + (buf ^ 1) * BK * FSTR);
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
-        }
-        __syncthreads();
-        const float* fsb = fs + buf * PT * FSTR;
-        const float* wsb = ws + buf * BK * FSTR;
-#pragma unroll 1
-        for (int c = 0; c < DC; c += 4) {
-          float4 a[TI];
-#pragma unroll
-          for (int i = 0; i < TI; ++i)
-            a[i] = *reinterpret_cast<const float4*>(fsb + (ty + 32 * i) * FSTR
-                                                    + c);
-#pragma unroll
-          for (int j = 0; j < TJ; ++j) {
-            if (j < jmax) {
-              const float4 b =
-                  *reinterpret_cast<const float4*>(wsb + (tx + 8 * j) * FSTR
-                                                   + c);
-#pragma unroll
-              for (int i = 0; i < TI; ++i) {
-                float v = fmaf(a[i].x, b.x, acc[i][j]);
-                v = fmaf(a[i].y, b.y, v);
-                v = fmaf(a[i].z, b.z, v);
-                acc[i][j] = fmaf(a[i].w, b.w, v);
-              }
-            }
-          }
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < TI; ++i) {
-        const int p = p0 + ty + 32 * i;
-        float bv = NEG_INF;
-        int bl = INT_MAX;
-        if (p < np) {
-          const uint32_t g = (uint32_t)gidx_b[p];
-#pragma unroll
-          for (int j = 0; j < TJ; ++j) {
-            const int pos = tx + 8 * j;
-            if (pos < na) {
-              const int c = act[pos];
-              float t = acc[i][j] + cst[c];
-              t = t + logw[c];
-              t = t + gumbel(kz0, kz1, g, (uint32_t)slots[c]);
-              take_best(t, c, bv, bl);
-            }
-          }
-          for (int pos = tx; pos < ni; pos += 8) {
-            const int c = inact[pos];
-            take_best(NEG_INF + gumbel(kz0, kz1, g, (uint32_t)slots[c]), c,
-                      bv, bl);
-          }
-        }
-#pragma unroll
-        for (int off = 1; off < 8; off <<= 1) {
-          const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-          const int ol = __shfl_xor_sync(0xffffffffu, bl, off);
-          take_best(ov, ol, bv, bl);
-        }
-        if (tx == 0 && p < np && bv > best[p]) {
-          best[p] = bv;
-          lab[p] = bl;
-        }
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// Step (f) for the block's np points fb (np x dp), linear families: first
-// max over s in {0, 1} of f . subw_ls + subconst_ls + sublogw_ls +
-// Gumbel(key_zb, gidx, s) under the point's own cluster l = lab[p]. One warp
-// per point: a warp takes its points 32 at a time; for each, the lanes
-// stride the row and its cluster's two sub-weight rows (coalesced) and a
-// shuffle-down tree leaves the two sums in lane 0, which hands them to lane
-// q of the batch; then every lane draws the Gumbel noise and picks the
-// sub-label of its own point, all 32 at once. The sums run in a fixed
-// order, so a repeat launch gives the same bits. Hands each point's
-// sub-label to put(p, zb), from the lane that chose it, so the caller
-// writes its outputs in the same step. With CHECKED a label outside
-// [0, K) gets sub-label 0 (labels from the caller); the sweep's own labels
-// need no check. Blocks of LIN_THREADS threads. sub_assign_linear.cu runs
-// it; sweep_linear.cu keeps its lane chains and tree, grouped by label.
-template <bool CHECKED, class Put>
-__device__ void linear_sub_assign(
-    const float* __restrict__ fb, int np, int dp,
-    const long long* __restrict__ gidx_b, const int* lab, int K,
-    const float* __restrict__ subw, const float* __restrict__ subconst,
-    const float* __restrict__ sublogw, uint32_t kb0, uint32_t kb1, bool vec,
-    Put put) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  constexpr int NWARPS = LIN_THREADS / 32;
-  for (int b0 = warp * 32; b0 < np; b0 += NWARPS * 32) {
-    float my0 = 0.f, my1 = 0.f;
-    const int nb = min(32, np - b0);
-    for (int q = 0; q < nb; ++q) {
-      const int p = b0 + q;
-      const int l = lab[p];
-      if (CHECKED && (l < 0 || l >= K)) continue;   // uniform over the warp
-      const float* fp = fb + (size_t)p * dp;
-      const float* w0 = subw + (size_t)(2 * l) * dp;
-      const float* w1 = w0 + dp;
-      float s0 = 0.f, s1 = 0.f;
-      if (vec) {
-#pragma unroll 2
-        for (int c = 4 * lane; c < dp; c += 128) {
-          const float4 v = *reinterpret_cast<const float4*>(fp + c);
-          const float4 a = __ldg(reinterpret_cast<const float4*>(w0 + c));
-          const float4 b = __ldg(reinterpret_cast<const float4*>(w1 + c));
-          s0 = fmaf(v.x, a.x, s0);
-          s0 = fmaf(v.y, a.y, s0);
-          s0 = fmaf(v.z, a.z, s0);
-          s0 = fmaf(v.w, a.w, s0);
-          s1 = fmaf(v.x, b.x, s1);
-          s1 = fmaf(v.y, b.y, s1);
-          s1 = fmaf(v.z, b.z, s1);
-          s1 = fmaf(v.w, b.w, s1);
-        }
-      } else {
-#pragma unroll 4
-        for (int c = lane; c < dp; c += 32) {
-          const float v = fp[c];
-          s0 = fmaf(v, __ldg(w0 + c), s0);
-          s1 = fmaf(v, __ldg(w1 + c), s1);
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        s0 += __shfl_down_sync(0xffffffffu, s0, off);
-        s1 += __shfl_down_sync(0xffffffffu, s1, off);
-      }
-      s0 = __shfl_sync(0xffffffffu, s0, 0);
-      s1 = __shfl_sync(0xffffffffu, s1, 0);
-      if (lane == q) {
-        my0 = s0;
-        my1 = s1;
-      }
-    }
-    if (lane < nb) {
-      const int p = b0 + lane;
-      const int l = lab[p];
-      int zb = 0;
-      if (!CHECKED || (l >= 0 && l < K)) {
-        const uint32_t g = (uint32_t)gidx_b[p];
-        float t0 = my0 + subconst[2 * l];
-        t0 = t0 + sublogw[2 * l];
-        t0 = t0 + gumbel(kb0, kb1, g, 0u);
-        float t1 = my1 + subconst[2 * l + 1];
-        t1 = t1 + sublogw[2 * l + 1];
-        t1 = t1 + gumbel(kb0, kb1, g, 1u);
-        zb = t1 > t0 ? 1 : 0;
-      }
-      put(p, zb);
-    }
   }
 }
 

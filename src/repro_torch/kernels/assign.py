@@ -26,8 +26,10 @@ Two versions of each function:
 - ``*_cuda``: the hand-written kernels ``csrc/assign_gauss.cu``,
   ``csrc/assign_linear.cu``, ``csrc/sub_assign_gauss.cu`` and
   ``csrc/sub_assign_linear.cu``, whose device code is the one-read sweeps'
-  step (e) and step (f) (``csrc/assign_tile.cuh``, ``csrc/te_tile.cuh``);
-  each launch of a call counted in the wrapper's ``launches``;
+  step (e) and step (f) (``csrc/assign_tile.cuh``, ``csrc/te_tile.cuh``,
+  and for the linear families ``csrc/linear_tile.cuh``, the one copy of
+  their chains); each launch of a call counted in the wrapper's
+  ``launches``;
 - ``*_plain``: steps (e) and (f) of the sweeps' plain versions
   (``kernels/sweep.py``), the same math in plain PyTorch.
 
@@ -46,6 +48,11 @@ window, ``SUB_LAUNCHES``, over the windows of ``suffstats.slot_windows``),
 then stages a label's factors once for a run of its points
 (``sub_plan``: a thread a point at d <= 64, a register-tiled product
 above, in column panels of 256 past d = 256), and takes any d and K.
+``assign_linear`` and ``sub_assign_linear`` run the one-read
+``sweep_linear``'s tile with one step switched off, on tiles of points
+that fill the card (``linear_assign_plan``, ``linear_sub_plan``), and
+take any K (step (e) walks slot windows of LT_WIN; step (f) alone keeps
+nothing K-sized: each warp takes a run of consecutive points).
 """
 from __future__ import annotations
 
@@ -57,7 +64,8 @@ import torch
 from repro_torch.kernels import build, prng
 from repro_torch.kernels.launch import check_cuda, launch
 from repro_torch.kernels.suffstats import MAX_DP, MAX_K, slot_windows
-from repro_torch.kernels.sweep import (LOG_2PI, NEG_INF, TE_BM,
+from repro_torch.kernels.sweep import (LE_BK, LE_BLOCKS, LE_FSTR, LOG_2PI,
+                                       NEG_INF, TE_BM,
                                        assign_linear_plain,
                                        sub_assign_linear_plain, te_smem)
 from repro_torch.kernels.sweep import MAX_D as WIDE_D
@@ -327,21 +335,125 @@ def assign_gauss_cuda(x, mu, chol_prec, logdet_prec, logw, active, gidx,
 assign_gauss_cuda.launches = 0
 
 
+# csrc/linear_tile.cuh run alone, step (e) by csrc/assign_linear.cu and
+# step (f) by csrc/sub_assign_linear.cu: the point tiles (largest first:
+# the one-read sweep's 128 and 64 and, alone, 32), the chunk ring of each
+# step-(e) tile, the slots a step-(e) window. A plan takes the largest
+# tile that makes LE_BLOCKS blocks (two an SM of the H100's 132); step
+# (f)'s warp route takes tiles of 256 points (a run of 32 a warp) where
+# they make LF_BM256_BLOCKS, four waves of its four blocks an SM
+# (tools/ablate_linear.py, an H100 80GB HBM3 at 700 W; PERF.md §6): at
+# 2e5 x 128 the 782 tiles of 256 left a second wave half empty (0.0458
+# against 0.0435 ms on tiles of 128), at 10^6 x 32 diagonal they won
+# (0.1420 against 0.1522).
+LT_BM = (128, 64, 32)
+LF_BM256_BLOCKS = 8 * LE_BLOCKS
+LT_STAGES = {128: 2, 64: 4, 32: 4}
+LT_WIN = 2048
+# Step (f) alone a thread a (point, sub-cluster) up to this d', a warp a
+# run of points above (tools/ablate_linear.py, an H100 80GB HBM3 at
+# 700 W; PERF.md §6): at 10^6 points the thread route took 0.1325 against
+# the warp's 0.1397 ms at d' = 32; at d' = 64 the warp 0.1420, the
+# thread route 0.275 (timed against an earlier warp layout).
+LF_THREAD_DP = 32
+
+
+class LinearStepPlan(NamedTuple):
+    """A launch of ``csrc/linear_tile.cuh``'s step (e) or step (f) alone:
+    ``grid`` tiles of ``bm`` points, ``smem`` dynamic shared bytes a block
+    (step (e): a ring of ``stages`` feature chunks); step (f) a thread a
+    (point, sub-cluster) if ``f_thread``, else a warp a run of
+    consecutive points."""
+    bm: int
+    stages: int
+    grid: int
+    smem: int
+    f_thread: bool
+
+
+def lt_smem(step_e: bool, step_f: bool, bm: int, stages: int,
+            k: int) -> int:
+    """Shared bytes of ``linear_tile`` (``lt_smem_words``): with step (e)
+    the chunk ring, a packed best a point (two words) and a slot window's
+    order, flags and scan totals; a Gumbel counter a point; with step (f)
+    a label, a sorted place (beside step (e)) and two sums a point."""
+    words = bm * (5 if step_f else 1)
+    if step_e:
+        words += (stages * (bm + LE_BK) * LE_FSTR + 2 * bm
+                  + 2 * min(k, LT_WIN) + 1 + 32)
+    return 4 * words
+
+
+def linear_windows(k: int) -> Tuple[range, ...]:
+    """The slot windows step (e) walks in a block, as the device code cuts
+    them: [k0, k0 + min(LT_WIN, k - k0)), every slot in one."""
+    return tuple(range(k0, min(k, k0 + LT_WIN))
+                 for k0 in range(0, k, LT_WIN))
+
+
+def _lt_check(name: str, n: int, dp: int, k: int) -> None:
+    if not (1 <= n <= PANEL_MAX and 1 <= dp <= MAX_DP
+            and 1 <= k <= PANEL_MAX):
+        raise ValueError(f"{name}: N={n}, d'={dp}, K={k} outside "
+                         f"[1, {PANEL_MAX}], [1, {MAX_DP}], [1, {PANEL_MAX}] "
+                         "(ints in the kernel)")
+
+
+def _lt_tile(n: int, tiles: Tuple[int, ...]) -> int:
+    """The largest of ``tiles`` that makes LE_BLOCKS blocks, else the
+    smallest."""
+    return next((b for b in tiles if -(-n // b) >= LE_BLOCKS), tiles[-1])
+
+
+@lru_cache(maxsize=256)
+def linear_assign_plan(n: int, dp: int, k: int) -> LinearStepPlan:
+    """``assign_linear``'s launch for (n, d', k), chosen here only: the
+    launcher refuses any other. The one-read sweep's step (e) on a tile
+    that fills the card (an 8192-row serving step: 256 tiles of 32
+    points): slot groups that merged their keys (and a second launch to
+    read the labels) lost to the small tile at the serving steps
+    (PERF.md §6). Shared memory does not grow past LT_WIN slots, so any
+    K runs."""
+    _lt_check("assign_linear", n, dp, k)
+    bm = _lt_tile(n, LT_BM)
+    st = LT_STAGES[bm]
+    return LinearStepPlan(bm, st, -(-n // bm),
+                          lt_smem(True, False, bm, st, k), False)
+
+
+@lru_cache(maxsize=256)
+def linear_sub_plan(n: int, dp: int, k: int) -> LinearStepPlan:
+    """``sub_assign_linear``'s launch for (n, d', k), chosen here only:
+    the one-read sweep's step (f), a thread a (point, sub-cluster) up to
+    d' = LF_THREAD_DP, a warp a run of consecutive points above, on the
+    largest tile of LT_BM that fills the card, or on the warp route 256
+    points where that makes LF_BM256_BLOCKS tiles; its shared memory is
+    five words a point at any K."""
+    _lt_check("sub_assign_linear", n, dp, k)
+    f_thread = dp <= LF_THREAD_DP
+    bm = (256 if not f_thread and -(-n // 256) >= LF_BM256_BLOCKS
+          else _lt_tile(n, LT_BM))
+    return LinearStepPlan(bm, 1, -(-n // bm),
+                          lt_smem(False, True, bm, 1, k), f_thread)
+
+
 def assign_linear_cuda(feats, w, const, logw, active, gidx, key_z,
                        slots) -> torch.Tensor:
-    """One launch of ``csrc/assign_linear.cu`` on the current stream."""
+    """One launch of ``csrc/assign_linear.cu`` on the current stream, on
+    ``linear_assign_plan``'s grid."""
     n, dp = feats.shape
     k = w.shape[0]
     _check_launch("assign_linear", feats, dp, k, MAX_DP, "d'", (
         ("w", w, F32, (k, dp)), ("const", const, F32, (k,)))
         + _step_e_rows(n, k, logw, active, gidx, key_z, slots))
+    plan = linear_assign_plan(n, dp, k)
     labels = torch.empty((n,), device=feats.device, dtype=torch.int32)
     fn = build.c_function("assign_linear", "assign_linear_launch",
-                          "piipppppipppp")
+                          "piipppppipp" + "ii" + "pp")
     launch(fn, feats.device, feats.data_ptr(), n, dp, w.data_ptr(),
            const.data_ptr(), logw.data_ptr(), active.data_ptr(),
-           slots.data_ptr(), k, gidx.data_ptr(), key_z.data_ptr(),
-           labels.data_ptr())
+           slots.data_ptr(), k, gidx.data_ptr(), key_z.data_ptr(), plan.bm,
+           plan.smem, labels.data_ptr())
     assign_linear_cuda.launches += 1
     return labels
 
@@ -457,18 +569,21 @@ sub_assign_gauss_cuda.launches = 0
 
 def sub_assign_linear_cuda(feats, subw, subconst, sublogw, labels, gidx,
                            key_zb) -> torch.Tensor:
-    """One launch of ``csrc/sub_assign_linear.cu`` on the current stream."""
+    """One launch of ``csrc/sub_assign_linear.cu`` on the current stream,
+    on ``linear_sub_plan``'s grid."""
     n, dp = feats.shape
     k = subw.shape[0]
     _check_launch("sub_assign_linear", feats, dp, k, MAX_DP, "d'", (
         ("subw", subw, F32, (k, 2, dp)), ("subconst", subconst, F32, (k, 2)))
         + _step_f_rows(n, k, sublogw, labels, gidx, key_zb))
+    plan = linear_sub_plan(n, dp, k)
     sublabels = torch.empty((n,), device=feats.device, dtype=torch.int32)
     fn = build.c_function("sub_assign_linear", "sub_assign_linear_launch",
-                          "piipippppppp")
+                          "piipippppp" + "iii" + "pp")
     launch(fn, feats.device, feats.data_ptr(), n, dp, labels.data_ptr(), k,
            subw.data_ptr(), subconst.data_ptr(), sublogw.data_ptr(),
-           gidx.data_ptr(), key_zb.data_ptr(), sublabels.data_ptr())
+           gidx.data_ptr(), key_zb.data_ptr(), plan.bm, int(plan.f_thread),
+           plan.smem, sublabels.data_ptr())
     sub_assign_linear_cuda.launches += 1
     return sublabels
 

@@ -12,10 +12,22 @@ PyTorch on the CPU has no uint32 ``add``, ``<<`` or ``>>``, so the words
 are held in int64 tensors and every sum is masked with ``& 0xFFFFFFFF``;
 the bits equal JAX's exactly. Everything broadcasts: pass
 ``c0 = gidx[:, None]`` and ``c1 = slots[None, :]`` for an (N, K) draw.
+
+Key derivation (``fold_in``, ``split``) gives the key data of
+``jax.random.fold_in`` and ``jax.random.split`` under partitionable
+Threefry (``jax_threefry_partitionable``, the default since JAX 0.5):
+
+    fold_in(key, d)  = threefry2x32(key, (0, d mod 2^32))
+    split(key, n)[i] = threefry2x32(key, (0, i))
+
+both output words. A chain's keys are these pairs of Python ints; a draw
+that is not a Threefry word (gamma, normal, uniform) comes from a
+``torch.Generator`` seeded from its key's 64 bits (``generator``:
+``key[0] * 2^32 + key[1]``), made for that draw alone.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Sequence, Tuple, Union
 
 import torch
 
@@ -65,8 +77,39 @@ def gumbel(key: torch.Tensor, c0: torch.Tensor,
     return -torch.log(-torch.log(uniform01(b0)))
 
 
-def key_words(generator: torch.Generator, device) -> torch.Tensor:
-    """Two fresh uint32 key words (as a (2,) int64 tensor on ``device``)
-    drawn from ``generator`` — one draw, so a seed fixes the stream."""
-    return torch.randint(0, 1 << 32, (2,), generator=generator,
-                         device=device, dtype=torch.int64)
+
+Words = Tuple[int, int]
+
+
+def words_of(key: Union[torch.Tensor, Sequence[int]]) -> Words:
+    """A key's two uint32 words as Python ints, from a (2,) tensor, array
+    or sequence."""
+    if isinstance(key, torch.Tensor):
+        key = key.tolist()
+    k0, k1 = (int(v) & MASK for v in key)
+    return k0, k1
+
+
+def fold_in(key, data: int) -> Words:
+    """``jax.random.fold_in(key, data)``'s key data: ``data`` is taken mod
+    2^32, so a negative fold is JAX's of ``jnp.int32(data)``."""
+    k0, k1 = words_of(key)
+    return threefry2x32(k0, k1, 0, int(data) & MASK)
+
+
+def split(key, n: int) -> List[Words]:
+    """``jax.random.split(key, n)``'s key data, row by row."""
+    k0, k1 = words_of(key)
+    return [threefry2x32(k0, k1, 0, i) for i in range(n)]
+
+
+def key_tensor(key, device) -> torch.Tensor:
+    """A key's words as the (2,) int64 tensor the kernels read."""
+    return torch.tensor(words_of(key), dtype=torch.int64, device=device)
+
+
+def generator(key, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded from the key's 64 bits
+    (first word high)."""
+    k0, k1 = words_of(key)
+    return torch.Generator(device=device).manual_seed((k0 << 32) | k1)

@@ -374,7 +374,8 @@ def label_mismatches_linear(args, labels_a, sublabels_a, labels_b,
     return _count_ties(t, t2, labels_a[bad] != labels_b[bad], rtol)
 
 
-# csrc/sweep_linear.cu: threads of a step-(e)/(f) block, active slots a
+# csrc/sweep_linear.cu (its steps (e) + (f) the tile of
+# csrc/linear_tile.cuh): threads of a step-(e)/(f) block, active slots a
 # chunk, padded rows of a staged feature chunk (32 + 4), the point tiles it
 # holds (largest first) with the depth of each one's chunk ring, and the
 # blocks that fill the card (two an SM of the H100's 132); the fold's

@@ -49,7 +49,7 @@ The sample key stream comes from ``torch.Generator().manual_seed(
 cfg.seed)``: each ``sample`` draws two uint32 key words from it, unless
 ``seed`` (a generator of its own) or ``key_words`` (raw words, e.g. the
 JAX package's ``key_data``) pins them. Online refinement
-(``cfg.refine``) is not ported (ROADMAP.md §1 item 10).
+(``cfg.refine``) is not ported (ROADMAP.md §1 item 5).
 """
 from __future__ import annotations
 
@@ -144,7 +144,7 @@ class ServeConfig:
             raise NotImplementedError(
                 "ServeConfig(refine=True): online refinement "
                 "(gibbs.refine_sweep) is not ported yet (ROADMAP.md §1 item "
-                "10, queue entry 'refine')")
+                "5, queue entry 'refine')")
 
 
 @dataclasses.dataclass(frozen=True)

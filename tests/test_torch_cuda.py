@@ -14,7 +14,10 @@ float32 sums in another order), counts exact; a repeat launch on the same
 inputs gives identical bits (no float atomics); log-likelihoods and
 products within rtol 1e-5 of each array's scale (fp32 sums in another
 order). The three-pass sweep runs the one-read sweep's device code for
-steps (e), (f) and the fold, so on the card the two give the same bits.
+steps (e), (f) and the fold, so on the card the two give the same bits
+(the linear families: one tile, ``csrc/linear_tile.cuh``, with a switch
+for each step). A chain resumed from a saved state is the uninterrupted
+chain bit for bit.
 ``fold_partials`` is bitwise its plain loop of adds (the same IEEE adds in
 the same order); the dense ``suffstats`` kernel sums in another order than
 its plain version (rtol 1e-4 of each array's scale, counts within it too:
@@ -25,7 +28,7 @@ import pytest
 import torch
 
 from repro_torch.configs import DPMMConfig
-from repro_torch.core import gibbs
+from repro_torch.core import checkpoint, gibbs
 from repro_torch.core.sampler import DPMM
 from repro_torch.core.state import PointState
 from repro_torch.data.synthetic import (generate_gmm, generate_mnmm,
@@ -661,6 +664,82 @@ def test_sub_assign_linear_kernel_matches_plain(dev, n, dp, k):
     assert not_ties == 0 and mism <= 1e-3 * n, (mism, not_ties)
     # the sweep's step (f) is the same device code: the same sub-labels
     assert torch.equal(got, sw[1])
+
+
+@pytest.mark.parametrize("k", [1, 17, 2048, 2049, 4096, 10_000])
+@pytest.mark.parametrize("dp", [1, 3, 24, 64, 65, 128, 129, 20_000])
+def test_linear_steps_alone_are_the_sweeps_steps(dev, dp, k):
+    """``assign_linear`` and ``sub_assign_linear`` run the one-read sweep's
+    tile with one step switched off: against their plain versions (labels
+    exact but near-ties, at most 1 % of the points: with up to 10,000
+    slots and sums of 20,000 features the top two logits often lie within
+    the rounding of the plain version's other order; step (f) under labels
+    in [-1, K], 0 outside [0, K)), a repeat launch bitwise, one launch a
+    call, and where the sweep takes K, the sweep's labels and sub-labels
+    bit for bit."""
+    n = 300 if dp == 20_000 else 3000
+    la = _linear_args(n, dp, k, dev, seed=dp + k)
+    e_args = la[:5] + la[9:11] + (la[12],)
+    before = assign.assign_linear_cuda.launches
+    lab = ops.assign_linear(*e_args)
+    assert torch.equal(lab, ops.assign_linear(*e_args))
+    assert assign.assign_linear_cuda.launches == before + 2
+    mism, not_ties = assign.assign_mismatches(
+        False, e_args, lab, assign.assign_linear_plain(*e_args), rtol=1e-4)
+    assert not_ties == 0 and mism <= 1e-2 * n, (mism, not_ties)
+    outside = ((torch.arange(n, device=dev) * 2654435761) % (k + 2)
+               - 1).to(torch.int32)
+    f_args = (la[0], la[5], la[6], la[7], outside, la[9], la[11])
+    before = assign.sub_assign_linear_cuda.launches
+    sub = ops.sub_assign_linear(*f_args)
+    assert torch.equal(sub, ops.sub_assign_linear(*f_args))
+    assert assign.sub_assign_linear_cuda.launches == before + 2
+    inside = (outside >= 0) & (outside < k)
+    assert int(sub[~inside].sum()) == 0
+    idx = torch.nonzero(inside).flatten()
+    part = (la[0][idx].contiguous(), la[5], la[6], la[7],
+            outside[idx].contiguous(), la[9][idx].contiguous(), la[11])
+    mism, not_ties = assign.sub_assign_mismatches(
+        False, part, sub[idx], assign.sub_assign_linear_plain(*part),
+        rtol=1e-4)
+    assert not_ties == 0 and mism <= 1e-2 * n, (mism, not_ties)
+    if k <= sweep.MAX_K:
+        sw = sweep.sweep_linear_cuda(*la)
+        assert torch.equal(lab, sw[0])
+        assert torch.equal(ops.sub_assign_linear(
+            la[0], la[5], la[6], la[7], sw[0], la[9], la[11]), sw[1])
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+@pytest.mark.parametrize("component,gen", [("gaussian", generate_gmm),
+                                           ("multinomial", generate_mnmm)])
+def test_resume_on_the_card_is_the_uninterrupted_chain(dev, tmp_path,
+                                                       component, gen,
+                                                       tiled):
+    """5 iterations (not a multiple of ``log_every``), ``save_model``,
+    ``load_model``, 7 more from ``init_state``: the 12-iteration chain bit
+    for bit on the card."""
+    x, _ = gen(20_000, 8, 4, seed=5)
+    cfg = DPMMConfig(component=component, iters=12, burnout=4, log_every=4,
+                     tile_size=4096 if tiled else None)
+    whole = DPMM(cfg).fit(x)
+    first = DPMM(cfg).fit(x, 5)
+    path = checkpoint.save_model(str(tmp_path / "model.npz"), first.state,
+                                 component)
+    state, _ = checkpoint.load_model(path)
+    rest = DPMM(cfg).fit(x, 7, init_state=state)
+    assert rest.mode == ("tiled" if tiled else "resident")
+    assert rest.state.it == whole.state.it == 12
+    np.testing.assert_array_equal(rest.labels, whole.labels)
+    for key, h in whole.history.items():
+        np.testing.assert_array_equal(
+            np.concatenate([first.history[key], rest.history[key]]), h)
+    for group in ("params", "subparams", "stats", "substats"):
+        a, b = getattr(rest.state, group), getattr(whole.state, group)
+        for f in a.__dataclass_fields__:
+            assert torch.equal(getattr(a, f), getattr(b, f)), (group, f)
+    for f in ("key", "active", "logweights", "sub_logweights", "stuck"):
+        assert torch.equal(getattr(rest.state, f), getattr(whole.state, f))
 
 
 @pytest.mark.parametrize("component,gen,d", [

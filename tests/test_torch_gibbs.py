@@ -17,6 +17,7 @@ import torch
 
 from repro.core import gibbs as jgibbs
 from repro.core import niw as jniw
+from repro.core import sampler as jsampler
 from repro.core import splitmerge as jsm
 from repro.core.family import get_family
 from repro.core.state import ModelState as JModelState
@@ -27,6 +28,7 @@ from repro_torch.core import gibbs, sampler, splitmerge, state
 from repro_torch.core.family import GAUSSIAN
 from repro_torch.core.niw import GaussStats
 from repro_torch.data.synthetic import generate_gmm
+from repro_torch.kernels import prng
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -53,8 +55,8 @@ def setup():
     valid = torch.ones(N)
     prior = GAUSSIAN.build_prior(cfg, xt.mean(0, keepdim=True))
     model0, point = sampler._init_local(
-        torch.Generator().manual_seed(0), torch.tensor([0, 7]), xt, valid,
-        prior=prior, family=GAUSSIAN, cfg=cfg, k_max=K_MAX)
+        torch.tensor([0, 7]), xt, valid, prior=prior, family=GAUSSIAN,
+        cfg=cfg, k_max=K_MAX)
     tree = state.model_state_to_numpy(model0)
     jp = lambda p: jniw.GaussParams(**{k: jnp.asarray(v)
                                        for k, v in p.items()})
@@ -94,6 +96,19 @@ def test_state_carried_across_is_the_same_state(setup):
     again = state.model_state_from_numpy(back, "cpu", GAUSSIAN)
     assert torch.equal(again.substats.sxx, m.substats.sxx)
     assert torch.equal(again.stuck, m.stuck)
+
+
+@pytest.mark.parametrize("it", [0, 3, 40])
+def test_iteration_keys_are_the_jax_packages(setup, it):
+    """The sweep's six keys, the move key and the init key of a state
+    carried across from the JAX package are the JAX package's key data."""
+    m, jm = setup["model"].replace(it=it), setup["jmodel"]._replace(
+        it=jnp.int32(it))
+    words = lambda k: [tuple(int(v) for v in row) for row in np.asarray(
+        jax.random.key_data(k)).reshape(-1, 2)]
+    assert gibbs.sweep_keys(m) == words(jgibbs.sweep_keys(jm))
+    assert [splitmerge.move_key(m)] == words(jsampler._move_key(jm))
+    assert [prng.fold_in(m.key, 1)] == words(jax.random.fold_in(jm.key, 1))
 
 
 def _stats_close(t: GaussStats, j) -> None:

@@ -9,6 +9,9 @@ and ``sub_plan``, ``kernels/sweep.py`` ``sweep_plan`` and
 ``linear_plan``), checked on the CPU: the kernels themselves run only on
 the card (``tests/test_torch_cuda.py``), and their launchers take these
 choices as given, refusing a tile they do not hold."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -678,7 +681,7 @@ def test_linear_plan_refuses_counts_past_an_int():
 def test_linear_lane_tree_stack_is_the_shuffle_down_tree():
     """Step (f) a thread a (point, sub-cluster) (``linear_plan`` f_thread)
     walks the 32 lane chains in bit-reversed leaf order and folds each
-    finished pair on a five-deep stack (``csrc/sweep_linear.cu``
+    finished pair on a five-deep stack (``csrc/linear_tile.cuh``
     lane_tree_sum); that gives lane 0 of the first version's shuffle-down
     tree (offsets 16, 8, 4, 2, 1), add for add."""
     lanes = [("v", i) for i in range(32)]
@@ -697,3 +700,107 @@ def test_linear_lane_tree_stack_is_the_shuffle_down_tree():
                 break
             v = (stack[lvl], v)
     assert v == tree
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 8192, 11_314, 33_793, 200_000,
+                               1_000_000])
+def test_linear_step_plans_give_every_point_and_slot_one_owner(n):
+    """``assign_linear`` and ``sub_assign_linear`` run the sweep's tile on
+    tiles of bm points (the largest of LT_BM that gives LE_BLOCKS blocks,
+    else the smallest; step (f)'s warp route 256 where that gives
+    LF_BM256_BLOCKS), every point in one tile; step (e) walks slot
+    windows of at most LT_WIN, every slot in one, so every (point, slot)
+    pair has one owner."""
+    for plan in (assign_mod.linear_assign_plan,
+                 assign_mod.linear_sub_plan):
+        for dp in (1, 32, 33, 64, 65, 20_000):
+            p = plan(n, dp, 17)
+            assert (p.grid - 1) * p.bm < n <= p.grid * p.bm
+            wide = (plan is assign_mod.linear_sub_plan and not p.f_thread
+                    and -(-n // 256) >= assign_mod.LF_BM256_BLOCKS)
+            assert (p.bm == 256) == wide
+            if not wide:
+                assert p.bm in assign_mod.LT_BM
+                assert all(-(-n // b) < LE_BLOCKS
+                           for b in assign_mod.LT_BM if b > p.bm)
+            if n >= 8192:
+                assert p.grid >= 256
+    for k in (1, 17, 2048, 2049, 4096, 10_000):
+        wins = assign_mod.linear_windows(k)
+        assert [s for w in wins for s in w] == list(range(k))
+        assert all(len(w) <= assign_mod.LT_WIN for w in wins)
+
+
+def test_linear_step_plans_shared_memory_fits_a_hopper_block():
+    """Shared bytes fit a Hopper block at K up to 10,000 and d' up to
+    65,536: step (e)'s lists stop at one slot window, step (f) holds five
+    words a point; neither grows with d'. The ring holds a chunk's logits,
+    and the tiles of 32 points run three blocks an SM."""
+    for n in (1, 8192, 11_314, 1_000_000):
+        for k in (1, 17, 2048, 2049, 4096, 10_000):
+            for plan, dps in (
+                    (assign_mod.linear_assign_plan,
+                     (1, 4, 129, 20_000, MAX_DP)),
+                    (assign_mod.linear_sub_plan, (1, 4, 32)),
+                    (assign_mod.linear_sub_plan, (33, 129, 20_000, MAX_DP))):
+                assert len({plan(n, dp, k) for dp in dps}) == 1
+            e = assign_mod.linear_assign_plan(n, 128, k)
+            f = assign_mod.linear_sub_plan(n, 128, k)
+            assert e.stages == assign_mod.LT_STAGES[e.bm]
+            assert e.smem == 4 * (e.stages * (e.bm + LE_BK) * LE_FSTR
+                                  + 3 * e.bm + 2 * min(k, 2048) + 33)
+            assert e.smem <= SMEM_LIMIT and f.smem == 20 * f.bm
+            assert e.stages * (e.bm + LE_BK) * LE_FSTR >= e.bm * (LE_BK + 1)
+            assert 3 * (e.smem + 1024) <= 228 * 1024
+            assert [assign_mod.linear_sub_plan(n, dp, k).f_thread
+                    for dp in (1, 32, 33, 20_000)] == [True, True, False,
+                                                        False]
+            # the one-read sweep's bytes are the same function's
+            if k <= SWEEP_MAX_K:
+                sw = linear_plan(n, 128, k)
+                assert sw.smem_e == assign_mod.lt_smem(
+                    True, True, sw.bm, LE_STAGES[sw.bm], k)
+
+
+def test_linear_step_plans_refuse_counts_past_an_int():
+    for plan in (assign_mod.linear_assign_plan,
+                 assign_mod.linear_sub_plan):
+        plan(2 ** 31 - 1, MAX_DP, 2 ** 31 - 1)
+        for n, dp, k in ((2 ** 31, 32, 4), (0, 32, 4), (10, 0, 4),
+                         (10, MAX_DP + 1, 4), (10, 32, 0),
+                         (10, 32, 2 ** 31)):
+            with pytest.raises(ValueError, match="assign_linear"):
+                plan(n, dp, k)
+
+
+def _c_signature(src: str, symbol: str) -> str:
+    """One letter a parameter of ``extern "C" int symbol(...)`` in ``src``:
+    ``p`` a pointer, ``i`` an int, ``l`` a 64-bit int."""
+    m = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", src)
+    assert m, symbol
+    out = ""
+    for param in m.group(1).split(","):
+        param = " ".join(param.split())
+        out += ("p" if "*" in param else "l" if "long long" in param
+                else "i" if param.startswith("int ") else "?")
+    return out
+
+
+def test_wrapper_signatures_are_the_launchers():
+    """Every ``build.c_function`` of the kernel wrappers gives the
+    launcher's own parameters, one letter each, the stream the last: a
+    wrong letter would hand a pointer over as a 32-bit int."""
+    kernels = Path(assign_mod.__file__).parent
+    csrc = kernels.parent / "csrc"
+    calls = []
+    for py in sorted(kernels.glob("*.py")):
+        text = py.read_text()
+        for m in re.finditer(r'c_function\(\s*"(\w+)",\s*"(\w+)",'
+                             r'([^)]*)\)', text):
+            # the signature: string literals joined by + and *
+            sig = eval(m.group(3).strip(), {"__builtins__": {}})
+            calls.append((m.group(1), m.group(2), sig))
+    assert len(calls) == 14
+    for name, symbol, sig in calls:
+        want = _c_signature((csrc / f"{name}.cu").read_text(), symbol)
+        assert sig == want, (name, symbol, sig, want)

@@ -49,7 +49,7 @@ def setup():
     xt = torch.as_tensor(x)
     prior = MULTINOMIAL.build_prior(cfg, xt.mean(0, keepdim=True))
     model0, point = sampler._init_local(
-        torch.Generator().manual_seed(0), torch.tensor([0, 7]), xt,
+        torch.tensor([0, 7]), xt,
         torch.ones(N), prior=prior, family=MULTINOMIAL, cfg=cfg,
         k_max=K_MAX)
     tree = state.model_state_to_numpy(model0)

@@ -6,6 +6,7 @@ log apart by up to an ulp, and g = -log(L) with L = -log(u) near 1 turns
 one ulp of L (1.2e-7) into the same absolute error in g, even where g is
 near 0.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -84,9 +85,39 @@ def test_uniform01_equals_jax_including_the_top_bin():
     assert tu[-3] < 1.0 and tu[-2] == 1.0 and tu[-1] == 1.0
 
 
-def test_key_words_follow_the_generator():
-    a = prng.key_words(torch.Generator().manual_seed(3), "cpu")
-    b = prng.key_words(torch.Generator().manual_seed(3), "cpu")
-    assert a.dtype == torch.int64 and a.shape == (2,)
-    assert torch.equal(a, b)
-    assert int(a.min()) >= 0 and int(a.max()) <= M
+_SEEDS = (0, 7, (1 << 31) + 5)
+
+
+def _jax_words(key) -> list:
+    return [tuple(int(v) for v in row)
+            for row in np.asarray(jax.random.key_data(key)).reshape(-1, 2)]
+
+
+@pytest.mark.parametrize("seed", _SEEDS)
+@pytest.mark.parametrize("data", [0, 1, 9, -1, -(1 << 31)])
+def test_fold_in_is_jax_key_data(seed, data):
+    with jax.threefry_partitionable(True):
+        key = jax.random.key(seed)
+        want = _jax_words(jax.random.fold_in(key, jnp.int32(data)))
+    words = _jax_words(key)[0]
+    assert prng.fold_in(words, data) == want[0]
+    assert prng.fold_in(torch.tensor(words), data) == want[0]
+
+
+@pytest.mark.parametrize("seed", _SEEDS)
+@pytest.mark.parametrize("n", [3, 6])
+def test_split_is_jax_key_data(seed, n):
+    with jax.threefry_partitionable(True):
+        key = jax.random.key(seed)
+        want = _jax_words(jax.random.split(key, n))
+    assert prng.split(_jax_words(key)[0], n) == want
+
+
+def test_key_generators_follow_their_words():
+    draw = lambda w: torch.rand(4, generator=prng.generator(w, "cpu"))
+    assert torch.equal(draw((1, 2)), draw(torch.tensor([1, 2])))
+    assert not torch.equal(draw((1, 2)), draw((2, 1)))
+    assert torch.equal(draw((M, M)), torch.rand(
+        4, generator=torch.Generator().manual_seed((1 << 64) - 1)))
+    t = prng.key_tensor((M, 3), "cpu")
+    assert t.dtype == torch.int64 and t.tolist() == [M, 3]

@@ -138,7 +138,7 @@ def _state(fam, x):
     xt = torch.as_tensor(x)
     prior = fam.build_prior(cfg, xt.mean(0, keepdim=True))
     model0, point = sampler._init_local(
-        torch.Generator().manual_seed(0), torch.tensor([0, 7]), xt,
+        torch.tensor([0, 7]), xt,
         torch.ones(x.shape[0]), prior=prior, family=fam, cfg=cfg,
         k_max=K_MAX)
     tree = state.model_state_to_numpy(model0)

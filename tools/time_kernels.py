@@ -64,7 +64,11 @@ checkout's ``build/``) and times them:
   draws it makes, split by
   kernel (``torch.profiler``) and by the three-pass kernels on the same
   operands (``assign_linear``, ``sub_assign_linear``, ``moments_labels``
-  over the sweep's segments).
+  over the sweep's segments); and ``assign_linear`` and
+  ``sub_assign_linear`` alone (``linear_steps``) at the 8192-row
+  multinomial and diagonal-Gaussian serving steps, 2e5 x 128, 10^6 x 128
+  and the 20newsgroups width, each beside its bound, its plain version
+  and the per-kernel split of ``sweep_linear`` on the same operands.
 
 - ``moments``: ``moments_labels``'s bits over d' in {1, 3, 4, 32, 128,
   129, 1000}, K in {1, 2, 17, 300, 2048, 8192} and the block edge cases
@@ -104,11 +108,15 @@ oracle's outputs over d in {1, 7, 32, 128, 129, 256}, K in {1, 17, 2048,
 8192}, N in {1, 1025}. The ``sub`` group's grid: d in {1, 3, 4,
 31, 32, 33, 63, 64, 65, 100, 127, 128, 129, 160, 200, 255, 256}, the same
 K and N, labels in [-1, K] (outside [0, K): sub-label 0), every label one
-and all labels distinct. The ``linear`` group's: d' in {1, 3, 4, 127, 128,
-129, 1000, 20000}, K in {1, 2, 17, 64, 300, 2048}, N in {1, 1023, 1025,
+and all labels distinct. The ``linear`` group's, for ``sweep_linear``,
+``assign_linear`` and ``sub_assign_linear`` (step (f) under labels in
+[-1, K]) on the same operands: d' in {1, 3, 4, 24, 64, 65, 127, 128, 129,
+1000, 20000}, K in {1, 2, 17, 64, 300, 2048}, N in {1, 1023, 1025,
 11314}, the three block edge cases and a misaligned feature view (the
 scalar path), each beside the count of its inactive slots' draws in the
-Threefry top bin. The ``gauss`` group's grid keeps both kernels' outputs
+Threefry top bin; and past 2048 slots, K in {2049, 4096, 10000} at d' in
+{1, 3, 24, 64, 65, 128, 129, 20000} and N in {1, 1025, 4097} (the sweep's
+refusal kept as its message). The ``gauss`` group's grid keeps both kernels' outputs
 (labels, log-likelihood rows) at d in {1, 4, 16, 17, 31, 32, 33, 64, 65,
 127, 128}, K in {1, 2, 5, 17, 32, 64, 300, 2049, 4097}, N in {1, 127,
 128, 129, 4097, 8192}, with no slot active, one active, an inactive slot
@@ -234,9 +242,30 @@ BITS_STATS_D = (1, 3, 4, 31, 32, 33, 63, 64, 65, 100, 127, 128, 129, 200,
 BITS_SWEEP_D = (1, 3, 4, 31, 32, 33, 63, 64, 65, 100, 127, 128)
 BITS_SUB_D = (1, 3, 4, 31, 32, 33, 63, 64, 65, 100, 127, 128, 129, 160,
               200, 255, 256)
-BITS_LINEAR_D = (1, 3, 4, 127, 128, 129, 1000, 20_000)
+BITS_LINEAR_D = (1, 3, 4, 24, 64, 65, 127, 128, 129, 1000, 20_000)
 BITS_LINEAR_K = (1, 2, 17, 64, 300, 2048)
 BITS_LINEAR_N = (1, 1023, 1025, 11_314)
+# and past the one-read sweep's 2048 slots (assign_linear and
+# sub_assign_linear take any K; the sweep's refusal is kept as its message)
+BITS_LINEAR_BIG_D = (1, 3, 24, 64, 65, 128, 129, 20_000)
+BITS_LINEAR_BIG_K = (2049, 4096, 10_000)
+BITS_LINEAR_BIG_N = (1, 1025, 4097)
+# (name, family, generator, N, d, true clusters, seed, compact slots):
+# assign_linear and sub_assign_linear alone at chip_smoke.py's serving
+# steps (8192 rows, 32 slots, 17 live: multinomial d' = 128, diagonal
+# Gaussian d' = 64), the three-pass multinomial fit's state (2e5 x 128) and
+# the one-read fit's (10^6 x 128; 32 slots, 16 live), and the 20newsgroups
+# width; sweep_linear's (e) + (f) launch is split out beside them
+LINEAR_STEP_CASES = (
+    ("serve_multinomial", "multinomial", "generate_mnmm", 8192, 128, 17, 2,
+     32),
+    ("serve_diag_gaussian", "diag_gaussian", "generate_gmm", 8192, 32, 17,
+     2, 32),
+    ("multinomial_2e5", "multinomial", "generate_mnmm", 200_000, 128, 16, 1,
+     32),
+    ("multinomial_1e6", "multinomial", "generate_mnmm", 1_000_000, 128, 16,
+     1, 32),
+    ("news20", "multinomial", "generate_mnmm", 11_314, 20_000, 20, 0, 32))
 BITS_GRID_K = (1, 2, 17, 64, 300)
 BITS_GRID_N = (1, 1023, 1025, 4097)
 # many slots: the stat and step-(f) kernels at K = 2048 and 8192 (8192
@@ -896,6 +925,71 @@ def time_linear_group(sweep, assign, suffstats, bound, cuda_ms, run_ms, dev,
     return out
 
 
+def linear_e_args(a):
+    """``assign_linear``'s operands from ``sweep_linear``'s."""
+    return a[:5] + (a[9], a[10], a[12])
+
+
+def linear_f_args(a, labels=None):
+    """``sub_assign_linear``'s operands from ``sweep_linear``'s, with
+    ``labels`` or, by default, labels in [-1, K] made from the global
+    indices (outside [0, K): sub-label 0)."""
+    if labels is None:
+        k = a[1].shape[0]
+        labels = ((a[9] * 2654435761) % (k + 2) - 1).to(torch.int32)
+    return (a[0], a[5], a[6], a[7], labels, a[9], a[11])
+
+
+def linear_step_work(a, step: str):
+    """(FLOP, bytes) of ``assign_linear`` ("e": live slots only) or
+    ``sub_assign_linear`` ("f") on ``sweep_linear`` operands ``a``: each
+    input read once, each output written once."""
+    n, dp = a[0].shape
+    k = a[1].shape[0]
+    if step == "e":
+        live = int(a[4].sum())
+        return (2 * n * live * dp,
+                4 * n * dp + 12 * n + 4 * n + 4 * k * (dp + 4) + 16)
+    return (4 * n * dp, 4 * n * dp + 16 * n + 4 * n + 8 * k * (dp + 2) + 16)
+
+
+def time_linear_steps(sweep, assign, bound, cuda_ms, run_ms, dev) -> dict:
+    """``assign_linear`` and ``sub_assign_linear`` alone at
+    LINEAR_STEP_CASES (sub-labels under ``assign_linear``'s labels), each
+    beside its bound and plain version, and the per-kernel split of
+    ``sweep_linear`` on the same operands where the sweep takes them."""
+    from chip_smoke import linear_sweep_args
+    from repro_torch.core.family import get_family
+    from repro_torch.data import synthetic
+    out = {}
+    for name, fam, make, n, d, k_true, seed, k_c in LINEAR_STEP_CASES:
+        x_np, y_np = getattr(synthetic, make)(n, d, k_true, seed=seed)
+        a = linear_sweep_args(get_family(fam), torch.as_tensor(
+            x_np, device=dev), y_np, k_c, dev)
+        e_args = linear_e_args(a)
+        lab = assign.assign_linear_cuda(*e_args)
+        f_args = linear_f_args(a, lab)
+        r = {"n": a[0].shape[0], "d_feat": a[0].shape[1], "k": k_c,
+             "k_live": int(a[4].sum())}
+        for kern, fn, plain, args, step in (
+                ("assign_linear", assign.assign_linear_cuda,
+                 assign.assign_linear_plain, e_args, "e"),
+                ("sub_assign_linear", assign.sub_assign_linear_cuda,
+                 assign.sub_assign_linear_plain, f_args, "f")):
+            t = timed(lambda: fn(*args), 50, cuda_ms, run_ms)
+            t["bound_ms"], t["bound_by"] = bound(*linear_step_work(a, step))
+            t["plain_single_ms"] = cuda_ms(lambda: plain(*args), 1)
+            r[kern] = t
+        r["sweep_split"] = kernel_split(lambda: sweep.sweep_linear_cuda(*a),
+                                        10)
+        out[name] = r
+        print(json.dumps({f"linear_steps/{name}": r}), file=sys.stderr,
+              flush=True)
+        del a, e_args, f_args, lab
+        torch.cuda.empty_cache()
+    return out
+
+
 def top_bin_draws(args) -> int:
     """(point, inactive slot) pairs of ``sweep_linear`` operands whose
     step-(e) draw lies in the Threefry top bin (an inactive slot's logit
@@ -1003,11 +1097,28 @@ def worker(src: str, save: str, groups, bits_only: bool) -> dict:
             out["linear"] = time_linear_group(sweep, assign, suffstats,
                                               bound, cuda_ms, run_ms, dev,
                                               bits["linear"])
-        bits_grid(sweep.sweep_linear_cuda,
-                  bits_cases(BITS_LINEAR_D, BITS_LINEAR_K, BITS_LINEAR_N,
-                             ("empty", "one_segment", "valid_zeros",
-                              "misaligned")),
-                  grid_linear_args, bits["linear"], note=top_bin_draws)
+            out["linear_steps"] = time_linear_steps(
+                sweep, assign, bound, cuda_ms, run_ms, dev)
+        # the three kernels over one grid: the sweep (past 2048 slots its
+        # refusal), steps (e) and (f) alone on the same operands (step (f)
+        # under labels in [-1, K])
+        for key, fn, note in (
+                ("linear", sweep.sweep_linear_cuda, top_bin_draws),
+                ("linear_assign",
+                 lambda *a: assign.assign_linear_cuda(*linear_e_args(a)),
+                 None),
+                ("linear_sub",
+                 lambda *a: assign.sub_assign_linear_cuda(*linear_f_args(a)),
+                 None)):
+            bits.setdefault(key, {})
+            bits_grid(fn, bits_cases(BITS_LINEAR_D, BITS_LINEAR_K,
+                                     BITS_LINEAR_N,
+                                     ("empty", "one_segment", "valid_zeros",
+                                      "misaligned")),
+                      grid_linear_args, bits[key], note=note)
+            bits_grid(fn, big_cases(BITS_LINEAR_BIG_D, BITS_LINEAR_BIG_K,
+                                    BITS_LINEAR_BIG_N),
+                      grid_linear_args, bits[key], seed0=5000)
     if "moments" in groups:
         bits["moments"] = {}
         bits_grid(suffstats.moments_labels_cuda,
@@ -1180,6 +1291,21 @@ def summary(trees, results) -> dict:
                 for key in ("single_ms", "device_ms", "host_ms")}
             s["matmul"][name]["bound_ms"] = turns[0]["matmul"][name][
                 "bound_ms"]
+        if turns[0].get("linear_steps"):
+            s["linear_steps"] = {}
+            for name, case in turns[0]["linear_steps"].items():
+                row = {}
+                for kern in ("assign_linear", "sub_assign_linear"):
+                    row[kern] = {"bound_ms": case[kern]["bound_ms"]}
+                    for key in ("single_ms", "device_ms", "host_ms",
+                                "plain_single_ms"):
+                        row[kern][key] = median_of(
+                            turns, ("linear_steps", name, kern, key))
+                row["sweep_split_device_ms"] = {
+                    kern: median_of(turns, ("linear_steps", name,
+                                            "sweep_split", kern))
+                    for kern in sorted(case.get("sweep_split", {}))}
+                s["linear_steps"][name] = row
         out[src] = s
     return out
 
