@@ -104,6 +104,21 @@ reads it with ``load_model`` and fits 25 more from ``init_state``:
 labels, K/score history and every state tensor must equal the
 40-iteration ``fit`` bit for bit; then the same on the tiled plane
 against ``fit_tiled``.
+``fit_resilience``: the ``fit`` config with a checkpoint rotation every
+10 iterations, stopped after 20, then ``fit(resume=True)`` to 40, bitwise
+the ``fit`` phase's chain on both planes (with the seconds a member
+takes); a child process at 200,000 x 32 that SIGKILLs itself after its
+second member, resumed bitwise by this process; an inf row that ends in
+``DivergenceError`` after ``max_recoveries + 1`` rollbacks, then a small
+fit that must pass (the CUDA context survived); a NaN tile let through
+(``guard_tiles=False``) into a split/merge pass: one rollback, NMI >=
+0.9; guardrails on and off in turns (ms/iter, equal labels).
+``fit_multichain``: 4 chains at 10^6 x 32 (chain 2 bitwise the single
+fit of key ``fold_in(key, 2)``, ``select_best`` NMI >= 0.9, rhats,
+ms/iter and peak bytes against one chain), and 2 chains on the tiled
+plane at 200,000 x 32, bitwise the resident 2-chain fit and reading each
+tile as often as one chain. ``fit_k_auto``: ``k_max='auto'`` at 10^6 x
+32 (the slab after each chunk, K = 16, NMI >= 0.9, a second run bitwise).
 ``kernel_check_dense`` holds the dense ``suffstats`` oracle (its entry
 point ``ops.suffstats``) against its plain version at the d = 32 and d =
 128 fits' final states, a ragged shape, d = 256 and the reference's §4.2
@@ -135,6 +150,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import signal
 import subprocess
 import sys
 import time
@@ -240,6 +256,19 @@ LINEAR_WINDOW_CASES = (("linear_k4096", 20_000, 128, 4096),
 # the resumed chains: iterations before the save (not a multiple of
 # log_every: a chunk is cut in two)
 RESUME_AT = 15
+# Fault tolerance, multi-chain and k_max='auto' (fit_resilience,
+# fit_multichain, fit_k_auto): a rotation member every CKPT_EVERY
+# iterations, a stop after RESUME_STOP, the smaller fits (a SIGKILL'd child,
+# an inf row, a NaN tile, C = 2 on the tiled plane) at RESIL_N x FIT_D, the
+# NaN tile's read call (RESIL_N rows are 4 tiles of TILE: two init passes
+# and FIT_CFG's 10 sweeps before it, so it is the first tile of iteration
+# 10's split/merge pass), guardrails on / off turns and the chains of the
+# resident multi-chain fit.
+CKPT_EVERY, RESUME_STOP = 10, 20
+RESIL_N = 200_000
+NAN_CALL = 4 * (2 + 10) + 4
+GUARD_TURNS = 2
+MULTI_C = 4
 WINDOW_CASES = (("k8193", 20_000, 3, 8193), ("k16384", 20_000, 3, 16_384),
                 ("d300", 20_000, 300, 5), ("d384", 20_000, 384, 5),
                 ("fold_k10000", 50_176, K_LARGE_D, 10_000),
@@ -1994,6 +2023,341 @@ def run_tiled(DPMM, cfg, src, y_np, kernels, gpu, phase: str,
     return res, report
 
 
+def state_bits(a, b) -> bool:
+    """Every tensor (and ``it``) of two states equal bit for bit."""
+    def leaves(st):
+        out = {"it": torch.as_tensor(st.it)}
+        for f in st.__dataclass_fields__:
+            v = getattr(st, f)
+            if isinstance(v, torch.Tensor):
+                out[f] = v.cpu()
+            elif hasattr(v, "__dataclass_fields__"):
+                out.update({f"{f}.{g}": getattr(v, g).cpu()
+                            for g in v.__dataclass_fields__})
+        return out
+    la, lb = leaves(a), leaves(b)
+    return la.keys() == lb.keys() and all(
+        la[k].dtype == lb[k].dtype and torch.equal(la[k], lb[k]) for k in la)
+
+
+def steady_ms(res, cfg) -> float:
+    return 1e3 * float(np.mean(res.iter_times_s[cfg.log_every:]))
+
+
+def fit_resilience(DPMM, DPMMConfig, checkpoint, synthetic, sources, cfg,
+                   tcfg, x_np, path, whole, whole_t, tmp: Path, gpu) -> dict:
+    """The rotation and ``resume=True`` on both planes, a SIGKILL'd child
+    resumed, an inf row ending in ``DivergenceError`` with the CUDA context
+    alive after it, a NaN tile rolled back, and the guardrails' cost;
+    raises on any failed check."""
+    import dataclasses
+    import subprocess
+    import textwrap
+    from repro_torch.core.resilience import DivergenceError, model_health
+    from repro_torch.data.faults import FaultInjectingSource
+    from repro_torch.kernels import ops
+    HostTiledSource = sources.HostTiledSource
+    out, problems = {}, []
+
+    # (1) a rotation every CKPT_EVERY iterations, a stop after RESUME_STOP,
+    # then fit(iters, resume=True): the fit phase's chain bit for bit
+    save_s = []
+    real_save = checkpoint.save_checkpoint
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        p = real_save(*a, **kw)
+        save_s.append(time.perf_counter() - t0)
+        return p
+    checkpoint.save_checkpoint = timed_save
+    try:
+        for plane, base, data, ref in (
+                ("resident", cfg, lambda: x_np, whole),
+                ("tiled", tcfg, lambda: HostTiledSource.from_npy(path),
+                 whole_t)):
+            pref = str(tmp / f"rotation_{plane}")
+            rcfg = dataclasses.replace(base, checkpoint_path=pref,
+                                       checkpoint_every=CKPT_EVERY)
+            first = DPMM(rcfg).fit(data(), RESUME_STOP)
+            members = [it for it, _ in checkpoint.list_checkpoints(pref)]
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            rest = DPMM(rcfg).fit(data(), base.iters, resume=True)
+            wall = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            same = same_resumed(first, rest, ref)
+            out[f"rotation_{plane}"] = dict(
+                members_after_stop=members, resumed_iters=len(
+                    rest.iter_times_s), final_members=[
+                    it for it, _ in checkpoint.list_checkpoints(pref)],
+                wall_s=wall, bitwise_uninterrupted=same, launches=launches)
+            if members != [RESUME_STOP, RESUME_STOP - CKPT_EVERY]:
+                problems.append(f"rotation {plane}: members {members}")
+            if not all(same.values()):
+                problems.append(f"rotation {plane}: resumed chain parts "
+                                f"from the fit phase's: {same}")
+            if any(launches[k] == 0 for k in GAUSS_PATH):
+                problems.append(f"rotation {plane}: launches {launches}")
+    finally:
+        checkpoint.save_checkpoint = real_save
+    out["save_member_s"] = save_s
+    out["save_member_median_s"] = float(np.median(save_s))
+
+    # (2) a child fit (no JAX) at RESIL_N x FIT_D SIGKILLs itself right
+    # after its second rotation save (kernels already built: it loads them)
+    x2_np, y2_np = synthetic.generate_gmm(RESIL_N, FIT_D, FIT_K, seed=0)
+    x2_path = tmp / "x_resil.npy"
+    np.save(x2_path, x2_np)
+    pref = str(tmp / "killed")
+    kcfg = DPMMConfig(checkpoint_path=pref, checkpoint_every=CKPT_EVERY,
+                      **FIT_CFG)
+    child = textwrap.dedent(f"""
+        import os, signal, sys
+        sys.path.insert(0, {str(SRC)!r})
+        import numpy as np
+        from repro_torch.configs import DPMMConfig
+        from repro_torch.core import checkpoint
+        from repro_torch.core.sampler import DPMM
+        saves = [0]
+        real = checkpoint.save_checkpoint
+        def dying_save(*a, **kw):
+            p = real(*a, **kw)
+            saves[0] += 1
+            if saves[0] == 2:
+                os.kill(os.getpid(), signal.SIGKILL)
+            return p
+        checkpoint.save_checkpoint = dying_save
+        DPMM(DPMMConfig(**{dataclasses.asdict(kcfg)!r})).fit(
+            np.load({str(x2_path)!r}))
+        raise SystemExit("the fit survived its SIGKILL")
+    """)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", child], capture_output=True,
+                          text=True, timeout=300)
+    child_s = time.perf_counter() - t0
+    members = [it for it, _ in checkpoint.list_checkpoints(pref)]
+    resumed = DPMM(kcfg).fit(x2_np, resume=True)
+    whole2 = DPMM(DPMMConfig(**FIT_CFG)).fit(x2_np)
+    same = {"labels": bool(np.array_equal(resumed.labels, whole2.labels)),
+            "state": state_bits(resumed.state, whole2.state)}
+    out["sigkill"] = dict(n=RESIL_N, d=FIT_D, child_rc=proc.returncode,
+                          child_s=child_s, members_at_kill=members,
+                          resumed_iters=len(resumed.iter_times_s),
+                          bitwise_uninterrupted=same,
+                          nmi=resumed.nmi(y2_np))
+    if proc.returncode != -signal.SIGKILL:
+        problems.append(f"sigkill: child rc {proc.returncode}: "
+                        f"{proc.stderr[-1500:]}")
+    if not members or members[0] != 2 * CKPT_EVERY:
+        problems.append(f"sigkill: members {members}")
+    if not all(same.values()):
+        problems.append(f"sigkill: resumed chain parts: {same}")
+
+    # (3) an inf row: every rollback diverges again, DivergenceError after
+    # max_recoveries + 1 events; then a small fit in the same process
+    xbad = x2_np.copy()
+    xbad[5] = np.inf
+    t0 = time.perf_counter()
+    try:
+        DPMM(DPMMConfig(max_recoveries=2, **FIT_CFG)).fit(xbad)
+        events, err = [], "no DivergenceError"
+    except DivergenceError as e:
+        events, err = e.recoveries, None
+    torch.cuda.synchronize()             # a CUDA fault would surface here
+    inf_s = time.perf_counter() - t0
+    del xbad
+    xs_np, ys_np = synthetic.generate_gmm(20_000, 8, 4, seed=5)
+    ops.reset_launch_counts()
+    small = DPMM(DPMMConfig(k_max=16, iters=20, burnout=5,
+                            log_every=10)).fit(xs_np)
+    small_launch = ops.launch_counts()
+    out["inf_row"] = dict(
+        n=RESIL_N, d=FIT_D, max_recoveries=2, seconds=inf_s, error=err,
+        events=[{k: e[k] for k in ("kind", "iter", "restored_it",
+                                   "rollback")} for e in events],
+        next_fit=dict(n=20_000, d=8, nmi=small.nmi(ys_np), k=small.k,
+                      launches=small_launch))
+    if err or len(events) != 3 or any(
+            e["kind"] != "divergence_rollback" for e in events):
+        problems.append(f"inf_row: {err} {events}")
+    if out["inf_row"]["next_fit"]["nmi"] < 0.9 or any(
+            small_launch[k] == 0 for k in GAUSS_PATH):
+        problems.append(f"inf_row: the next fit failed "
+                        f"{out['inf_row']['next_fit']}")
+
+    # (4) a NaN tile let through (guard_tiles=False) in the split/merge
+    # pass of iteration burnout: one rollback, and the fit ends healthy
+    faulty = FaultInjectingSource(HostTiledSource(x2_np),
+                                  schedule={NAN_CALL: "nan"})
+    ncfg = DPMMConfig(tile_size=TILE, guard_tiles=False, **FIT_CFG)
+    ops.reset_launch_counts()
+    nres = DPMM(ncfg).fit(faulty)
+    rolls = [e for e in nres.recoveries
+             if e["kind"] == "divergence_rollback"]
+    out["nan_tile"] = dict(
+        n=RESIL_N, tile_size=nres.tile_size, read_call=NAN_CALL,
+        injected=faulty.injected, rollbacks=[
+            {k: e[k] for k in ("iter", "restored_it", "rollback")}
+            for e in rolls], history_rows=len(nres.history["k"]),
+        healthy=bool(model_health(nres.state)), nmi=nres.nmi(y2_np),
+        k_found=nres.k, launches=ops.launch_counts())
+    if (len(rolls) != 1 or not out["nan_tile"]["healthy"]
+            or out["nan_tile"]["nmi"] < 0.9
+            or out["nan_tile"]["history_rows"] != ncfg.iters):
+        problems.append(f"nan_tile: {out['nan_tile']}")
+    del faulty, x2_np
+
+    # (5) guardrails on and off in turns at FIT_N x FIT_D: ms/iter, labels
+    turns = {"on": [], "off": []}
+    labels = {}
+    for _ in range(GUARD_TURNS):
+        for side in ("on", "off"):
+            r = DPMM(dataclasses.replace(cfg, guardrails=side == "on")
+                     ).fit(x_np)
+            turns[side].append(steady_ms(r, cfg))
+            labels.setdefault(side, r.labels)
+            if not np.array_equal(r.labels, whole.labels):
+                problems.append(f"guardrails {side}: labels differ from "
+                                "the fit phase's")
+    out["guardrails_ms_per_iter"] = turns
+    out["guardrails_gap_ms"] = float(np.mean(turns["on"])
+                                     - np.mean(turns["off"]))
+    out["guardrails_spread_ms"] = float(max(
+        np.ptp(turns["on"]), np.ptp(turns["off"])))
+    out["guardrails_labels_equal"] = bool(np.array_equal(labels["on"],
+                                                         labels["off"]))
+    out["problems"] = problems
+    return out
+
+
+def fit_multichain(DPMM, DPMMConfig, prng, synthetic, sources, cfg, x_np,
+                   y_np, whole, gpu) -> dict:
+    """C = MULTI_C chains at FIT_N x FIT_D on the resident plane (chain 2
+    against the single-chain fit of key fold_in(key, 2)), and C = 2 on the
+    tiled plane at RESIL_N x FIT_D against the resident C = 2 fit, reading
+    each tile as often as one chain does."""
+    from repro_torch.core import sampler
+    from repro_torch.core.state import chain_of
+    from repro_torch.kernels import ops
+    out, problems = {}, []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = DPMM(cfg).fit(x_np, n_chains=MULTI_C)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    single2 = DPMM(cfg).fit(x_np, key=prng.fold_in((0, cfg.seed), 2))
+    c2 = m.chain(2)
+    same2 = {"labels": bool(np.array_equal(c2.labels, single2.labels)),
+             "history": all(np.array_equal(c2.history[k], single2.history[k])
+                            for k in single2.history),
+             "state": state_bits(c2.state, single2.state)}
+    best = m.select_best()
+    try:
+        rhats = m.rhats()
+    except ValueError as e:
+        rhats = str(e)
+    single_ms = steady_ms(whole, cfg)
+    out["resident"] = dict(
+        n=FIT_N, d=FIT_D, chains=MULTI_C, wall_s=wall,
+        steady_ms_per_iter=steady_ms(m, cfg),
+        single_chain_steady_ms_per_iter=single_ms,
+        ratio_to_chains_x_single=steady_ms(m, cfg) / (MULTI_C * single_ms),
+        peak_above_start=m.peak_bytes - m.start_bytes,
+        single_peak_above_start=whole.peak_bytes - whole.start_bytes,
+        # labels and sub-labels a chain (int32); x and the mask are shared
+        point_state_bytes_per_chain=FIT_N * 8, x_bytes=x_np.nbytes,
+        # a chain's model state (its rollback anchor is a second copy)
+        model_bytes_per_chain=sampler._nbytes(chain_of(m.state, 0)),
+        scores=np.asarray(m.score).tolist(), best_chain=int(np.argmax(
+            m.score)), best_nmi=best.nmi(y_np), k=m.k,
+        k_per_chain=m.history["k"][:, -1].tolist(), rhats=rhats,
+        chain2_bitwise_single=same2, launches=launches)
+    if not all(same2.values()):
+        problems.append(f"resident chain 2 parts from its single fit: {same2}")
+    if out["resident"]["best_nmi"] < 0.9:
+        problems.append(f"resident select_best NMI "
+                        f"{out['resident']['best_nmi']:.4f} < 0.9")
+    if any(launches[k] == 0 for k in GAUSS_PATH):
+        problems.append(f"resident launches {launches}")
+
+    class Counting(sources.HostTiledSource):
+        reads = 0
+
+        def read_block(self, start, stop):
+            self.reads += 1
+            return super().read_block(start, stop)
+
+    x2_np, y2_np = synthetic.generate_gmm(RESIL_N, FIT_D, FIT_K, seed=0)
+    tcfg = DPMMConfig(tile_size=TILE, **FIT_CFG)
+    reads = {}
+    tiled = {}
+    for chains in (1, 2):
+        src = Counting(x2_np)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        tiled[chains] = DPMM(tcfg).fit(src, n_chains=chains)
+        tiled[f"wall_{chains}"] = time.perf_counter() - t0
+        tiled[f"launches_{chains}"] = ops.launch_counts()
+        reads[chains] = src.reads
+    res2 = DPMM(DPMMConfig(**FIT_CFG)).fit(x2_np, n_chains=2)
+    t2 = tiled[2]
+    same = {"labels": bool(np.array_equal(t2.labels, res2.labels)),
+            "history": all(np.array_equal(t2.history[k], res2.history[k])
+                           for k in res2.history),
+            "state": state_bits(t2.state, res2.state)}
+    out["tiled"] = dict(
+        n=RESIL_N, d=FIT_D, chains=2, tile_size=t2.tile_size,
+        reads_one_chain=reads[1], reads_two_chains=reads[2],
+        steady_ms_per_iter=steady_ms(t2, tcfg),
+        one_chain_steady_ms_per_iter=steady_ms(tiled[1], tcfg),
+        wall_s=tiled["wall_2"], bitwise_resident=same,
+        best_nmi=t2.nmi(y2_np), launches=tiled["launches_2"])
+    if not all(same.values()):
+        problems.append(f"tiled C = 2 parts from the resident: {same}")
+    if reads[1] != reads[2]:
+        problems.append(f"tiled reads {reads}")
+    if any(tiled["launches_2"][k] == 0 for k in GAUSS_PATH):
+        problems.append(f"tiled launches {tiled['launches_2']}")
+    out["problems"] = problems
+    return out
+
+
+def fit_k_auto(DPMM, DPMMConfig, x_np, y_np, gpu) -> dict:
+    """k_max='auto' at FIT_N x FIT_D: the slab after each chunk, K, NMI,
+    and a second run bit for bit."""
+    from repro_torch.kernels import ops
+    acfg = DPMMConfig(**{**FIT_CFG, "k_max": "auto"})
+    runs = []
+    for _ in range(2):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = DPMM(acfg).fit(x_np)
+        runs.append((r, time.perf_counter() - t0, ops.launch_counts()))
+    (a, wall, launches), (b, _, _) = runs
+    same = {"labels": bool(np.array_equal(a.labels, b.labels)),
+            "history": all(np.array_equal(a.history[k], b.history[k])
+                           for k in a.history),
+            "state": state_bits(a.state, b.state),
+            "slabs": a.slab_sizes == b.slab_sizes}
+    out = dict(n=FIT_N, d=FIT_D, iters=acfg.iters, slab_after_chunk=(
+        a.slab_sizes), k_found=a.k, nmi=a.nmi(y_np), wall_s=wall,
+        steady_ms_per_iter=steady_ms(a, acfg),
+        peak_above_start=a.peak_bytes - a.start_bytes,
+        k_history=a.history["k"].tolist(), second_run_bitwise=same,
+        launches=launches)
+    problems = []
+    if a.k != FIT_K or out["nmi"] < 0.9:
+        problems.append(f"K {a.k}, NMI {out['nmi']:.4f}")
+    if not all(same.values()):
+        problems.append(f"second run differs: {same}")
+    if a.slab_sizes[0] != 8 or a.state.active.shape[0] <= 8:
+        problems.append(f"the slab did not grow: {a.slab_sizes}")
+    if any(launches[k] == 0 for k in GAUSS_PATH):
+        problems.append(f"launches {launches}")
+    out["problems"] = problems
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="TRACE", default="",
@@ -2178,6 +2542,25 @@ def main() -> None:
                   faulty, y_np, GAUSS_PATH, gpu, "fit_tiled_faults",
                   resident=res, after=fault_checks)
         del faulty
+
+        # fault tolerance, several chains and the growable slab
+        from repro_torch.data import source as sources
+        from repro_torch.kernels import prng
+        for phase, run in (
+                ("fit_resilience", lambda: fit_resilience(
+                    DPMM, DPMMConfig, checkpoint, synthetic, sources, cfg,
+                    tcfg, x_np, path, res, res_t, Path(tmp), gpu)),
+                ("fit_multichain", lambda: fit_multichain(
+                    DPMM, DPMMConfig, prng, synthetic, sources, cfg, x_np,
+                    y_np, res, gpu)),
+                ("fit_k_auto", lambda: fit_k_auto(DPMM, DPMMConfig, x_np,
+                                                  y_np, gpu))):
+            t0 = time.perf_counter()
+            report = run()
+            emit(phase, seconds=time.perf_counter() - t0, nvidia_smi=gpu,
+                 **report)
+            if report["problems"]:
+                fail(f"{phase}: {'; '.join(report['problems'])}")
     t0 = time.perf_counter()
     xbig_np, ybig_np = generate_gmm(LARGE_N, FIT_D, FIT_K, seed=0)
     gen_s = time.perf_counter() - t0

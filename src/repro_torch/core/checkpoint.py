@@ -23,8 +23,10 @@ under the final name. ``load_model`` re-checks every CRC and raises
 ``{prefix}-{it:08d}.npz`` members and return the newest one that verifies;
 ``resolve_model`` takes either a file or such a prefix.
 
-The port holds one chain: a multi-chain checkpoint (a leading chain axis)
-is refused with ``NotImplementedError``.
+A multi-chain state (``fit(n_chains=C)``) is written and read in the
+reference's layout: ``key`` (C, 2) uint32 words, ``it`` (C,) int32, every
+other leaf leading with (C, K), so such a file moves both ways between the
+packages too.
 """
 from __future__ import annotations
 
@@ -148,30 +150,28 @@ def _fsync_dir(dirname: str) -> None:
 
 def _check_shapes(tree: dict, where: str) -> None:
     """Every leaf must lead with the (K,) axis of ``active`` (the
-    sub-cluster groups with (K, 2)); a multi-chain file is refused."""
+    sub-cluster groups with (K, 2)), or for a multi-chain file with its
+    (C, K) axes, ``key`` (C, 2) and ``it`` (C,)."""
     active = tree["active"]
-    if active.ndim == 2:
-        raise NotImplementedError(
-            f"{where}: a multi-chain checkpoint (active {active.shape}); "
-            "the port holds one chain (ROADMAP.md §1, multi-chain)")
-    if active.ndim != 1:
+    if active.ndim not in (1, 2):
         raise CheckpointCorrupt(f"{where}: 'active' has shape "
-                                f"{active.shape}, expected (K,)")
-    k = active.shape
-    want = {"it": (), "key": (2,), "logweights": k, "stuck": k,
-            "sub_logweights": k + (2,)}
+                                f"{active.shape}, expected (K,) or (C, K)")
+    base = active.shape
+    chain = base[:-1]
+    want = {"it": chain, "key": chain + (2,), "logweights": base,
+            "stuck": base, "sub_logweights": base + (2,)}
     for name, shape in want.items():
         got = tree[name].shape
         if got != shape:
             raise CheckpointCorrupt(f"{where}: leaf {name!r} has shape "
                                     f"{got}, expected {shape}")
     for group in GROUPS:
-        lead = k + ((2,) if group.startswith("sub") else ())
+        lead = base + ((2,) if group.startswith("sub") else ())
         for name, leaf in tree[group].items():
             if leaf.shape[:len(lead)] != lead:
                 raise CheckpointCorrupt(
                     f"{where}: leaf {group}.{name} has shape {leaf.shape}, "
-                    f"expected leading dims {lead} to match active {k}")
+                    f"expected leading dims {lead} to match active {base}")
 
 
 def _read_model(path: str) -> Tuple[dict, ComponentFamily]:
@@ -298,6 +298,7 @@ def resolve_model(path: str, device="cuda"
     """A model from ``path``, a checkpoint file or a rotation prefix (its
     newest member that verifies): ``(model, family, resolved_path, it)``.
     A named file that fails verification raises :class:`CheckpointCorrupt`.
+    ``it`` of a multi-chain file is the largest of its chains'.
     """
     try:
         model, family = load_model(path, device)
@@ -306,4 +307,4 @@ def resolve_model(path: str, device="cuda"
             raise
         return latest_valid(path, device)
     resolved = path if os.path.exists(path) else normalize_path(path)
-    return model, family, resolved, int(model.it)
+    return model, family, resolved, int(np.max(np.asarray(model.it)))

@@ -1,16 +1,20 @@
-"""Tile-read retry for streamed fits, and the health check of a model.
+"""Tile-read retry for streamed fits, the health check of a model, and
+the error of a fit that diverged.
 
 Port of ``repro.core.resilience``'s ``TileReadError``, ``RetryPolicy``,
 ``read_block_checked`` (the tiled fit reads every tile through it, with the
-reference's event records ``tile_read_fault`` and ``io_retry``) and
-``model_health``. Divergence rollback and ``fit(resume=True)`` are not
-ported yet (ROADMAP.md §1 item 2).
+reference's event records ``tile_read_fault`` and ``io_retry``),
+``model_health`` (the fits' guardrails read its verdict with each chunk's
+or iteration's history and roll back to the last healthy state on a bad
+one, ``core/sampler.py``) and ``DivergenceError`` (raised once
+``max_recoveries`` rollbacks are spent). ``WorkerLostError`` waits for the
+multi-process fits (ROADMAP.md §1 item 6).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -21,6 +25,17 @@ from repro_torch.core.state import ModelState
 class TileReadError(RuntimeError):
     """A streamed tile read failed past the retry budget. The message
     carries full provenance: global row range, attempts, last failure."""
+
+
+class DivergenceError(RuntimeError):
+    """The chain diverged (non-finite state / degenerate clusters) and
+    rollback could not recover it within ``max_recoveries`` attempts.
+    ``recoveries`` holds the per-event log (same records as
+    ``FitResult.recoveries``)."""
+
+    def __init__(self, message: str, recoveries: Optional[List[dict]] = None):
+        super().__init__(message)
+        self.recoveries: List[dict] = list(recoveries or [])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,7 +114,9 @@ def model_health(model: ModelState) -> torch.Tensor:
     """0-d bool tensor: is ``model`` numerically sane? All O(K) checks on
     the active slots only (inactive slots never receive points): every
     sufficient-statistic leaf of ``stats`` and ``substats`` is finite,
-    ``logweights`` are finite, and every count ``n`` is non-negative."""
+    ``logweights`` are finite, and every count ``n`` is non-negative. A
+    multi-chain state gets one verdict for all its chains. It only reads,
+    and stays on the device."""
     active = model.active
     ok = torch.ones((), dtype=torch.bool, device=active.device)
     for tree in (model.stats, model.substats):

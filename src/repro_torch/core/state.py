@@ -12,14 +12,25 @@ with an ``active`` mask; sub-cluster tensors carry an extra axis of size 2
 ``model_state_from_numpy`` / ``model_state_to_numpy`` carry a model state
 of any family between this package and the JAX one as plain numpy arrays,
 so both can compute from the same parameters.
+
+A multi-chain state (``fit(n_chains=C)``'s result, a multi-chain
+checkpoint) has the reference's layout: every leaf leads with a chain axis
+((C, K, ...)), ``key`` is (C, 2) and ``it`` a (C,) int64 tensor on the
+host. ``stack_chains`` builds it from C single-chain states and
+``chain_of`` takes chain c back out; the fits run one single-chain state
+per chain. ``clone_model`` is a deep copy (a rollback anchor) and
+``grow_model`` pads the slot axis (``k_max='auto'``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Mapping
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.sweep import NEG_INF
 
 
 def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any) -> Any:
@@ -37,7 +48,8 @@ def tree_map2(fn, a: Any, b: Any) -> Any:
 class ModelState:
     """O(K_max) model-side state of one chain."""
     key: torch.Tensor             # (2,) int64: the key's two uint32 words
-    it: int                       # iterations done
+    it: Any                       # iterations done: int ((C,) tensor for
+    #                               a multi-chain state)
     active: torch.Tensor          # (K,) bool
     logweights: torch.Tensor      # (K,) log pi_k (-1e30 when inactive)
     sub_logweights: torch.Tensor  # (K, 2)
@@ -73,6 +85,76 @@ class PointState:
     valid: torch.Tensor           # (N,) float32 padding mask
 
 
+_GROUPS = ("params", "subparams", "stats", "substats")
+_SLOT_LEAVES = ("active", "logweights", "sub_logweights", "stuck")
+
+
+def _map_slots(model: ModelState, fn) -> ModelState:
+    """``fn`` applied to every O(K) tensor of ``model`` (``fn(name,
+    tensor)``; the groups' leaves are named by their group)."""
+    kw = {name: fn(name, getattr(model, name)) for name in _SLOT_LEAVES}
+    for group in _GROUPS:
+        kw[group] = tree_map(lambda t, g=group: fn(g, t),
+                             getattr(model, group))
+    return model.replace(**kw)
+
+
+def clone_model(model: ModelState) -> ModelState:
+    """A deep copy: no tensor of the copy is one that a later iteration of
+    ``model``'s chain may write in place."""
+    it = model.it.clone() if isinstance(model.it, torch.Tensor) else model.it
+    return _map_slots(model, lambda _, t: t.clone()).replace(
+        key=model.key.clone(), it=it)
+
+
+def stack_chains(models) -> ModelState:
+    """C single-chain states -> one multi-chain state (every leaf with a
+    leading chain axis, ``key`` (C, 2), ``it`` (C,) on the host)."""
+    models = list(models)
+    kw = {name: torch.stack([getattr(m, name) for m in models])
+          for name in _SLOT_LEAVES}
+    for group in _GROUPS:
+        trees = [getattr(m, group) for m in models]
+        kw[group] = type(trees[0])(**{
+            f.name: torch.stack([getattr(t, f.name) for t in trees])
+            for f in dataclasses.fields(trees[0])})
+    return ModelState(
+        key=torch.stack([m.key.to("cpu", torch.int64) for m in models]),
+        it=torch.tensor([int(m.it) for m in models], dtype=torch.int64),
+        **kw)
+
+
+def chain_of(model: ModelState, c: int) -> ModelState:
+    """Chain ``c`` of a multi-chain state as a single-chain state (views
+    of its tensors)."""
+    return _map_slots(model, lambda _, t: t[c]).replace(
+        key=model.key[c], it=int(model.it[c]))
+
+
+def grow_model(model: ModelState, new_k: int) -> ModelState:
+    """Pad every O(K) leaf of ``model`` to ``new_k`` slots, as a dense
+    chain's inactive slots look: inactive, ``NEG_INF`` log-weights,
+    sub-weights of log 1/2, zero ``stuck`` and zero params and stats (the
+    next sweep draws the params from the stats). Single-chain (K, ...)
+    and multi-chain (C, K, ...) layouts; refuses to shrink."""
+    k_axis = model.active.ndim - 1
+    old_k = model.active.shape[k_axis]
+    if new_k < old_k:
+        raise ValueError(f"grow_model: cannot shrink {old_k} -> {new_k}")
+    if new_k == old_k:
+        return model
+    fill = {"active": False, "logweights": NEG_INF,
+            "sub_logweights": math.log(0.5)}
+
+    def pad(name, t):
+        shape = list(t.shape)
+        shape[k_axis] = new_k - old_k
+        return torch.cat([t, torch.full(shape, fill.get(name, 0),
+                                        dtype=t.dtype, device=t.device)],
+                         dim=k_axis)
+    return _map_slots(model, pad)
+
+
 def _field(tree: Any, name: str) -> Any:
     if isinstance(tree, Mapping):
         return tree[name]
@@ -89,6 +171,7 @@ def model_state_from_numpy(tree: Any, device, family) -> ModelState:
     ``family``'s (a ``ComponentFamily``) params and stats classes:
     ``mu``/``chol_prec``/``logdet_prec``, ``logtheta``, ``log_rate`` or
     ``mu``/``log_prec``; ``n`` with ``sx``/``sxx``, ``counts`` or ``sx``.
+    A multi-chain tree ((C, K) ``active``) gives a multi-chain state.
     """
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.array(a)).to(device=device, dtype=dtype)
@@ -97,9 +180,16 @@ def model_state_from_numpy(tree: Any, device, family) -> ModelState:
         return cls(**{f.name: t(_field(tree, f.name))
                       for f in dataclasses.fields(cls)})
 
-    key = np.asarray(_field(tree, "key")).reshape(-1)[:2].astype(np.int64)
+    multi = np.ndim(_field(tree, "active")) == 2
+    key = np.asarray(_field(tree, "key")).astype(np.int64)
+    it = np.asarray(_field(tree, "it"))
+    if multi:
+        key, it = (torch.as_tensor(key.reshape(-1, 2)),
+                   torch.as_tensor(it.astype(np.int64)))
+    else:
+        key, it = t(key.reshape(-1)[:2], torch.int64), int(it)
     return ModelState(
-        key=t(key, torch.int64), it=int(np.asarray(_field(tree, "it"))),
+        key=key, it=it,
         active=t(_field(tree, "active"), torch.bool),
         logweights=t(_field(tree, "logweights")),
         sub_logweights=t(_field(tree, "sub_logweights")),
@@ -118,7 +208,7 @@ def model_state_to_numpy(model: ModelState) -> Dict[str, Any]:
                 for f in dataclasses.fields(tree)}
     return {
         "key": model.key.cpu().numpy().astype(np.uint32),
-        "it": np.int32(model.it),
+        "it": np.asarray(model.it, np.int32),
         "active": model.active.cpu().numpy(),
         "logweights": model.logweights.cpu().numpy(),
         "sub_logweights": model.sub_logweights.cpu().numpy(),

@@ -3,7 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.sample_dpmm \
         --n 100000 --d 2 --k 10 --alpha 10 --iters 100 \
         [--data-path x.npy] [--tile-size 65536] [--result-path out.json] \
-        [--device cuda] [--checkpoint-path model.npz]
+        [--device cuda] [--checkpoint-path model.npz] [--params-path p.json] \
+        [--n-chains 4] [--checkpoint-every 10] [--resume]
 
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given. ``--prior-type`` takes any family of the registry (gaussian,
@@ -15,9 +16,18 @@ streams the points in tiles of that many rows (the out-of-core plane:
 device memory O(k_max + tile_size)); with ``--data-path`` the .npy is
 then memory-mapped and never loaded whole. The result JSON has the keys
 of ``repro.launch.sample_dpmm``'s for these flags: labels, weights, k,
-nmi, iter_times_s, device_bytes, config, dist, recoveries. ``--checkpoint-path`` writes the fitted model with
+nmi, iter_times_s, device_bytes, config, dist, recoveries.
+``--checkpoint-path`` writes the fitted model with
 ``core/checkpoint.save_model`` (the reference's format v2), which
-``repro_torch.launch.serve_dpmm`` (or the JAX package's) serves.
+``repro_torch.launch.serve_dpmm`` (or the JAX package's) serves; with
+``--checkpoint-every`` it is instead the prefix of the fit's
+auto-checkpoint rotation, and ``--resume`` continues a killed fit from its
+newest member that verifies (``--iters`` is the total target).
+``--n-chains C`` runs C chains, prints their scores and split-R-hats and
+keeps the best chain (result and checkpoint). ``--params-path`` is a JSON
+file of config overrides, the reference CLI's keys (alpha, iters, k_max —
+``"auto"`` included —, burnout, log_every, tile_size). ``--workers`` is
+not ported (ROADMAP.md §1 item 6).
 """
 from __future__ import annotations
 
@@ -75,14 +85,50 @@ def main(argv=None):
     ap.add_argument("--result-path", "--result_path", default="")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (kernels, default) or 'cpu' (plain path)")
+    ap.add_argument("--params-path", "--params_path", default="",
+                    help="JSON config overrides: alpha, iters, k_max "
+                         "(an int or \"auto\"), burnout, log_every, "
+                         "tile_size")
+    ap.add_argument("--n-chains", "--n_chains", type=int, default=1,
+                    help="chains sharing one device copy of x; the result "
+                         "(and checkpoint) is the best-scoring chain, with "
+                         "split-R-hat printed")
     ap.add_argument("--checkpoint-path", "--checkpoint_path", default="",
-                    help="write the fitted ModelState npz here")
+                    help="write the fitted ModelState npz here; with "
+                         "--checkpoint-every the auto-checkpoint rotation "
+                         "prefix instead")
+    ap.add_argument("--checkpoint-every", "--checkpoint_every", type=int,
+                    default=None,
+                    help="auto-checkpoint every this many iterations to "
+                         "the --checkpoint-path rotation")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume a killed fit from the newest verifying "
+                         "member of the --checkpoint-path rotation; "
+                         "--iters is the total target, and no member yet "
+                         "means a fresh fit")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
 
-    cfg = DPMMConfig(component=_component_of(args.prior_type),
-                     alpha=args.alpha, iters=args.iters,
-                     tile_size=args.tile_size, seed=args.seed)
+    overrides = {}
+    if args.params_path:
+        with open(args.params_path) as f:
+            overrides = json.load(f)
+    if overrides.get("workers"):
+        raise SystemExit("workers (multi-process fits) is not ported")
+    cfg = DPMMConfig(
+        component=_component_of(args.prior_type),
+        alpha=overrides.get("alpha", args.alpha),
+        iters=overrides.get("iters", args.iters),
+        k_max=overrides.get("k_max", 64),
+        burnout=overrides.get("burnout", 15),
+        log_every=overrides.get("log_every", 10),
+        tile_size=(args.tile_size if args.tile_size is not None
+                   else overrides.get("tile_size")),
+        checkpoint_path=args.checkpoint_path or None,
+        checkpoint_every=args.checkpoint_every, seed=args.seed)
+    if (args.resume or args.checkpoint_every) and not args.checkpoint_path:
+        raise SystemExit("--resume/--checkpoint-every need "
+                         "--checkpoint-path (the rotation prefix)")
     if args.data_path:
         gt = None
         if cfg.tile_size is not None:
@@ -97,11 +143,21 @@ def main(argv=None):
           f"{cfg.component} alpha={cfg.alpha} iters={cfg.iters} "
           f"device={args.device}")
     t0 = time.time()
-    result = DPMM(cfg, device=args.device).fit(source,
-                                               verbose=args.verbose)
+    result = DPMM(cfg, device=args.device).fit(
+        source, verbose=args.verbose, n_chains=args.n_chains,
+        resume=args.resume)
     wall = time.time() - t0
+    if result.n_chains > 1:
+        try:
+            rhats = {k: round(v, 3) for k, v in result.rhats().items()}
+        except ValueError:          # too few iterations for split-R-hat
+            rhats = "n/a (needs >= 4 iters)"
+        print(f"chains: scores={np.round(np.asarray(result.score), 2)} "
+              f"rhat={rhats}")
+        result = result.select_best()
     nmi = result.nmi(gt) if gt is not None else float("nan")
-    steady = result.iter_times_s[cfg.log_every:] or result.iter_times_s
+    steady = (result.iter_times_s[cfg.log_every:] or result.iter_times_s
+              or [float("nan")])       # a resume with nothing left to run
     print(f"done in {wall:.1f}s: K={result.k} NMI={nmi:.4f} "
           f"mean iter {np.mean(steady) * 1e3:.1f} ms")
     if result.recoveries:
@@ -115,10 +171,15 @@ def main(argv=None):
                     "peak_bytes_source": ("torch.cuda.max_memory_allocated"
                                           if result.peak_bytes is not None
                                           else None)}
-    if args.checkpoint_path:
+    if args.checkpoint_path and not args.checkpoint_every:
         path = checkpoint.save_model(args.checkpoint_path, result.state,
                                      cfg.component)
         print(f"wrote checkpoint {path}")
+    elif args.checkpoint_every:
+        # the fit wrote the final rotation member
+        members = checkpoint.list_checkpoints(cfg.checkpoint_path)
+        if members:
+            print(f"final checkpoint {members[0][1]}")
     if args.result_path:
         weights = np.exp(result.state.logweights.cpu().numpy())
         active = result.state.active.cpu().numpy()

@@ -61,7 +61,7 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(k_max="auto"), NotImplementedError),
+    (dict(k_max="auto", tile_size=1024), ValueError),
     (dict(k_max=0), ValueError), (dict(init_clusters=65), ValueError),
     (dict(log_every=0), ValueError), (dict(iters=-1), ValueError),
     (dict(k_block=True), ValueError)])

@@ -1143,3 +1143,62 @@ def test_fit_past_the_one_read_slab_runs_sweep_ref(dev):
     assert counts["sweep_gauss"] == 0 and counts["assign_gauss"] == 40
     assert counts["sub_assign_gauss"] == 40 * assign.SUB_LAUNCHES
     assert r.nmi(y) > 0.9, (r.nmi(y), r.history["k"])
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+def test_rotation_resume_on_the_card_is_the_uninterrupted_chain(dev,
+                                                                tmp_path,
+                                                                tiled):
+    """Auto-checkpoint every 4 iterations, stop after 6, ``resume=True`` to
+    12: the 12-iteration chain bit for bit on the card."""
+    x, _ = generate_gmm(20_000, 8, 4, seed=5)
+    kw = dict(iters=12, burnout=4, log_every=3,
+              tile_size=4096 if tiled else None)
+    rot = DPMMConfig(checkpoint_path=str(tmp_path / "ck"),
+                     checkpoint_every=4, **kw)
+    DPMM(rot).fit(x, 6)
+    rest = DPMM(rot).fit(x, resume=True)
+    whole = DPMM(DPMMConfig(**kw)).fit(x)
+    np.testing.assert_array_equal(rest.labels, whole.labels)
+    for group in ("params", "subparams", "stats", "substats"):
+        a, b = getattr(rest.state, group), getattr(whole.state, group)
+        for f in a.__dataclass_fields__:
+            assert torch.equal(getattr(a, f), getattr(b, f)), (group, f)
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+def test_chain_c_on_the_card_is_the_single_chain_fit(dev, tiled):
+    from repro_torch.kernels import prng
+    x, _ = generate_gmm(20_000, 8, 4, seed=5)
+    cfg = DPMMConfig(iters=10, burnout=4, log_every=5,
+                     tile_size=4096 if tiled else None)
+    multi = DPMM(cfg).fit(x, n_chains=3)
+    for c in range(3):
+        single = DPMM(DPMMConfig(iters=10, burnout=4, log_every=5)).fit(
+            x, key=prng.fold_in((0, 0), c))
+        np.testing.assert_array_equal(multi.labels[c], single.labels)
+        assert torch.equal(multi.state.stats.sx[c], single.state.stats.sx)
+
+
+def test_divergence_on_the_card_raises_and_the_next_fit_runs(dev):
+    from repro_torch.core.resilience import DivergenceError
+    x, y = generate_gmm(20_000, 8, 4, seed=5)
+    bad = x.copy()
+    bad[5] = np.inf
+    with pytest.raises(DivergenceError) as e:
+        DPMM(DPMMConfig(iters=8, burnout=2, log_every=4,
+                        max_recoveries=1)).fit(bad)
+    assert len(e.value.recoveries) == 2
+    torch.cuda.synchronize()
+    r = DPMM(DPMMConfig(iters=20, burnout=5, log_every=5)).fit(x)
+    assert r.nmi(y) > 0.9
+
+
+def test_auto_slab_on_the_card_grows_and_repeats(dev):
+    x, y = generate_gmm(20_000, 4, 6, seed=0, sep=10.0)
+    cfg = DPMMConfig(alpha=10.0, iters=16, k_max="auto", k_max_cap=64,
+                     burnout=5, log_every=4)
+    a, b = DPMM(cfg).fit(x), DPMM(cfg).fit(x)
+    assert a.slab_sizes[0] == 8 and a.state.active.shape[0] > 8
+    assert a.nmi(y) > 0.9 and a.slab_sizes == b.slab_sizes
+    np.testing.assert_array_equal(a.labels, b.labels)
