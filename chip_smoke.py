@@ -119,6 +119,30 @@ ms/iter and peak bytes against one chain), and 2 chains on the tiled
 plane at 200,000 x 32, bitwise the resident 2-chain fit and reading each
 tile as often as one chain. ``fit_k_auto``: ``k_max='auto'`` at 10^6 x
 32 (the slab after each chunk, K = 16, NMI >= 0.9, a second run bitwise).
+``serve_refine``: the 10^6 x 32 Gaussian and 10^6 x 128 multinomial
+models served with ``ServeConfig(refine=True)`` (refine_batch 1024):
+refinement on answers bitwise as the static engine before any refine; the
+first refinement sweep through the kernels against the same sweep on the
+sweep kernel's plain version (same model, keys and card: labels equal but
+counted near-ties, blended stats within STATS_RTOL); 32,768 rows of the
+fit's mixture with every cluster mean moved by one fixed offset (far
+enough that the static model mislabels a few of them), queried and
+folded (32 sweeps, 32 epochs published, p50 / p99 ms of one sweep,
+NMI of ``predict`` and mean log p(x) before and after, the device time of
+``sweep_gauss`` / ``sweep_linear`` and ``fold_partials`` a sweep from
+``torch.profiler``); on the Gaussian model a batch of 1e30 rows ends in
+``refine_rejected`` with the answers bitwise unchanged. ``fit_workers``:
+the elastic multi-process fit (``DPMMConfig(workers=N)``: a coordinator
+and N worker processes on the one card) of the 10^6 x 32 Gaussian from an
+.npy in 65,536-row tiles with N = 1, 2 and 4, each bitwise the
+single-process tiled fit of the same configuration (16 iterations, cut
+from 40: every pass ships 0.26–0.53 GB of stat partials through sockets);
+with 2 workers a worker SIGKILL'd at iteration 12 and a worker hung on its
+first read (killed at a 5 s deadline), both bitwise; the 10^6 x 128
+multinomial with 2 workers, bitwise; ms/iter against the single-process
+fit, bytes of partials a pass, seconds from spawn to READY, the peak
+device bytes of the coordinator and of each worker, and the launches of
+both sides (the workers report theirs with their results).
 ``kernel_check_dense`` holds the dense ``suffstats`` oracle (its entry
 point ``ops.suffstats``) against its plain version at the d = 32 and d =
 128 fits' final states, a ragged shape, d = 256 and the reference's §4.2
@@ -269,6 +293,24 @@ RESIL_N = 200_000
 NAN_CALL = 4 * (2 + 10) + 4
 GUARD_TURNS = 2
 MULTI_C = 4
+# Online refinement (serve_refine): rows of shifted traffic (the default
+# refine_buffer), sweeps profiled for the kernels' device time, and the
+# offsets: the Gaussian mixture's points moved by a fixed vector of
+# N(0, REFINE_SHIFT^2) entries, the multinomial's by a fixed count vector
+# of REFINE_COUNTS trials of one Dirichlet(1) vector: every cluster's mean
+# moves by the same offset, far enough that the static model mislabels a
+# few rows (NMI of predict below 1 before refinement; 4.0 and 20 moved no
+# label).
+REFINE_ROWS, REFINE_PROFILED = 32_768, 8
+REFINE_SHIFT, REFINE_COUNTS = 8.0, 60
+# The elastic multi-process fit (fit_workers): worker counts on the one
+# card, the fits' depth (cut from FIT_CFG's 40 iterations: every pass of a
+# distributed iteration ships its partials through sockets), the
+# iteration whose start SIGKILLs a worker, the hung read's deadline.
+WORKER_COUNTS = (1, 2, 4)
+WORKER_CFG = dict(k_max=64, iters=16, burnout=10, log_every=10)
+WORKER_KILL_AT = 12
+WORKER_DEADLINE_S = 5.0
 WINDOW_CASES = (("k8193", 20_000, 3, 8193), ("k16384", 20_000, 3, 16_384),
                 ("d300", 20_000, 300, 5), ("d384", 20_000, 384, 5),
                 ("fold_k10000", 50_176, K_LARGE_D, 10_000),
@@ -1133,6 +1175,368 @@ def serve_model(name, res, fam_name, xq, yq, x_fit, tmp, gpu) -> dict:
               "swap_epoch": epoch, "launches": launches,
               "latency": lat, "nvidia_smi": gpu}
     return report, eng, launches
+
+
+def shifted_traffic(synthetic, gen_name: str, n: int, d: int, seed: int):
+    """``n`` rows of the fit's mixture (the generator at ``seed``) with
+    every cluster's mean moved by one fixed offset (REFINE_SHIFT,
+    REFINE_COUNTS), and their labels."""
+    x, y = getattr(synthetic, gen_name)(n, d, FIT_K, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    if gen_name == "generate_gmm":
+        off = rng.normal(0.0, REFINE_SHIFT, size=d)
+    else:
+        off = rng.multinomial(REFINE_COUNTS, rng.dirichlet(np.ones(d)))
+    return (x + off).astype(np.float32), y
+
+
+def plain_sweep_family(fam):
+    """``fam`` with its one-read sweep on the kernel's plain version (the
+    fold stays ``fold_partials``: the same IEEE adds either way)."""
+    import dataclasses
+    from repro_torch.core import niw
+    from repro_torch.kernels import sweep as ksweep
+    if fam.name == "gaussian":
+        def fused(x, valid, p, sp, logw, sublogw, active, gidx, kz, kzb,
+                  slots):
+            mu, f, ld, smu, sf, sld = niw.sweep_pack(p, sp)
+            lab, sub, *parts = ksweep.sweep_gauss_plain(
+                x, mu, f, ld, logw, active, smu, sf, sld, sublogw, valid,
+                gidx, kz, kzb, slots)
+            return lab, sub, niw.GaussStats(*parts)
+    else:
+        mod = fam.module
+
+        def fused(x, valid, p, sp, logw, sublogw, active, gidx, kz, kzb,
+                  slots):
+            feats, w, const, subw, subconst = mod.sweep_pack(x, p, sp)
+            lab, sub, n2, sf2 = ksweep.sweep_linear_plain(
+                feats, w, const, logw, active, subw, subconst, sublogw,
+                valid, gidx, kz, kzb, slots)
+            return lab, sub, mod.stats_from_moments(n2, sf2)
+    return dataclasses.replace(fam, fused_sweep=fused)
+
+
+def refine_sweep_args(fam, model, x, valid, gibbs, prng):
+    """The one-read sweep kernel's arguments in a refinement sweep of
+    ``model`` (after steps (a)-(d)) over the batch ``x``: the dense slab,
+    the keys of its ``(key, it)``, the batch row index."""
+    keys = gibbs.sweep_keys(model)
+    dev = x.device
+    kz, kzb = (prng.key_tensor(keys[4], dev), prng.key_tensor(keys[5], dev))
+    k = model.active.shape[0]
+    act = model.active.to(torch.int32)
+    slots = torch.arange(k, device=dev, dtype=torch.int32)
+    gidx = torch.arange(x.shape[0], device=dev)
+    if fam.name == "gaussian":
+        from repro_torch.core import niw
+        mu, f, ld, smu, sf, sld = niw.sweep_pack(model.params,
+                                                 model.subparams)
+        args = (x, mu, f, ld, model.logweights, act, smu, sf, sld,
+                model.sub_logweights, valid, gidx, kz, kzb, slots)
+    else:
+        feats, w, const, subw, subconst = fam.module.sweep_pack(
+            x, model.params, model.subparams)
+        args = (feats, w, const, model.logweights, act, subw, subconst,
+                model.sub_logweights, valid, gidx, kz, kzb, slots)
+    return tuple(a.contiguous() for a in args)
+
+
+def refine_check(fam, eng, xb, gibbs, prng, sweep) -> dict:
+    """The engine's first refinement sweep against the plain path on the
+    same model and keys: the labels of the kernel and of its plain version
+    on the sweep's arguments (mismatches only as counted near-ties), the
+    engine's sweep through the kernels bitwise the kernel's labels, and
+    its blended stats against the plain path's within STATS_RTOL."""
+    import dataclasses
+    from repro_torch.configs import DPMMConfig
+    alpha = DPMMConfig().alpha
+    step, prior = eng._refine_setup(eng._served)
+    dev = eng.device
+    x = torch.as_tensor(xb, device=dev)
+    valid = torch.ones(x.shape[0], device=dev)
+    model = eng.model
+    post = gibbs.sweep_model(model, prior, fam, alpha)
+    args = refine_sweep_args(fam, post, x, valid, gibbs, prng)
+    gauss = fam.name == "gaussian"
+    kern = sweep.sweep_gauss_cuda if gauss else sweep.sweep_linear_cuda
+    plain = sweep.sweep_gauss_plain if gauss else sweep.sweep_linear_plain
+    mism = sweep.label_mismatches if gauss else sweep.label_mismatches_linear
+    out_k, out_p = kern(*args), plain(*args)
+    ties = near_ties(mism, args, out_k, out_p)
+    m_k, ok, lab_k = step(model, x, valid, prior)
+    decay = eng.cfg.refine_decay
+    m_p, lab_p = gibbs.refine_sweep(model, x, valid, prior,
+                                    plain_sweep_family(fam), alpha,
+                                    decay=decay)
+    if not (bool(ok) and torch.equal(lab_k, out_k[0])):
+        fail(f"serve_refine {fam.name}: the engine's sweep is not the "
+             "kernel's, or unhealthy")
+    worst = 0.0
+    for group in ("stats", "substats"):
+        gk, gp = getattr(m_k, group), getattr(m_p, group)
+        for f in dataclasses.fields(gk):
+            a, b = getattr(gk, f.name), getattr(gp, f.name)
+            if f.name == "n" and ties == 0 and not torch.equal(a, b):
+                fail(f"serve_refine {fam.name}: blended counts differ")
+            err = (a - b).abs()
+            if bool((err > STATS_RTOL * (b.abs() + b.abs().max())).any()):
+                fail(f"serve_refine {fam.name}: blended {group}.{f.name} "
+                     f"beyond rtol {STATS_RTOL}: {float(err.max())}")
+            worst = max(worst, float(err.max()))
+    return {"rows": int(x.shape[0]), "slots": int(model.active.shape[0]),
+            "near_tie_mismatches": ties, "max_abs_err": worst,
+            "labels_equal_plain": bool(torch.equal(lab_k, lab_p)),
+            "it_after": int(m_k.it)}
+
+
+def refine_kernel_ms(step, shadow, batches, prior) -> dict:
+    """Device ms of each refinement kernel in one sweep (torch.profiler
+    over REFINE_PROFILED sweeps, the kernels' events by name), or
+    "not measured" when the profiler sees no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    names = {"sweep_gauss": ("sweep_assign_tiled", "sweep_gauss"),
+             "sweep_linear": ("sweep_linear_ef", "sweep_linear_fold"),
+             "fold_partials": ("fold_fields_kernel",)}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for xb, valid in batches[:REFINE_PROFILED]:
+            shadow, ok, _ = step(shadow, xb, valid, prior)
+            bool(ok)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    out = {}
+    for kernel, keys in names.items():
+        us = sum(_device_us(e) for e in events
+                 if any(k in e.key for k in keys))
+        out[kernel] = (us * 1e-3 / REFINE_PROFILED if events
+                       else "not measured")
+    out["device_busy_ms"] = (sum(_device_us(e) for e in events) * 1e-3
+                             / REFINE_PROFILED if events
+                             else "not measured")
+    return out
+
+
+def serve_refine(models, synthetic, gpu) -> tuple:
+    """Online refinement on the card (``serve_refine``): each fitted
+    model served with ``ServeConfig(refine=True)`` (refine_batch 1024);
+    refinement off answers bitwise as the static engine; the first sweep
+    against the plain path; REFINE_ROWS shifted rows queried and folded
+    (sweeps, epochs published, p50 / p99 ms of one sweep, NMI of predict
+    on the shifted rows before and after, the kernels' device time a
+    sweep); on the Gaussian model a batch of 1e30 rows (1e30^2 overflows
+    its sxx stat) ends in ``refine_rejected`` with the answers bitwise
+    unchanged. Every launch count is set to 0 before each
+    engine's main path (query, refine) and read after it. Returns the
+    report and the launches."""
+    from repro_torch.core import gibbs
+    from repro_torch.core.family import get_family
+    from repro_torch.core.metrics import nmi
+    from repro_torch.kernels import ops, prng, sweep
+    from repro_torch.serve.dpmm import DPMMEngine, ServeConfig
+    report, launches = {}, {}
+    for name, (res, gen_name, d) in models.items():
+        fam = get_family(name)
+        xq, yq = shifted_traffic(synthetic, gen_name, REFINE_ROWS, d, 0)
+        static = DPMMEngine(res.state, name)
+        eng = DPMMEngine(res.state, name, ServeConfig(refine=True))
+        before = eng.query(xq)
+        ref = static.query(xq)
+        if not all(np.array_equal(getattr(before, f), getattr(ref, f))
+                   for f in ("labels", "logprobs", "log_predictive")):
+            fail(f"serve_refine {name}: refinement on changed an answer "
+                 "before any refine")
+        eng._traffic, eng._traffic_rows = [], 0
+        k_true = int(yq.max()) + 1
+        score = lambda r: nmi(torch.as_tensor(yq), torch.as_tensor(
+            r.labels), k_true, eng.k_max)
+        nmi_before = score(before)
+        lpd_before = float(np.mean(before.log_predictive))
+        b = eng.cfg.refine_batch
+        check = refine_check(fam, eng, xq[:b], gibbs, prng, sweep)
+        # one sweep's time, the engine's step and its one host read
+        step, prior = eng._refine_setup(eng._served)
+        xt = torch.as_tensor(xq, device=eng.device)
+        ones = torch.ones(b, device=eng.device)
+        batches = [(xt[i:i + b], ones) for i in range(0, REFINE_ROWS, b)]
+        shadow, times = eng.model, []
+        for xb, valid in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            shadow, ok, _ = step(shadow, xb, valid, prior)
+            healthy = bool(ok)
+            times.append(time.perf_counter() - t0)
+            if not healthy:
+                fail(f"serve_refine {name}: a clean sweep was unhealthy")
+        kernel_ms = refine_kernel_ms(step, eng.model, batches, prior)
+        # the main path: the traffic through query (buffered), then refine
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng.query(xq)
+        out = eng.refine()
+        torch.cuda.synchronize()
+        refine_s = time.perf_counter() - t0
+        launches[name] = ops.launch_counts()
+        after = eng.query(xq)
+        want = "sweep_gauss" if name == "gaussian" else "sweep_linear"
+        for k in (want, "fold_partials"):
+            if launches[name][k] == 0:
+                fail(f"serve_refine {name}: kernel {k} never launched")
+        if not (out["sweeps"] == REFINE_ROWS // b == out["published"]
+                and out["rejected"] == 0 and after.model_epoch == out["epoch"]
+                and np.isfinite(after.log_predictive).all()):
+            fail(f"serve_refine {name}: refine summary {out}")
+        report[name] = {
+            "rows": REFINE_ROWS, "refine_batch": b, "d": d,
+            "k_max": eng.k_max, "first_sweep": check,
+            "sweep_ms": {"p50": 1e3 * float(np.percentile(times, 50)),
+                         "p99": 1e3 * float(np.percentile(times, 99)),
+                         "first": 1e3 * times[0]},
+            "kernel_device_ms_per_sweep": kernel_ms,
+            "summary": out, "query_and_refine_s": refine_s,
+            "epochs_published": out["published"],
+            "nmi_predict_before": nmi_before,
+            "nmi_predict_after": score(after),
+            "mean_log_predictive_before": lpd_before,
+            "mean_log_predictive_after": float(np.mean(
+                after.log_predictive)),
+            "refine_off_bitwise_static": True, "launches": launches[name],
+            "poisoned": None, "nvidia_smi": gpu}
+        if name != "gaussian":
+            continue
+        # poison: a batch of 1e30 rows (1e30^2 overflows the sxx stat) is
+        # rejected, the answers unchanged
+        probe = xq[:SERVE_B]
+        held = eng.query(probe)
+        bad = eng.refine(x=np.full((b, d), 1e30, np.float32))
+        again = eng.query(probe)
+        if not (bad == {"sweeps": 0, "rows": 0, "rejected": 1,
+                        "published": 0, "epoch": held.model_epoch}
+                and eng.events[-1]["kind"] == "refine_rejected"
+                and all(np.array_equal(getattr(held, f), getattr(again, f))
+                        for f in ("labels", "logprobs", "log_predictive"))):
+            fail(f"serve_refine {name}: the poisoned batch was not "
+                 f"rejected cleanly: {bad}, {eng.events[-1]}")
+        report[name]["poisoned"] = {"summary": bad,
+                                    "event": eng.events[-1]["kind"],
+                                    "answers_unchanged": True}
+    return report, launches
+
+
+def fit_workers(DPMM, DPMMConfig, HostTiledSource, x_np, y_np, xm_np,
+                tmp: Path, gpu) -> tuple:
+    """The elastic multi-process fit on the one card (``fit_workers``):
+    the 10^6 x 32 Gaussian from an .npy in TILE-row tiles with 1, 2 and 4
+    workers, each bitwise the single-process tiled fit of the same
+    configuration (WORKER_CFG); with 2 workers a SIGKILL'd worker at
+    iteration WORKER_KILL_AT and a worker hung on its first read (deadline
+    WORKER_DEADLINE_S), both bitwise; the 10^6 x 128 multinomial with 2
+    workers, bitwise. Each fit's launch counts are set to 0 just before it
+    and read just after (the coordinator's; the workers' come back with
+    their results). Returns the report and the launches summed over the
+    fits."""
+    import os
+    import signal
+    from repro_torch.dist import DistHooks
+    from repro_torch.kernels import ops
+    total: dict = {}
+    report: dict = {"workers": {}, "cfg": WORKER_CFG, "tile": TILE}
+    problems = []
+
+    def run(cfg, src, name, hooks=None, want=None):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = DPMM(cfg).fit(src, dist_hooks=hooks)
+        wall = time.perf_counter() - t0
+        coord = ops.launch_counts()
+        for k, v in coord.items():
+            total[k] = total.get(k, 0) + v
+        out = {"wall_s": wall, "k_found": res.k,
+               "ms_per_iter": 1e3 * float(np.mean(res.iter_times_s)),
+               "steady_ms_per_iter": 1e3 * float(np.mean(
+                   res.iter_times_s[cfg.burnout:])),
+               "peak_bytes": res.peak_bytes, "start_bytes": res.start_bytes}
+        if res.dist is not None:
+            for k, v in res.dist["worker_launches"].items():
+                total[k] = total.get(k, 0) + v
+            out.update(
+                ready_s=res.dist["ready_s"],
+                pass_bytes=res.dist["pass_bytes"],
+                work_items=res.dist["work_items"],
+                worker_peak_bytes=res.dist["worker_peak_bytes"],
+                respawns=res.dist["respawns"],
+                reassignments=res.dist["reassignments"],
+                launches_coordinator=coord,
+                launches_workers=res.dist["worker_launches"],
+                failovers=[e for e in res.recoveries
+                           if e["kind"] == "worker_failover"])
+            if want is not None:
+                out["bitwise_single"] = same_chain(res, want)
+                out["state_bitwise"] = state_bits(res.state, want.state)
+                if not (all(out["bitwise_single"].values())
+                        and out["state_bitwise"]):
+                    problems.append(f"{name}: not the single-process chain")
+            for k in ("fold_partials",):
+                if coord[k] == 0:
+                    problems.append(f"{name}: the coordinator never "
+                                    f"launched {k}")
+        return res, out
+
+    gpath, mpath = tmp / "xw.npy", tmp / "xm.npy"
+    np.save(gpath, x_np)
+    np.save(mpath, xm_np)
+    gcfg = dict(WORKER_CFG, tile_size=TILE)
+    single, report["single"] = run(DPMMConfig(**gcfg),
+                                   HostTiledSource.from_npy(gpath), "single")
+    for w in WORKER_COUNTS:
+        _, report["workers"][str(w)] = run(
+            DPMMConfig(workers=w, **gcfg), HostTiledSource.from_npy(gpath),
+            f"workers={w}", want=single)
+        lw = report["workers"][str(w)]["launches_workers"]
+        if not (lw["sweep_gauss"] and lw["suffstats_labels"]):
+            problems.append(f"workers={w}: the workers' kernels were not "
+                            f"launched: {lw}")
+    killed = []
+
+    def killer(it, coord):
+        if it == WORKER_KILL_AT and not killed:
+            pid = coord.worker_pids()[0]
+            os.kill(pid, signal.SIGKILL)
+            killed.append(pid)
+
+    _, report["sigkill"] = run(
+        DPMMConfig(workers=2, **gcfg), HostTiledSource.from_npy(gpath),
+        "sigkill", DistHooks(on_iteration=killer), want=single)
+    if not (killed and report["sigkill"]["failovers"]):
+        problems.append("sigkill: no worker_failover event")
+    _, report["hang"] = run(
+        DPMMConfig(workers=2, worker_deadline_s=WORKER_DEADLINE_S,
+                   max_worker_retries=0, **gcfg),
+        HostTiledSource.from_npy(gpath), "hang",
+        DistHooks(worker_faults={0: {"schedule": {0: "hang"},
+                                     "hang_s": 600.0}}), want=single)
+    ev = report["hang"]["failovers"]
+    if not (ev and "deadline" in ev[0]["detail"]
+            and report["hang"]["reassignments"] >= 1):
+        problems.append(f"hang: no deadline failover: {ev}")
+    mcfg = dict(gcfg, component="multinomial")
+    msingle, report["multinomial_single"] = run(
+        DPMMConfig(**mcfg), HostTiledSource.from_npy(mpath),
+        "multinomial single")
+    _, report["multinomial"] = run(
+        DPMMConfig(workers=2, **mcfg), HostTiledSource.from_npy(mpath),
+        "multinomial workers=2", want=msingle)
+    lw = report["multinomial"]["launches_workers"]
+    if not (lw["sweep_linear"] and lw["moments_labels"]):
+        problems.append(f"multinomial: the workers' kernels were not "
+                        f"launched: {lw}")
+    report["nmi_single"] = single.nmi(y_np)
+    report["problems"] = problems
+    report["nvidia_smi"] = gpu
+    return report, total
 
 
 def time_serve_kernels(engines, xq, assign, loglik, matmul, dev) -> dict:
@@ -2823,6 +3227,25 @@ def main() -> None:
     serve_times = time_serve_kernels(engines, xq, assign, loglik, matmul,
                                      dev)
 
+    # online refinement of the served Gaussian and multinomial models
+    t0 = time.perf_counter()
+    refine_rep, refine_launch = serve_refine(
+        {"gaussian": (res, "generate_gmm", FIT_D),
+         "multinomial": (lin["multinomial"][0], "generate_mnmm", 128)},
+        synthetic, gpu)
+    emit("serve_refine", seconds=time.perf_counter() - t0, **refine_rep)
+
+    # the elastic multi-process fit: a coordinator and worker processes
+    # on the one card
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        workers_rep, workers_launch = fit_workers(
+            DPMM, DPMMConfig, HostTiledSource, x_np, y_np,
+            lin["multinomial"][3], Path(tmp), gpu)
+    emit("fit_workers", seconds=time.perf_counter() - t0, **workers_rep)
+    if workers_rep["problems"]:
+        fail(f"fit_workers: {'; '.join(workers_rep['problems'])}")
+
     # (4) time each kernel at the fit's shapes (its final state, all N)
     x = torch.as_tensor(x_np, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -3072,6 +3495,13 @@ def main() -> None:
         "library_ms": dx["library_ms"], "device_ms": dx["device_ms"],
         "host_ms": dx["host_ms"],
         "library_device_ms": dx["library_device_ms"]})
+    # the launches of serve_refine's and fit_workers' main paths
+    for r in rows:
+        r["launches_serve_refine"] = sum(v[r["name"]]
+                                         for v in refine_launch.values())
+        r["launches_fit_workers"] = workers_launch.get(r["name"], 0)
+        r["launches"] += (r["launches_serve_refine"]
+                          + r["launches_fit_workers"])
     emit("matmul_crossover", nvidia_smi=gpu,
          paper_crossover_dn=640_000, **matmul_crossover(matmul, dev))
     torch.cuda.synchronize()

@@ -5,8 +5,9 @@ the resident and tiled fits read, with the same names, defaults and
 validation, for the four component families (gaussian, diag_gaussian,
 multinomial, poisson), ``k_max='auto'``, auto-checkpointing and the
 guardrails included. There is no ``use_pallas``: on the card the
-hand-written kernels are the path. ``workers`` (multi-process fits) is
-not ported (ROADMAP.md §1 item 6).
+hand-written kernels are the path. ``workers`` runs the fit on a
+coordinator and that many worker processes (``repro_torch.dist``), with
+the reference's deadline, heartbeat and respawn knobs.
 """
 from __future__ import annotations
 
@@ -76,6 +77,17 @@ class DPMMConfig:
     # advanced, at most max_recoveries times, then raises DivergenceError
     guardrails: bool = True
     max_recoveries: int = 3
+    # elastic multi-process fits (repro_torch.dist): workers=N spawns N
+    # worker processes, each streaming STATS_BLOCK-aligned row ranges of
+    # x; the coordinator keeps the model and folds their per-block stat
+    # partials in global block order, so the chain is the single-process
+    # tiled fit's bit for bit at any worker count. A work item that misses
+    # worker_deadline_s gets its worker killed and its rows requeued; a
+    # slot is respawned at most max_worker_retries times
+    workers: Optional[int] = None
+    worker_deadline_s: float = 120.0
+    worker_heartbeat_s: float = 0.5
+    max_worker_retries: int = 2
     seed: int = 0
 
     def __post_init__(self):
@@ -124,3 +136,19 @@ class DPMMConfig:
             raise ValueError(
                 f"DPMMConfig.max_recoveries must be >= 0, got "
                 f"{self.max_recoveries}")
+        if self.workers is not None:
+            positive("workers", self.workers)
+            if self.k_max == "auto":
+                raise ValueError(
+                    "DPMMConfig.workers requires a fixed integer k_max: "
+                    "the growable slab re-plans shapes mid-fit, which the "
+                    "worker protocol does not ship")
+        if self.worker_deadline_s <= 0 or self.worker_heartbeat_s <= 0:
+            raise ValueError(
+                "DPMMConfig.worker_deadline_s/worker_heartbeat_s must be "
+                f"> 0, got {self.worker_deadline_s}/"
+                f"{self.worker_heartbeat_s}")
+        if self.max_worker_retries < 0:
+            raise ValueError(
+                f"DPMMConfig.max_worker_retries must be >= 0, got "
+                f"{self.max_worker_retries}")

@@ -21,7 +21,10 @@ under the final name. ``load_model`` re-checks every CRC and raises
 :class:`CheckpointCorrupt` on any truncation, bit flip or layout mismatch.
 ``save_checkpoint`` / ``latest_valid`` keep a rotation of
 ``{prefix}-{it:08d}.npz`` members and return the newest one that verifies;
-``resolve_model`` takes either a file or such a prefix.
+``resolve_model`` takes either a file or such a prefix. ``dumps_model`` /
+``loads_model`` are the same format as bytes, with the same checks: the
+coordinator of a multi-process fit broadcasts the model to its workers
+with them, losslessly (``repro_torch.dist``).
 
 A multi-chain state (``fit(n_chains=C)``) is written and read in the
 reference's layout: ``key`` (C, 2) uint32 words, ``it`` (C,) int32, every
@@ -31,6 +34,7 @@ packages too.
 from __future__ import annotations
 
 import glob
+import io
 import os
 import re
 import struct
@@ -183,40 +187,46 @@ def _read_model(path: str) -> Tuple[dict, ComponentFamily]:
     if not os.path.exists(path):
         raise CheckpointNotFound(
             f"no checkpoint at {where!r} (or {normalize_path(where)!r})")
+    return _read_npz(path, path)
+
+
+def _read_npz(path, where: str) -> Tuple[dict, ComponentFamily]:
+    """``_read_model`` of an archive ``path`` (a file name or a file
+    object), named ``where`` in errors."""
     try:
         with np.load(path, allow_pickle=False) as z:
             version = int(z["__version__"])
             if version > FORMAT_VERSION:
                 raise CheckpointCorrupt(
-                    f"{path}: checkpoint format v{version} is newer than "
+                    f"{where}: checkpoint format v{version} is newer than "
                     f"this code (v{FORMAT_VERSION})")
             name = str(z["__family__"])
             if name not in LEAF_FIELDS:
-                raise CheckpointCorrupt(f"{path}: unknown family {name!r}")
+                raise CheckpointCorrupt(f"{where}: unknown family {name!r}")
             paths = _leaf_names(name)
             names = sorted(k for k in z.files if k not in _META)
             if names != [f"leaf_{i:04d}" for i in range(len(paths))]:
                 raise CheckpointCorrupt(
-                    f"{path}: checkpoint has {len(names)} leaves but family "
+                    f"{where}: checkpoint has {len(names)} leaves but family "
                     f"{name!r} expects {len(paths)}")
             arrs = [z[k] for k in names]
             if version >= 2:
                 crcs = np.asarray(z["__crc__"])
                 if crcs.shape != (len(names),):
                     raise CheckpointCorrupt(
-                        f"{path}: __crc__ has shape {crcs.shape}, expected "
+                        f"{where}: __crc__ has shape {crcs.shape}, expected "
                         f"({len(names)},)")
                 for leaf, arr, want in zip(names, arrs, crcs):
                     got = _crc(arr)
                     if got != int(want):
                         raise CheckpointCorrupt(
-                            f"{path}: CRC mismatch on {leaf}: stored "
+                            f"{where}: CRC mismatch on {leaf}: stored "
                             f"{int(want):#010x}, recomputed {got:#010x} — "
                             "the file was truncated or bit-flipped on disk")
     except CheckpointCorrupt:
         raise
     except _READ_ERRORS as e:
-        raise CheckpointCorrupt(f"{path}: unreadable checkpoint archive "
+        raise CheckpointCorrupt(f"{where}: unreadable checkpoint archive "
                                 f"({type(e).__name__}: {e})") from e
     tree: dict = {group: {} for group in GROUPS}
     for p, arr in zip(paths, arrs):
@@ -224,7 +234,7 @@ def _read_model(path: str) -> Tuple[dict, ComponentFamily]:
             tree[p[0]] = arr
         else:
             tree[p[0]][p[1]] = arr
-    _check_shapes(tree, path)
+    _check_shapes(tree, where)
     return tree, get_family(name)
 
 
@@ -233,6 +243,26 @@ def load_model(path: str, device="cuda") -> Tuple[ModelState,
     """Read, verify and place a checkpoint on ``device``: ``(model,
     family)``, the leaves bit for bit."""
     tree, family = _read_model(path)
+    return model_state_from_numpy(tree, device, family), family
+
+
+def dumps_model(model: ModelState,
+                family: Union[str, ComponentFamily]) -> bytes:
+    """``model`` as the bytes of a checkpoint file (``save_model``'s
+    format: raw leaf bytes and per-leaf CRC32s), so a process that reads
+    them with ``loads_model`` holds the model bit for bit."""
+    name = family if isinstance(family, str) else family.name
+    get_family(name)
+    buf = io.BytesIO()
+    np.savez(buf, **_entries(model, name))
+    return buf.getvalue()
+
+
+def loads_model(data: bytes, device="cuda") -> Tuple[ModelState,
+                                                     ComponentFamily]:
+    """The inverse of ``dumps_model``, with ``load_model``'s checks: raises
+    :class:`CheckpointCorrupt` on any truncation or bit flip."""
+    tree, family = _read_npz(io.BytesIO(data), "<model bytes>")
     return model_state_from_numpy(tree, device, family), family
 
 

@@ -33,7 +33,11 @@ through this interface:
   the reference does, so the sums continue across tiles and a tiled fit
   is the resident fit bit for bit. Both folds run their kernels on the
   point windows of ``labelstats.window_rows`` (partials of at most
-  ``labelstats.WINDOW_BYTES`` at once), window after window;
+  ``labelstats.WINDOW_BYTES`` at once), window after window. Given
+  ``acc=None``, ``sweep``, ``sweep_ref`` and ``fold_blocked`` return the
+  kernels' per-block partials unfolded instead (``label_partials``): a
+  worker of a multi-process fit ships them, and the coordinator folds them
+  in global block order (``repro_torch.dist``);
 - ``assign``: step (e) alone (``DPMMEngine.sample``, ``sweep_ref``):
   ``ops.assign_gauss`` for gaussian, the module's ``assign_pack`` and
   ``ops.assign_linear`` for the linear families;
@@ -57,7 +61,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from repro_torch.core import diag_gaussian, multinomial, niw, poisson
-from repro_torch.core.labelstats import fold_stats, window_rows
+from repro_torch.core.labelstats import cat_partials, fold_stats, window_rows
 from repro_torch.kernels import ops
 from repro_torch.kernels.sweep import MAX_D as SWEEP_GAUSS_MAX_D
 from repro_torch.kernels.sweep import MAX_K as SWEEP_MAX_K
@@ -73,12 +77,17 @@ def fold_blocked(family: "ComponentFamily", k_max: int, body,
     ``body(x, valid, *extras) -> (labels, sublabels)``. ``label_map``
     ((k_dense,) int) re-indexes labels for the stat fold only — the
     compaction of split/merge folds dense-slot labels into a compact
-    ``acc``; the returned labels stay in ``body``'s space.
+    ``acc``; the returned labels stay in ``body``'s space. ``acc=None``
+    returns the per-STATS_BLOCK partials instead of folding them.
     """
     labels, sublabels = body(x, valid, *extras)
-    stat_lab = labels if label_map is None else label_map[labels.long()]
+    stat_lab = (labels if label_map is None else label_map[labels.long()]
+                ).to(torch.int32)
+    if acc is None:
+        return labels, sublabels, family.label_partials(
+            x, valid, stat_lab, sublabels, k_max)
     return labels, sublabels, family.stats_from_labels(
-        x, valid, stat_lab.to(torch.int32), sublabels, k_max, acc=acc)
+        x, valid, stat_lab, sublabels, k_max, acc=acc)
 
 
 def _gauss_sweep(x, valid, params, subparams, logw, sublogw, active, gidx,
@@ -195,7 +204,8 @@ class ComponentFamily:
         fused sweep runs on the stat windows (``window_rows``), each
         window's partials folded before the next. Returns
         ``(labels, sublabels, acc')`` with labels in the slab's
-        positions."""
+        positions; with ``acc=None`` the third item is the per-block
+        partials of every window, unfolded."""
         if ((self.fused_max_d is not None and x.shape[1] > self.fused_max_d)
                 or logw.shape[0] > SWEEP_MAX_K):
             return self.sweep_ref(x, valid, params, subparams, logw,
@@ -204,18 +214,22 @@ class ComponentFamily:
         if slots is None:
             slots = torch.arange(k_max, device=x.device)
         active, slots = active.to(torch.int32), slots.to(torch.int32)
-        labels, sublabels = [], []
+        labels, sublabels, kept = [], [], []
         for a, b in self.windows(x, k_max):
             lab, sub, parts = self.fused_sweep(
                 x[a:b], valid[a:b], params, subparams, logw, sublogw, active,
                 gidx[a:b], key_z, key_zb, slots)
-            acc = fold_stats(acc, parts)
-            del parts          # one window's partials alive at a time
+            if acc is None:
+                kept.append(parts)
+            else:
+                acc = fold_stats(acc, parts)
+            del parts          # folding: one window's partials at a time
             labels.append(lab)
             sublabels.append(sub)
+        out = cat_partials(kept) if acc is None else acc
         if len(labels) == 1:
-            return labels[0], sublabels[0], acc
-        return torch.cat(labels), torch.cat(sublabels), acc
+            return labels[0], sublabels[0], out
+        return torch.cat(labels), torch.cat(sublabels), out
 
     def sweep_ref(self, x, valid, params, subparams, logw, sublogw, active,
                   gidx, key_z, key_zb, k_max: int, acc, slots=None):
@@ -241,6 +255,15 @@ class ComponentFamily:
             acc = fold_stats(acc, self.labels_partials(
                 x[a:b], valid[a:b], labels[a:b], sublabels[a:b], k_max))
         return acc
+
+    def label_partials(self, x, valid, labels, sublabels, k_max: int):
+        """The per-STATS_BLOCK sub-cluster stat partials of a labelling,
+        unfolded (every field leading with the block axis), made window by
+        window as ``stats_from_labels`` makes them."""
+        return cat_partials([
+            self.labels_partials(x[a:b], valid[a:b], labels[a:b],
+                                 sublabels[a:b], k_max)
+            for a, b in self.windows(x, k_max)])
 
     def windows(self, x, k_max: int):
         """The stat windows of a fold of x's points over ``k_max``

@@ -12,7 +12,11 @@ Port of ``repro.core.gibbs`` for one process and one chain:
 - ``sweep``: both, with the active-set compaction around the tile. A
   streamed (tiled) fit runs its halves itself: ``sweep_begin`` (the key
   words and steps (a)-(d)), ``sweep_compaction``, then ``sweep_tile`` on
-  every tile with a running accumulator, then ``sweep_end``.
+  every tile with a running accumulator, then ``sweep_end``;
+- ``refine_sweep``: the serving layer's online refinement
+  (``serve/dpmm.py``): steps (a)-(d) on the model, then ``refine_tile``,
+  one ``sweep_tile`` over a batch of fresh points on the dense slab whose
+  stats are blended into the model's as ``decay * old + batch``.
 
 All randomness of an iteration derives from ``(model.key, model.it)`` as
 the reference derives it (``sweep_keys``): six keys ``split(fold_in(key,
@@ -31,7 +35,8 @@ from typing import Any, List, Optional, Tuple
 
 import torch
 
-from repro_torch.core.state import ModelState, PointState, tree_map
+from repro_torch.core.state import (ModelState, PointState, tree_map,
+                                    tree_map2)
 from repro_torch.kernels import prng
 from repro_torch.kernels.sweep import NEG_INF
 
@@ -250,3 +255,45 @@ def sweep(model: ModelState, point: PointState, x: torch.Tensor, prior,
                             global_indices(x.shape[0], x.device), acc,
                             family, key_z, key_zb, plan=plan)
     return sweep_end(model, acc, plan), point
+
+
+def refine_tile(model: ModelState, x: torch.Tensor, valid: torch.Tensor,
+                family, decay: float) -> Tuple[ModelState, torch.Tensor]:
+    """Steps (e)/(f) of an online refinement sweep on a batch, after
+    steps (a)-(d) (``sweep_model``) made ``model``: one ``sweep_tile``
+    over the whole ``k_max`` slab, inactive slots included, with the batch
+    row index ``0..B-1`` as the global index and the keys of ``(key, it)``
+    as a fit iteration derives them. ``valid`` (B,) masks padded rows out
+    of the fold. The batch's stats are blended into the model's leaf by
+    leaf as ``decay * old + batch`` in float32; ``it`` advances by one and
+    the active set stays as it is. Returns ``(model, labels)``, the labels
+    dense slot ids."""
+    dev = x.device
+    keys = sweep_keys(model)
+    k_max = model.active.shape[0]
+    point = PointState(labels=None, sublabels=None,
+                       valid=valid.to(torch.float32))
+    point, acc = sweep_tile(
+        model, x, point, global_indices(x.shape[0], dev),
+        empty_substats(family, k_max, x.shape[1], dev), family,
+        prng.key_tensor(keys[4], dev), prng.key_tensor(keys[5], dev))
+    stats, substats = finalize_substats(acc)
+    w = torch.tensor(decay, dtype=torch.float32)
+    blend = lambda old, new: tree_map2(
+        lambda o, b: (w * o + b).to(o.dtype), old, new)
+    return model.replace(stats=blend(model.stats, stats),
+                         substats=blend(model.substats, substats),
+                         it=model.it + 1), point.labels
+
+
+def refine_sweep(model: ModelState, x: torch.Tensor, valid: torch.Tensor,
+                 prior, family, alpha: float, *, decay: float
+                 ) -> Tuple[ModelState, torch.Tensor]:
+    """One online micro-batch sweep (the reference's ``refine_sweep``):
+    steps (a)-(d) under the model's stats, then ``refine_tile`` on the
+    batch, so the posterior tracks an exponentially weighted window of
+    traffic (effective mass ~ batch / (1 - decay)). No split or merge:
+    refinement tracks drift within the served clusters; a swap installs
+    new structure. Returns ``(model, labels)``."""
+    return refine_tile(sweep_model(model, prior, family, alpha), x, valid,
+                       family, decay)

@@ -21,7 +21,9 @@ window's partials before the next, as the reference's ``fold_blocked``
 folds one block at a time inside its ``lax.scan``. Every stat element is
 still the accumulator plus the blocks' partials in point order, so the
 windows change no bit; they bound the partials' memory (a 4e5 x 256
-Gaussian fold held 6.6 GB of them at once).
+Gaussian fold held 6.6 GB of them at once). ``cat_partials`` joins the
+windows' partials when a caller takes them unfolded (a worker process of
+a multi-process fit, ``repro_torch.dist``).
 """
 from __future__ import annotations
 
@@ -59,6 +61,16 @@ def fold_stats(acc: Any, parts: Any) -> Any:
     outs = ops.fold_fields([getattr(acc, n) for n in names],
                            [getattr(parts, n) for n in names])
     return type(acc)(**dict(zip(names, outs)))
+
+
+def cat_partials(parts: List[Any]) -> Any:
+    """Per-window partials (stats dataclasses, every field leading with
+    the block axis) -> one, the blocks in order."""
+    if len(parts) == 1:
+        return parts[0]
+    names = [f.name for f in dataclasses.fields(parts[0])]
+    return type(parts[0])(**{n: torch.cat([getattr(p, n) for p in parts])
+                             for n in names})
 
 
 def moments_from_labels(feats: torch.Tensor, valid: torch.Tensor,

@@ -6,9 +6,10 @@ Port of ``repro.core.resilience``'s ``TileReadError``, ``RetryPolicy``,
 reference's event records ``tile_read_fault`` and ``io_retry``),
 ``model_health`` (the fits' guardrails read its verdict with each chunk's
 or iteration's history and roll back to the last healthy state on a bad
-one, ``core/sampler.py``) and ``DivergenceError`` (raised once
-``max_recoveries`` rollbacks are spent). ``WorkerLostError`` waits for the
-multi-process fits (ROADMAP.md §1 item 6).
+one, ``core/sampler.py``), ``DivergenceError`` (raised once
+``max_recoveries`` rollbacks are spent) and ``WorkerLostError`` (a
+multi-process fit, ``repro_torch.dist``, with no worker left to take its
+rows).
 """
 from __future__ import annotations
 
@@ -32,6 +33,19 @@ class DivergenceError(RuntimeError):
     rollback could not recover it within ``max_recoveries`` attempts.
     ``recoveries`` holds the per-event log (same records as
     ``FitResult.recoveries``)."""
+
+    def __init__(self, message: str, recoveries: Optional[List[dict]] = None):
+        super().__init__(message)
+        self.recoveries: List[dict] = list(recoveries or [])
+
+
+class WorkerLostError(RuntimeError):
+    """A distributed worker shard was lost (died, hung past its deadline,
+    or was killed) and failover could not finish the fit: no surviving
+    worker was available and the ``max_worker_retries`` respawn budget
+    was exhausted. ``recoveries`` holds the per-event log — including the
+    ``worker_failover`` records leading up to the failure — for
+    post-mortems (same records as ``FitResult.recoveries``)."""
 
     def __init__(self, message: str, recoveries: Optional[List[dict]] = None):
         super().__init__(message)

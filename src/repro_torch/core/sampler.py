@@ -1,7 +1,10 @@
-"""The port's DPMM sampler: ``DPMM.fit`` on two data planes.
+"""The port's DPMM sampler: ``DPMM.fit`` on three drivers.
 
-Port of the resident and tiled planes of ``repro.core.sampler``. Per
-iteration (paper §4.1):
+Port of ``repro.core.sampler``: the resident and tiled planes here, and
+with ``cfg.workers`` the elastic multi-process driver
+(``repro_torch.dist.coordinator.fit_distributed``: a coordinator keeps the
+model, worker processes stream row ranges of x, and the chain is the
+tiled plane's bit for bit). Per iteration (paper §4.1):
 
     restricted Gibbs sweep (gibbs.sweep)  ->  after ``burnout``:
     split/merge plan + apply + consistency stat fold (_split_merge)
@@ -376,7 +379,8 @@ class FitResult:
     peak_bytes: Optional[int] = None  # torch.cuda.max_memory_allocated
     # torch.cuda.memory_allocated when the fit began (the caller's tensors)
     start_bytes: Optional[int] = None
-    mode: str = "resident"       # the data plane: "resident" or "tiled"
+    # the driver: "resident", "tiled" or "distributed" (cfg.workers)
+    mode: str = "resident"
     tile_size: Optional[int] = None   # rows of a tile (tiled)
     # the reference's estimate of the tiled plane's device bytes: two
     # model states a chain, the accumulators and two tile buffers
@@ -391,6 +395,10 @@ class FitResult:
     score: Any = None
     # the slot capacity of each chunk (resident), k_max='auto''s growth
     slab_sizes: List[int] = dataclasses.field(default_factory=list)
+    # cfg.workers: worker count, shard ranges, respawns, reassignments,
+    # spawn-to-READY seconds, partial bytes a pass, workers' peak device
+    # bytes and kernel launches (dist/coordinator.py)
+    dist: Optional[dict] = None
 
     def chain(self, c: int) -> "FitResult":
         """Chain ``c`` as a single-chain result (views, bit for bit)."""
@@ -503,7 +511,7 @@ class DPMM:
     def fit(self, x, iters: Optional[int] = None, verbose: bool = False,
             *, n_chains: int = 1, key=None,
             init_state: Optional[ModelState] = None,
-            resume: bool = False) -> FitResult:
+            resume: bool = False, dist_hooks=None) -> FitResult:
         """Fit to ``x`` on ``self.device``: an (N, d) numpy array or
         tensor, or a ``DataSource``. It streams in tiles when
         ``cfg.tile_size`` is set or the source is not resident, as the
@@ -526,7 +534,12 @@ class DPMM:
         ``cfg.checkpoint_path`` that verifies (corrupt members are passed
         over), and ``iters`` is then the TOTAL target: only ``iters -
         it_checkpoint`` iterations run. With no member yet it is a fresh
-        fit. It refuses ``init_state``."""
+        fit. It refuses ``init_state``.
+
+        With ``cfg.workers`` the fit runs on the coordinator and worker
+        processes (``repro_torch.dist``), one chain only; ``dist_hooks``
+        (a ``repro_torch.dist.DistHooks``) injects worker faults or runs a
+        hook each iteration."""
         cfg = self.cfg
         iters = cfg.iters if iters is None else iters
         if n_chains < 1:
@@ -559,6 +572,18 @@ class DPMM:
         seed = cfg.seed
         key = _key_tensor((seed >> 32, seed) if key is None else key)
         keys = _chain_keys(key, n_chains) if n_chains > 1 else [key]
+        if cfg.workers:
+            if n_chains != 1:
+                raise ValueError(
+                    "cfg.workers does not compose with n_chains > 1 yet: "
+                    "chain batching rides the tile bodies, which the "
+                    "distributed driver runs per worker shard. Run one "
+                    "distributed fit per chain key instead.")
+            # imported here: single-process fits never touch the socket
+            # and subprocess machinery
+            from repro_torch.dist.coordinator import fit_distributed
+            return fit_distributed(self, source, iters, verbose, keys,
+                                   states, hooks=dist_hooks)
         if cfg.tile_size is None and source.resident() is not None:
             return self._fit_resident(source, iters, verbose, keys, states)
         if cfg.k_max == "auto":
@@ -725,92 +750,51 @@ class DPMM:
             iter_times_s=times, start_bytes=start, recoveries=rec.events,
             slab_sizes=slabs)
 
-    def _tiled_step(self, models: List[ModelState], run,
-                    slabs: List[Optional[int]], ones: torch.Tensor, prior,
+    def _tiled_step(self, models: List[ModelState], passes,
+                    slabs: List[Optional[int]], prior,
                     d: int) -> List[ModelState]:
         """One iteration of every chain over the tiles: the sweep pass,
-        then after ``burnout`` the split/merge pass, each tile read once a
-        pass for all chains; ``run(pass_fn, accs, labels_in)`` streams one
-        pass."""
-        cfg, family, dev = self.cfg, self.family, self.device
+        then after ``burnout`` the split/merge pass (``passes.run``, one
+        pass over the rows for all chains)."""
+        cfg, family = self.cfg, self.family
         k_max = cfg.k_max
         begun = [gibbs.sweep_begin(m, prior, family, cfg.alpha)
                  for m in models]
         comps = [gibbs.sweep_compaction(m, k_c)
                  for (m, _, _), k_c in zip(begun, slabs)]
-
-        def sweep_pass(t, accs):
-            point = PointState(labels=None, sublabels=None,
-                               valid=ones[:t.length])
-            gidx = gibbs.global_indices(t.length, dev, t.off)
-            outs, new = [], []
-            for (m, key_z, key_zb), comp, acc in zip(begun, comps, accs):
-                p, acc = gibbs.sweep_tile(m, t.x, point, gidx, acc, family,
-                                          key_z, key_zb, plan=comp)
-                outs.append((p.labels, p.sublabels))
-                new.append(acc)
-            return outs, new
-
-        accs = run(sweep_pass, [gibbs.sweep_acc(m, family, comp, d)
-                                for (m, _, _), comp in zip(begun, comps)],
-                   False)
+        accs = passes.run(
+            "sweep", [(m, kz, kzb, comp)
+                      for (m, kz, kzb), comp in zip(begun, comps)],
+            [gibbs.sweep_acc(m, family, comp, d)
+             for (m, _, _), comp in zip(begun, comps)], False)
         models = [gibbs.sweep_end(m, acc, comp)
                   for (m, _, _), acc, comp in zip(begun, accs, comps)]
         if models[0].it >= cfg.burnout:
             moves = [_split_merge_begin(m, d, prior=prior, family=family,
                                         cfg=cfg, k_max=k_max, k_compact=k_c)
                      for m, k_c in zip(models, slabs)]
-
-            def sm_pass(t, accs):
-                outs, new = [], []
-                for c, ((plan, comp, _), acc) in enumerate(zip(moves,
-                                                               accs)):
-                    point = PointState(labels=t.labels[c],
-                                       sublabels=t.sublabels[c],
-                                       valid=ones[:t.length])
-                    point, acc = splitmerge.split_merge_tile(
-                        plan, t.x, point, acc, family, compaction=comp)
-                    outs.append((point.labels, point.sublabels))
-                    new.append(acc)
-                return outs, new
-
-            accs = run(sm_pass, [acc for _, _, acc in moves], True)
+            accs = passes.run("sm", [(plan, comp) for plan, comp, _ in moves],
+                              [acc for _, _, acc in moves], True)
             models = [_split_merge_end(m, plan, comp, acc, k_max)
                       for m, (plan, comp, _), acc in zip(models, moves, accs)]
         return [m.replace(it=m.it + 1) for m in models]
 
-    def _tiled_init(self, run, ones: torch.Tensor, keys: List[torch.Tensor],
-                    prior, d: int) -> List[ModelState]:
+    def _tiled_init(self, passes, keys: List[torch.Tensor], prior,
+                    d: int) -> List[ModelState]:
         """The initial states over the tiles, in two passes: round-robin
         labels and their stats (the same for every chain, folded once),
         then each chain's hyperplane sub-labels around the initial cluster
         means (``_init_local``'s, tile by tile)."""
         cfg, family, dev = self.cfg, self.family, self.device
         k_max = cfg.k_max
-
-        def init1(t, acc):
-            gidx = gibbs.global_indices(t.length, dev, t.off)
-            labels = _init_labels(gidx, cfg.init_clusters)
-            zeros = torch.zeros_like(labels)
-            return [(labels, zeros)] * len(keys), family.stats_from_labels(
-                t.x, ones[:t.length], labels, zeros, k_max, acc=acc)
-
-        acc = run(init1, gibbs.empty_substats(family, k_max, d, dev), False)
+        (acc,) = passes.run("init1", [()],
+                            [gibbs.empty_substats(family, k_max, d, dev)],
+                            False)
         stats0, _ = gibbs.finalize_substats(acc)
         means0 = family.cluster_means(stats0)
-        vecs = [_init_vecs(key, k_max, d, dev) for key in keys]
-
-        def init2(t, accs):
-            outs, new = [], []
-            for c, (v0, acc) in enumerate(zip(vecs, accs)):
-                lab = t.labels[c]
-                sub = splitmerge.hyperplane_bits(t.x, lab, means0, v0)
-                outs.append((lab, sub))
-                new.append(family.stats_from_labels(
-                    t.x, ones[:t.length], lab, sub, k_max, acc=acc))
-            return outs, new
-
-        accs = run(init2, [gibbs.empty_substats(family, k_max, d, dev)
+        accs = passes.run("init2", [(means0, _init_vecs(key, k_max, d, dev))
+                                    for key in keys],
+                          [gibbs.empty_substats(family, k_max, d, dev)
                            for _ in keys], True)
         return [_init_model(key, *gibbs.finalize_substats(acc), prior=prior,
                             family=family, cfg=cfg, k_max=k_max)
@@ -818,10 +802,11 @@ class DPMM:
 
     def _fit_tiled(self, source: DataSource, iters: int, verbose: bool,
                    keys: List[torch.Tensor],
-                   init_states: Optional[List[ModelState]]) -> FitResult:
+                   init_states: Optional[List[ModelState]],
+                   open_passes=None) -> FitResult:
         """The streamed plane (``repro.core.sampler.DPMM._fit_tiled`` on
         one device): two init passes, then per iteration a sweep pass and,
-        after ``burnout``, a split/merge pass over the tiles
+        after ``burnout``, a split/merge pass over the rows
         (``_tiled_step``), every chain on each tile read. The compact slabs
         follow the resident plane's rule (``_slab``: from the live count
         at each iteration's start, headroom 2, the count read with the
@@ -831,7 +816,11 @@ class DPMM:
         slab is part of the chain, and the same rule keeps the two planes'
         chains equal. The guardrails' verdict rides each iteration's
         history row; a rollback leaves the host label arrays as they are
-        (every sweep recomputes the labels)."""
+        (every sweep recomputes the labels).
+
+        The passes run on ``open_passes(events)``'s runner, by default
+        ``StreamPasses`` (the tiles in this process); the multi-process
+        driver (``repro_torch.dist.coordinator``) passes its workers'."""
         cfg, family, dev = self.cfg, self.family, self.device
         n, d = source.n, source.d
         if n >= 2 ** 32:
@@ -839,75 +828,176 @@ class DPMM:
                 f"N={n} exceeds the uint32 global point-index space: the "
                 "counter-based draws would wrap and silently corrupt the "
                 "chain")
-        n_local, tiles = tile_plan(n, cfg.tile_size)
         k_max = cfg.k_max
         multi = len(keys) > 1
         n_chains = len(keys)
         prior, start = self._setup(source)
         rec = _Recovery(cfg, family.name, 0, multi)
-        stream = TileStream(source, tiles, dev,
-                            RetryPolicy(max_retries=cfg.io_retries,
-                                        backoff_s=cfg.io_backoff_s,
-                                        guard_nonfinite=cfg.guard_tiles),
-                            rec.events.append, chains=n_chains)
-        labels_h = np.zeros((n_chains, n_local), np.int32)
-        sublabels_h = np.zeros((n_chains, n_local), np.int32)
-        ones = torch.ones((tiles[0][1],), dtype=torch.float32, device=dev)
-        run = lambda fn, acc, labels_in: stream.run(fn, acc, labels_h,
-                                                    sublabels_h, labels_in)
-
-        if init_states is None:
-            models = self._tiled_init(run, ones, keys, prior, d)
-            ks = [cfg.init_clusters] * n_chains
-        else:
-            models = init_states       # every sweep recomputes the labels
-            ks = [int(m.k_hat) for m in models]
-        it0 = int(models[0].it)
-        rec.last_saved = it0
-        est_peak = (2 * sum(_nbytes(m) for m in models)
-                    + n_chains * _nbytes(gibbs.empty_substats(
-                        family, k_max, d, dev))
-                    + 2 * tiles[0][1] * (4 * d + 8 * n_chains))
-
-        anchor = (([clone_model(m) for m in models], 0, list(ks))
-                  if cfg.guardrails else None)
+        if open_passes is None:
+            open_passes = lambda events: StreamPasses(self, source, events,
+                                                      n_chains)
+        passes = open_passes(rec.events)
         tables: List[np.ndarray] = []
         times: List[float] = []
         it = 0
-        while it < iters:
-            t0 = time.perf_counter()
-            models = self._tiled_step(
-                models, run, [_slab(k, cfg, k_max) for k in ks], ones, prior,
-                d)
-            table, healthy = _host_rows(                # one sync
-                [[_summaries(m, prior, family, cfg.alpha)] for m in models],
-                _verdict(models) if cfg.guardrails else None)
-            if not healthy:
-                snap, snap_it, snap_ks = anchor
-                rec.rollback(it0 + it + 1, it0 + snap_it,
-                             "non-finite/degenerate model state after "
-                             "tiled iteration")
-                models = [_recovery_rekey(clone_model(m), rec.n_rollbacks)
-                          for m in snap]
-                it, ks = snap_it, list(snap_ks)
-                continue                   # the failed iteration: no rows
-            ks = [int(v) for v in table[:, -1, 0]]
-            tables.append(table)
-            times.append(time.perf_counter() - t0)
-            it += 1
-            if cfg.guardrails:
-                anchor = ([clone_model(m) for m in models], it, list(ks))
-            rec.maybe_checkpoint(models, it0 + it)
-            if verbose and (it % cfg.log_every == 0 or it == iters):
-                span = times[-(it % cfg.log_every or cfg.log_every):]
-                print(f"iter {it0 + it:4d}  K={ks if multi else ks[0]}  "
-                      f"{np.mean(span) * 1e3:.1f} ms/iter")
-        rec.maybe_checkpoint(models, it0 + it, force=True)
-        labels = labels_h[:, :n].copy()
+        try:
+            if init_states is None:
+                models = self._tiled_init(passes, keys, prior, d)
+                ks = [cfg.init_clusters] * n_chains
+            else:
+                models = init_states   # every sweep recomputes the labels
+                ks = [int(m.k_hat) for m in models]
+            it0 = int(models[0].it)
+            rec.last_saved = it0
+            acc_bytes = _nbytes(gibbs.empty_substats(family, k_max, d, dev))
+            est_peak = (2 * sum(_nbytes(m) for m in models)
+                        + n_chains * acc_bytes
+                        + passes.buffer_bytes(acc_bytes))
+            anchor = (([clone_model(m) for m in models], 0, list(ks))
+                      if cfg.guardrails else None)
+            while it < iters:
+                t0 = time.perf_counter()
+                models = self._tiled_step(
+                    models, passes, [_slab(k, cfg, k_max) for k in ks],
+                    prior, d)
+                table, healthy = _host_rows(            # one sync
+                    [[_summaries(m, prior, family, cfg.alpha)]
+                     for m in models],
+                    _verdict(models) if cfg.guardrails else None)
+                if not healthy:
+                    snap, snap_it, snap_ks = anchor
+                    rec.rollback(it0 + it + 1, it0 + snap_it,
+                                 "non-finite/degenerate model state after "
+                                 "tiled iteration")
+                    models = [_recovery_rekey(clone_model(m),
+                                              rec.n_rollbacks)
+                              for m in snap]
+                    it, ks = snap_it, list(snap_ks)
+                    continue               # the failed iteration: no rows
+                ks = [int(v) for v in table[:, -1, 0]]
+                tables.append(table)
+                times.append(time.perf_counter() - t0)
+                it += 1
+                if cfg.guardrails:
+                    anchor = ([clone_model(m) for m in models], it, list(ks))
+                rec.maybe_checkpoint(models, it0 + it)
+                if verbose and (it % cfg.log_every == 0 or it == iters):
+                    span = times[-(it % cfg.log_every or cfg.log_every):]
+                    print(f"iter {it0 + it:4d}  K={ks if multi else ks[0]}  "
+                          f"{np.mean(span) * 1e3:.1f} ms/iter")
+            rec.maybe_checkpoint(models, it0 + it, force=True)
+        finally:
+            passes.close()
+        labels = passes.labels()
         return self._result(
             models, labels if multi else labels[0],
             _history(tables, n_chains, multi), multi, iter_times_s=times,
-            start_bytes=start, mode="tiled", tile_size=tiles[0][1],
+            start_bytes=start, tile_size=passes.tile,
             est_peak_bytes=int(est_peak), recoveries=rec.events,
-            copy_wait_s=stream.wait_s if stream.cuda else None,
-            read_s=stream.read_s)
+            **passes.report())
+
+
+def tile_body(phase: str, args: tuple, x: torch.Tensor, off: int,
+              valid: torch.Tensor, labels, sublabels, acc, family,
+              cfg: DPMMConfig):
+    """One chain's body of a tiled pass on rows ``off .. off + len(x)``:
+    ``(labels, sublabels, acc')``. The phases and their ``args``:
+
+    - ``init1`` ``()``: round-robin labels, zero sub-labels;
+    - ``init2`` ``(means0, v0)``: hyperplane sub-labels of ``labels``
+      around the initial means;
+    - ``sweep`` ``(model, key_z, key_zb, comp)``: steps (e)/(f) under the
+      model after steps (a)-(d) (``gibbs.sweep_tile``), on the compact slab
+      of ``comp`` when it is not None;
+    - ``sm`` ``(plan, comp)``: the planned move on ``labels`` /
+      ``sublabels`` (``splitmerge.split_merge_tile``).
+
+    Each folds the tile's sub-cluster stats into ``acc``; ``acc=None``
+    returns the kernels' per-STATS_BLOCK partials unfolded instead (a
+    worker process ships them and its coordinator folds them in global
+    block order)."""
+    if phase == "sweep":
+        model, key_z, key_zb, comp = args
+        point = PointState(labels=None, sublabels=None, valid=valid)
+        gidx = gibbs.global_indices(x.shape[0], x.device, off)
+        point, acc = gibbs.sweep_tile(model, x, point, gidx, acc, family,
+                                      key_z, key_zb, plan=comp)
+        return point.labels, point.sublabels, acc
+    if phase == "sm":
+        plan, comp = args
+        point = PointState(labels=labels, sublabels=sublabels, valid=valid)
+        point, acc = splitmerge.split_merge_tile(plan, x, point, acc, family,
+                                                 compaction=comp)
+        return point.labels, point.sublabels, acc
+    if phase == "init1":
+        labels = _init_labels(gibbs.global_indices(x.shape[0], x.device, off),
+                              cfg.init_clusters)
+        sublabels = torch.zeros_like(labels)
+    elif phase == "init2":
+        means0, v0 = args
+        sublabels = splitmerge.hyperplane_bits(x, labels, means0, v0)
+    else:
+        raise ValueError(f"unknown tiled pass {phase!r}")
+    if acc is None:
+        return labels, sublabels, family.label_partials(
+            x, valid, labels, sublabels, cfg.k_max)
+    return labels, sublabels, family.stats_from_labels(
+        x, valid, labels, sublabels, cfg.k_max, acc=acc)
+
+
+class StreamPasses:
+    """The tiled plane's passes in this process: ``TileStream`` reads and
+    uploads each tile once a pass, and every chain's ``tile_body`` runs
+    on it. The host label arrays are (C, n)."""
+
+    def __init__(self, dpmm: DPMM, source: DataSource, events: List[dict],
+                 n_chains: int):
+        cfg = dpmm.cfg
+        self.cfg, self.family, self.n = cfg, dpmm.family, source.n
+        n_local, tiles = tile_plan(source.n, cfg.tile_size)
+        self.tile, self.d, self.chains = tiles[0][1], source.d, n_chains
+        self.stream = TileStream(
+            source, tiles, dpmm.device,
+            RetryPolicy(max_retries=cfg.io_retries,
+                        backoff_s=cfg.io_backoff_s,
+                        guard_nonfinite=cfg.guard_tiles),
+            events.append, chains=n_chains)
+        self.labels_h = np.zeros((n_chains, n_local), np.int32)
+        self.sublabels_h = np.zeros((n_chains, n_local), np.int32)
+        self.ones = torch.ones((self.tile,), dtype=torch.float32,
+                               device=dpmm.device)
+
+    def run(self, phase: str, chain_args: List[tuple], accs: list,
+            labels_in: bool) -> list:
+        """One pass of ``phase`` over every tile: chain c's ``tile_body``
+        with ``chain_args[c]`` folding into ``accs[c]``; one entry for all
+        chains (``init1``) labels every chain alike. Returns the accs."""
+        def pass_fn(t, accs):
+            outs, new = [], []
+            for c, (args, acc) in enumerate(zip(chain_args, accs)):
+                lab, sub, acc = tile_body(
+                    phase, args, t.x, t.off, self.ones[:t.length],
+                    t.labels[c] if labels_in else None,
+                    t.sublabels[c] if labels_in else None, acc,
+                    self.family, self.cfg)
+                outs.append((lab, sub))
+                new.append(acc)
+            return outs * (self.chains // len(outs)), new
+
+        return self.stream.run(pass_fn, accs, self.labels_h,
+                               self.sublabels_h, labels_in)
+
+    def buffer_bytes(self, acc_bytes: int) -> int:
+        """The reference's estimate of the two tile buffers' bytes."""
+        return 2 * self.tile * (4 * self.d + 8 * self.chains)
+
+    def labels(self) -> np.ndarray:
+        return self.labels_h[:, :self.n].copy()
+
+    def report(self) -> dict:
+        s = self.stream
+        return dict(mode="tiled", copy_wait_s=s.wait_s if s.cuda else None,
+                    read_s=s.read_s)
+
+    def close(self) -> None:
+        pass

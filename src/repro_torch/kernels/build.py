@@ -10,13 +10,22 @@ at first use, from the sources in this checkout only, into
 ``build/repro_torch/`` at the repository root (listed in ``.gitignore``).
 The directory is keyed by a hash of every file under ``csrc/`` and of the
 flags, so an edited source rebuilds and an unchanged one loads at once.
-All missing libraries are compiled in parallel, one nvcc per source.
+All missing libraries are compiled in parallel, one nvcc per source,
+under an exclusive lock on ``build/repro_torch/.lock`` (``fcntl``), so
+processes that start together (a multi-process fit's coordinator and its
+workers, two test runs) never run nvcc into one directory at once: the
+first compiles, the others wait and then find the libraries built. A
+worker process of a multi-process fit only loads (``load_all``): its
+coordinator built before it spawned it, and a library that is missing
+then is an error, never a fallback.
 
 No ``--use_fast_math``: the Gumbel noise needs ``logf``, not ``__logf``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -60,15 +69,40 @@ def build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive ``fcntl`` lock on ``BUILD_ROOT/.lock`` for the block."""
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_ROOT / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def missing(names: Sequence[str] = SOURCES) -> list:
+    """The libraries of ``names`` not built yet."""
+    out = build_dir()
+    return [n for n in names if not (out / f"lib{n}.so").is_file()]
+
+
 def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:
     """Compile every library of ``names`` that is not built yet, all in
-    parallel. Returns the seconds each compile took (empty when all were
-    built). nvcc's ``-Xptxas -v`` report (registers, shared memory,
-    spills) is kept beside each library as ``lib<name>.log``."""
-    out = build_dir()
-    todo = [n for n in names if not (out / f"lib{n}.so").is_file()]
+    parallel, under the build lock. Returns the seconds each compile took
+    (empty when all were built). nvcc's ``-Xptxas -v`` report (registers,
+    shared memory, spills) is kept beside each library as
+    ``lib<name>.log``."""
+    if not missing(names):
+        return {}
+    with _build_lock():
+        return _compile(missing(names))
+
+
+def _compile(todo: Sequence[str]) -> Dict[str, float]:
     if not todo:
         return {}
+    out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
     exe = nvcc()
     procs = {}
@@ -108,6 +142,17 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build_dir() / f"lib{name}.so"))
         _loaded[name] = lib
     return lib
+
+
+def load_all() -> None:
+    """Load every library, and raise if one is not built: a worker process
+    of a multi-process fit only loads what its coordinator built."""
+    if missing():
+        raise RuntimeError(
+            f"CUDA kernels {missing()} are not built in {build_dir()}: "
+            "a worker process only loads the kernels its coordinator built")
+    for name in SOURCES:
+        load(name)
 
 
 def c_function(name: str, symbol: str, signature: str):

@@ -4,7 +4,7 @@
         --n 100000 --d 2 --k 10 --alpha 10 --iters 100 \
         [--data-path x.npy] [--tile-size 65536] [--result-path out.json] \
         [--device cuda] [--checkpoint-path model.npz] [--params-path p.json] \
-        [--n-chains 4] [--checkpoint-every 10] [--resume]
+        [--n-chains 4] [--checkpoint-every 10] [--resume] [--workers 2]
 
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given. ``--prior-type`` takes any family of the registry (gaussian,
@@ -26,8 +26,10 @@ newest member that verifies (``--iters`` is the total target).
 ``--n-chains C`` runs C chains, prints their scores and split-R-hats and
 keeps the best chain (result and checkpoint). ``--params-path`` is a JSON
 file of config overrides, the reference CLI's keys (alpha, iters, k_max —
-``"auto"`` included —, burnout, log_every, tile_size). ``--workers`` is
-not ported (ROADMAP.md §1 item 6).
+``"auto"`` included —, burnout, log_every, tile_size, workers).
+``--workers N`` runs the fit on a coordinator and N worker processes
+(``repro_torch.dist``) on the same device, bitwise the single-process
+fit; the result's ``dist`` holds the workers' layout and failovers.
 """
 from __future__ import annotations
 
@@ -106,6 +108,14 @@ def main(argv=None):
                          "member of the --checkpoint-path rotation; "
                          "--iters is the total target, and no member yet "
                          "means a fresh fit")
+    ap.add_argument("--workers", type=int, default=None,
+                    help="elastic multi-process sampling: spawn this many "
+                         "worker shard processes (repro_torch.dist), each "
+                         "streaming a row range of x; the chain is "
+                         "bitwise identical to the single-process fit at "
+                         "any worker count, and SIGKILL'd/hung workers "
+                         "fail over to survivors. Composes with "
+                         "--tile-size/--checkpoint-every/--resume")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
 
@@ -113,8 +123,6 @@ def main(argv=None):
     if args.params_path:
         with open(args.params_path) as f:
             overrides = json.load(f)
-    if overrides.get("workers"):
-        raise SystemExit("workers (multi-process fits) is not ported")
     cfg = DPMMConfig(
         component=_component_of(args.prior_type),
         alpha=overrides.get("alpha", args.alpha),
@@ -125,7 +133,10 @@ def main(argv=None):
         tile_size=(args.tile_size if args.tile_size is not None
                    else overrides.get("tile_size")),
         checkpoint_path=args.checkpoint_path or None,
-        checkpoint_every=args.checkpoint_every, seed=args.seed)
+        checkpoint_every=args.checkpoint_every,
+        workers=(args.workers if args.workers is not None
+                 else overrides.get("workers")),
+        seed=args.seed)
     if (args.resume or args.checkpoint_every) and not args.checkpoint_path:
         raise SystemExit("--resume/--checkpoint-every need "
                          "--checkpoint-path (the rotation prefix)")
@@ -191,7 +202,7 @@ def main(argv=None):
             "iter_times_s": result.iter_times_s,
             "device_bytes": device_bytes,
             "config": dataclasses.asdict(cfg),
-            "dist": None,
+            "dist": result.dist,
             "recoveries": result.recoveries,
         }
         with open(args.result_path, "w") as f:

@@ -48,8 +48,23 @@ keeps serving.
 The sample key stream comes from ``torch.Generator().manual_seed(
 cfg.seed)``: each ``sample`` draws two uint32 key words from it, unless
 ``seed`` (a generator of its own) or ``key_words`` (raw words, e.g. the
-JAX package's ``key_data``) pins them. Online refinement
-(``cfg.refine``) is not ported (ROADMAP.md §1 item 5).
+JAX package's ``key_data``) pins them.
+
+**Online refinement** (``cfg.refine``), as the reference's: ``query`` and
+``sample`` keep their rows in a bounded buffer (``refine_buffer`` rows,
+whole requests dropped oldest first, then the oldest cut); ``refine()``
+folds the buffer (or an explicit ``x``) into a shadow copy of the served
+model in ``refine_batch``-row micro-batches through ``gibbs.refine_sweep``
+(steps (a)-(d), then one ``sweep_tile`` on the dense slab, on the card the
+``sweep_gauss`` / ``sweep_linear`` and ``fold_partials`` kernels), its
+stats blended as ``refine_decay * old + batch``, under a prior rebuilt
+from the served stats (``_traffic_prior``). Every
+``refine_publish_every`` healthy sweeps the shadow publishes through the
+swap path; an unhealthy sweep (one verdict a sweep, ``model_health`` and
+every slot's stats finite, the loop's only added host read) logs
+``refine_rejected``, re-anchors the shadow to the served model and never
+publishes. With ``refine=False``
+every answer is the static engine's, bit for bit.
 """
 from __future__ import annotations
 
@@ -60,6 +75,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.configs.base import DPMMConfig
 from repro_torch.core import checkpoint as _checkpoint
 from repro_torch.core import gibbs
 from repro_torch.core.family import ComponentFamily, get_family
@@ -88,8 +104,12 @@ class ServeConfig:
     routes to the smallest covering step. ``checkpoint_prefix``: the
     default source of ``engine.swap()`` (``from_checkpoint`` sets it).
     ``guardrails``: run ``model_health`` before a swap goes live.
-    ``refine*``: the reference's online refinement, not ported:
-    ``refine=True`` raises.
+    ``refine``: buffer the traffic and allow ``engine.refine()``;
+    ``refine_batch`` rows a sweep, ``refine_buffer`` rows kept,
+    ``refine_decay`` the weight of the old stats, a publish every
+    ``refine_publish_every`` healthy sweeps; ``refine_cfg`` (a
+    ``DPMMConfig`` of the served family) gives the prior and alpha,
+    ``DPMMConfig(component=family)`` without it.
     """
     batch_sizes: Tuple[int, ...] = (256, 2048, 8192)
     validate_queries: bool = True
@@ -101,7 +121,7 @@ class ServeConfig:
     refine_buffer: int = 32768
     refine_decay: float = 0.9
     refine_publish_every: int = 1
-    refine_cfg: Optional[object] = None
+    refine_cfg: Optional[DPMMConfig] = None
 
     def __post_init__(self):
         sizes = tuple(self.batch_sizes)
@@ -140,11 +160,6 @@ class ServeConfig:
             raise ValueError(
                 f"ServeConfig.checkpoint_prefix must be a path string or "
                 f"None, got {type(self.checkpoint_prefix).__name__}")
-        if self.refine:
-            raise NotImplementedError(
-                "ServeConfig(refine=True): online refinement "
-                "(gibbs.refine_sweep) is not ported yet (ROADMAP.md §1 item "
-                "5, queue entry 'refine')")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -252,14 +267,41 @@ class _Served(NamedTuple):
     source: str
 
 
+def _traffic_prior(family: ComponentFamily, cfg: DPMMConfig,
+                   model: ModelState):
+    """The prior of refinement sweeps. The fit built its prior from the
+    data's column mean; at serve time the data is gone, but the
+    count-weighted mean of the active clusters' means is ``sum_i x_i / N``
+    again, from the sufficient statistics."""
+    means = family.cluster_means(model.stats)
+    w = torch.where(model.active, model.stats.n, 0.0)
+    mean = ((w[:, None] * means).sum(dim=0)
+            / torch.clamp(w.sum(), min=1e-6)).to(torch.float32)
+    return family.build_prior(cfg, mean[None, :])
+
+
+def _finite_stats(model: ModelState) -> torch.Tensor:
+    """0-d bool: every stat of every slot finite. ``model_health`` reads
+    the active slots only; a refinement batch row whose every active
+    log-likelihood is -inf (a 1e30 row) lands in an inactive slot, whose
+    -1e30 background then wins, and poisons that slot's stats unseen."""
+    ok = torch.ones((), dtype=torch.bool, device=model.active.device)
+    for tree in (model.stats, model.substats):
+        for f in dataclasses.fields(tree):
+            ok = ok & torch.isfinite(getattr(tree, f.name)).all()
+    return ok
+
+
 def _ceil_pow2(v: int) -> int:
     return 1 << max(0, (int(v) - 1).bit_length())
 
 
 def _on_device(model: ModelState, dev: torch.device) -> ModelState:
     move = lambda t: t.to(dev)
+    # the key words stay on the host: a refinement sweep derives its keys
+    # from them without a device read
     return model.replace(
-        key=move(model.key), active=move(model.active),
+        key=model.key.to("cpu", torch.int64), active=move(model.active),
         logweights=move(model.logweights),
         sub_logweights=move(model.sub_logweights), stuck=move(model.stuck),
         params=tree_map(move, model.params),
@@ -320,6 +362,14 @@ class DPMMEngine:
         self.events: List[dict] = []
         self._served = _build_served(model, fam, self.cfg, epoch=0,
                                      source="<memory>", dev=self.device)
+        # online refinement (None until the first refine())
+        self._refine_lock = threading.Lock()
+        self._traffic: List[np.ndarray] = []
+        self._traffic_rows = 0
+        self._shadow: Optional[ModelState] = None
+        self._refine_fn = None
+        self._refine_prior = None
+        self._since_publish = 0
 
     @classmethod
     def from_checkpoint(cls, path: str, cfg: Optional[ServeConfig] = None,
@@ -433,6 +483,7 @@ class DPMMEngine:
         :meth:`sample`)."""
         served = self._served              # ONE snapshot for the request
         x = self._validated(x, served.d)
+        self._record_traffic(x)
         outs: Dict[str, list] = {"labels": [], "logprobs": [],
                                  "log_predictive": []}
         for _, used, xb in self._steps(x):
@@ -468,6 +519,7 @@ class DPMMEngine:
         or ``key_words`` (two uint32 words) pins them."""
         served = self._served
         x = self._validated(x, served.d)
+        self._record_traffic(x)
         return self._sample(served, x, seed, key_words)
 
     def _sample(self, served: _Served, x: np.ndarray, seed: Optional[int],
@@ -524,7 +576,123 @@ class DPMMEngine:
                                 epoch=self._served.epoch + 1, source=source,
                                 dev=self.device)
             self._served = nxt             # the flip
+            # the shadow chain re-anchors on whatever is now live
+            self._shadow = None
+            self._refine_fn = None
+            self._refine_prior = None
+            self._since_publish = 0
             self.events.append({"kind": kind, "epoch": nxt.epoch,
                                 "source": source,
                                 "it": (None if it is None else int(it))})
             return nxt.epoch
+
+    # -- online refinement ------------------------------------------------
+    def _record_traffic(self, x: np.ndarray) -> None:
+        if not self.cfg.refine or x.shape[0] == 0:
+            return
+        with self._refine_lock:
+            self._traffic.append(np.array(x, np.float32, copy=True))
+            self._traffic_rows += x.shape[0]
+            while (self._traffic_rows > self.cfg.refine_buffer
+                   and len(self._traffic) > 1):
+                self._traffic_rows -= self._traffic.pop(0).shape[0]
+            if self._traffic_rows > self.cfg.refine_buffer:
+                keep = self._traffic[0][-self.cfg.refine_buffer:]
+                self._traffic = [keep]
+                self._traffic_rows = keep.shape[0]
+
+    def _refine_setup(self, served: _Served):
+        """The refinement step of the current anchor and its prior (from
+        the anchor's stats), made at the first refine after each flip.
+        The step returns ``(model, healthy, labels)``, ``healthy`` a
+        0-d bool tensor on the device."""
+        if self._refine_prior is None:
+            dcfg = self.cfg.refine_cfg
+            if dcfg is None:
+                dcfg = DPMMConfig(component=served.family.name)
+            elif dcfg.component != served.family.name:
+                raise ValueError(
+                    f"ServeConfig.refine_cfg.component "
+                    f"({dcfg.component!r}) does not match the served "
+                    f"family ({served.family.name!r})")
+            self._refine_prior = _traffic_prior(served.family, dcfg,
+                                                served.model)
+            fam, decay = served.family, self.cfg.refine_decay
+            alpha = float(dcfg.alpha)
+
+            def run(model, xb, valid, prior):
+                m2, labels = gibbs.refine_sweep(model, xb, valid, prior, fam,
+                                                alpha, decay=decay)
+                return m2, model_health(m2) & _finite_stats(m2), labels
+            self._refine_fn = run
+        return self._refine_fn, self._refine_prior
+
+    def refine(self, x=None, publish: bool = True) -> dict:
+        """Fold the buffered traffic (or an explicit ``x``) into the shadow
+        model, ``refine_batch`` rows a sweep (a short last batch padded
+        with ``valid=0`` rows), publishing every ``refine_publish_every``
+        healthy sweeps through the swap path. An unhealthy sweep logs
+        ``refine_rejected`` and re-anchors the shadow to the served model.
+        Returns ``{"sweeps", "rows", "rejected", "published", "epoch"}``."""
+        if not self.cfg.refine:
+            raise ValueError("online refinement is disabled: construct "
+                             "the engine with ServeConfig(refine=True)")
+        served = self._served
+        b, d = self.cfg.refine_batch, served.d
+        with self._refine_lock:
+            if x is not None:
+                rows = self._validated_refine(x, d)
+            else:
+                rows = (np.concatenate(self._traffic)
+                        if self._traffic else np.zeros((0, d), np.float32))
+                self._traffic, self._traffic_rows = [], 0
+        out = {"sweeps": 0, "rows": 0, "rejected": 0, "published": 0,
+               "epoch": served.epoch}
+        if rows.shape[0] == 0:
+            return out
+        step, prior = self._refine_setup(served)
+        shadow = self._shadow if self._shadow is not None else served.model
+        xt = torch.from_numpy(np.ascontiguousarray(rows)).to(self.device)
+        for start in range(0, rows.shape[0], b):
+            used = min(b, rows.shape[0] - start)
+            xb = xt[start:start + used]
+            if used < b:
+                xb = torch.cat([xb, xb.new_zeros((b - used, d))])
+            valid = torch.zeros((b,), dtype=torch.float32,
+                                device=self.device)
+            valid[:used] = 1.0
+            shadow2, ok, _labels = step(shadow, xb, valid, prior)
+            if not bool(ok):               # the one host read a sweep
+                out["rejected"] += 1
+                self.events.append({
+                    "kind": "refine_rejected",
+                    "rows": [int(start), int(start + used)],
+                    "detail": "micro-batch sweep produced an unhealthy "
+                              "model (non-finite stats); shadow "
+                              "re-anchored to the served model"})
+                shadow = self._served.model   # drop the poisoned chain
+                self._since_publish = 0
+                continue
+            shadow = shadow2
+            out["sweeps"] += 1
+            out["rows"] += used
+            self._since_publish += 1
+            if (publish
+                    and self._since_publish >= self.cfg.refine_publish_every):
+                out["epoch"] = self._publish(
+                    shadow, served.family, source="refine",
+                    kind="refine_publish", it=int(shadow.it))
+                out["published"] += 1
+                # the flip reset the anchor; keep sweeping from the chain
+                # just published
+                self._shadow = shadow
+                self._since_publish = 0
+        self._shadow = shadow
+        return out
+
+    def _validated_refine(self, x, d: int) -> np.ndarray:
+        x = np.asarray(x, np.float32)
+        if x.ndim != 2 or x.shape[1] != d:
+            raise InvalidQueryError(
+                f"refinement batches must be (N, {d}), got {x.shape}")
+        return x

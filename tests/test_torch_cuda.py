@@ -1202,3 +1202,101 @@ def test_auto_slab_on_the_card_grows_and_repeats(dev):
     assert a.slab_sizes[0] == 8 and a.state.active.shape[0] > 8
     assert a.nmi(y) > 0.9 and a.slab_sizes == b.slab_sizes
     np.testing.assert_array_equal(a.labels, b.labels)
+
+
+@pytest.mark.parametrize("component,gen,d", [("gaussian", generate_gmm, 4),
+                                             ("multinomial", generate_mnmm,
+                                              32)])
+def test_two_worker_fit_on_the_card_is_the_tiled_fit(dev, component, gen,
+                                                     d):
+    """A coordinator and two worker processes on the card: the chain is
+    the card's single-process tiled fit bit for bit, the workers ran the
+    sweep kernels and the coordinator the fold."""
+    x, y = gen(20_000, d, 4, seed=0)
+    cfg = dict(component=component, iters=14, burnout=5, tile_size=4096)
+    single = DPMM(DPMMConfig(**cfg)).fit(HostTiledSource(x))
+    ops.reset_launch_counts()
+    dist = DPMM(DPMMConfig(workers=2, **cfg)).fit(HostTiledSource(x))
+    assert ops.launch_counts()["fold_partials"] > 0
+    lw = dist.dist["worker_launches"]
+    sweep_k = "sweep_gauss" if component == "gaussian" else "sweep_linear"
+    assert lw[sweep_k] > 0 and lw["fold_partials"] == 0
+    assert dist.mode == "distributed" and dist.recoveries == []
+    np.testing.assert_array_equal(dist.labels, single.labels)
+    for key in single.history:
+        np.testing.assert_array_equal(dist.history[key], single.history[key])
+    for group in ("stats", "substats", "params"):
+        a, b = getattr(dist.state, group), getattr(single.state, group)
+        for name in a.__dataclass_fields__:
+            assert torch.equal(getattr(a, name), getattr(b, name))
+    assert dist.nmi(y) > 0.9
+
+
+@pytest.mark.parametrize("component,gen,d", [("gaussian", generate_gmm, 8),
+                                             ("multinomial", generate_mnmm,
+                                              32)])
+def test_refine_sweep_on_the_card_matches_its_plain_path(dev, component,
+                                                         gen, d):
+    """One refinement sweep through the kernels (``sweep_gauss`` or
+    ``sweep_linear``, ``fold_partials``) against the same sweep on the
+    plain sweep on the same card, model and keys: labels equal except
+    near-ties, blended stats within rtol 1e-4; then (Gaussian) a poisoned
+    batch is rejected and the answers stay as they were."""
+    import dataclasses
+    from repro_torch.core import niw
+    from repro_torch.serve.dpmm import DPMMEngine, ServeConfig
+    x, _ = gen(20_000, d, 4, seed=0)
+    res = DPMM(DPMMConfig(component=component, iters=20, burnout=5)).fit(x)
+    fam = get_family(component)
+    eng = DPMMEngine(res.state, component,
+                     ServeConfig(refine=True, refine_batch=1024))
+    step, prior = eng._refine_setup(eng._served)
+    q, _ = gen(1024, d, 4, seed=1)
+    xb = torch.as_tensor(q, device=dev)
+    valid = torch.ones(1024, device=dev)
+    ops.reset_launch_counts()
+    m_k, ok, lab_k = step(eng.model, xb, valid, prior)
+    counts = ops.launch_counts()
+    assert bool(ok) and counts["fold_partials"] == 1
+    assert counts["sweep_gauss" if component == "gaussian"
+                  else "sweep_linear"] > 0
+
+    if component == "gaussian":
+        def fused(x, v, p, sp, lw, slw, act, gidx, kz, kzb, slots):
+            mu, f, ld, smu, sf, sld = niw.sweep_pack(p, sp)
+            lab, sub, *parts = sweep.sweep_gauss_plain(
+                x, mu, f, ld, lw, act, smu, sf, sld, slw, v, gidx, kz, kzb,
+                slots)
+            return lab, sub, niw.GaussStats(*parts)
+    else:
+        mod = fam.module
+
+        def fused(x, v, p, sp, lw, slw, act, gidx, kz, kzb, slots):
+            feats, w, const, subw, subconst = mod.sweep_pack(x, p, sp)
+            lab, sub, n2, sf2 = sweep.sweep_linear_plain(
+                feats, w, const, lw, act, subw, subconst, slw, v, gidx, kz,
+                kzb, slots)
+            return lab, sub, mod.stats_from_moments(n2, sf2)
+    plain = dataclasses.replace(fam, fused_sweep=fused)
+    m_p, lab_p = gibbs.refine_sweep(eng.model, xb, valid, prior, plain,
+                                    DPMMConfig().alpha,
+                                    decay=eng.cfg.refine_decay)
+    assert m_k.it == m_p.it == eng.model.it + 1
+    bad = int((lab_k != lab_p).sum())
+    assert bad <= 2
+    for group in ("stats", "substats"):
+        a, b = getattr(m_k, group), getattr(m_p, group)
+        for name in a.__dataclass_fields__:
+            ta, tb = getattr(a, name), getattr(b, name)
+            if name == "n" and bad == 0:
+                assert torch.equal(ta, tb)
+            assert torch.allclose(ta, tb, rtol=1e-4,
+                                  atol=1e-4 * float(tb.abs().max()))
+    if component == "gaussian":      # 1e30^2 overflows the sxx stat
+        held = eng.query(q)
+        out = eng.refine(x=np.full((1024, d), 1e30, np.float32))
+        assert out["rejected"] == 1 and out["published"] == 0
+        assert eng.events[-1]["kind"] == "refine_rejected"
+        again = eng.query(q)
+        np.testing.assert_array_equal(again.logprobs, held.logprobs)
+    assert eng.refine(x=q)["published"] == 1

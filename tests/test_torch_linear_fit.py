@@ -11,6 +11,7 @@
 - the CLI with ``--prior-type Multinomial --device cpu``.
 """
 import json
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 import torch
@@ -35,14 +36,16 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
-def test_multinomial_fit_matches_the_jax_fit():
-    x, y = generate_mnmm(3000, 16, 4, seed=0)
-    port = DPMM(DPMMConfig(component="multinomial", **CFG),
-                device="cpu").fit(x)
-    ref = JaxDPMM(JaxConfig(component="multinomial", **CFG)).fit(x)
-    assert abs(port.k - ref.k) <= 1, (port.k, ref.k)
-    assert abs(port.nmi(y) - ref.nmi(y)) <= 0.05, (port.nmi(y), ref.nmi(y))
-    assert port.state.active.numpy()[port.labels].all()
+@pytest.fixture(autouse=True, scope="module")
+def jax_fit():
+    """The JAX multinomial fit, started on a thread when the module
+    starts: its compile runs while the module's port-only tests do, and
+    ``test_multinomial_fit_matches_the_jax_fit`` (the module's last test)
+    waits for it."""
+    x, _ = generate_mnmm(3000, 16, 4, seed=0)
+    with ThreadPoolExecutor(1) as pool:
+        yield pool.submit(lambda: JaxDPMM(JaxConfig(
+            component="multinomial", **CFG)).fit(x))
 
 
 @pytest.mark.parametrize("component,data", [
@@ -64,3 +67,13 @@ def test_cli_fits_the_multinomial_family(tmp_path):
     res = json.loads(out.read_text())
     assert res["config"]["component"] == "multinomial"
     assert len(res["labels"]) == 2000 and res["nmi"] >= 0.9
+
+
+def test_multinomial_fit_matches_the_jax_fit(jax_fit):
+    x, y = generate_mnmm(3000, 16, 4, seed=0)
+    port = DPMM(DPMMConfig(component="multinomial", **CFG),
+                device="cpu").fit(x)
+    ref = jax_fit.result()
+    assert abs(port.k - ref.k) <= 1, (port.k, ref.k)
+    assert abs(port.nmi(y) - ref.nmi(y)) <= 0.05, (port.nmi(y), ref.nmi(y))
+    assert port.state.active.numpy()[port.labels].all()

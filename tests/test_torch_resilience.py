@@ -24,6 +24,7 @@ import signal
 import subprocess
 import sys
 import textwrap
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import numpy as np
@@ -129,19 +130,18 @@ def test_guardrails_change_no_bit(plane):
     assert on.recoveries == [] == off.recoveries
 
 
-def test_inf_row_raises_divergence_with_the_reference_event_log():
+@pytest.fixture(autouse=True, scope="module")
+def jax_inf_row_fit():
+    """The JAX fit of the inf-row data, started on a thread when the
+    module starts: its compile runs while the module's port-only tests
+    do, and ``test_inf_row_raises_divergence_with_the_reference_event_log``
+    (the module's last test) waits for its ``DivergenceError``."""
     x = _data()
-    x[5] = np.inf                    # persistent: rollback is futile
-    with pytest.raises(DivergenceError) as got:
-        _fit(_cfg(max_recoveries=2), x)
-    with pytest.raises(JDivergenceError) as want:
-        jsampler.DPMM(JConfig(alpha=2.0, iters=12, k_max=K_MAX, burnout=3,
-                              log_every=4, max_recoveries=2)).fit(x)
-    fields = ("kind", "iter", "restored_it", "rollback")
-    events = [tuple(e[f] for f in fields) for e in got.value.recoveries]
-    assert events == [tuple(e[f] for f in fields)
-                      for e in want.value.recoveries]
-    assert len(events) == 3          # max_recoveries + the last straw
+    x[5] = np.inf
+    with ThreadPoolExecutor(1) as pool:
+        yield pool.submit(lambda: jsampler.DPMM(JConfig(
+            alpha=2.0, iters=12, k_max=K_MAX, burnout=3, log_every=4,
+            max_recoveries=2)).fit(x))
 
 
 def test_nan_tile_rolls_back_once_to_the_rekeyed_anchor():
@@ -365,3 +365,18 @@ def test_cli_resumes_a_stopped_run(tmp_path, monkeypatch):
     got = json.loads((tmp_path / "r.json").read_text())
     assert got["labels"] == json.loads(whole.read_text())["labels"]
     assert len(got["iter_times_s"]) == 8
+
+
+def test_inf_row_raises_divergence_with_the_reference_event_log(
+        jax_inf_row_fit):
+    x = _data()
+    x[5] = np.inf                    # persistent: rollback is futile
+    with pytest.raises(DivergenceError) as got:
+        _fit(_cfg(max_recoveries=2), x)
+    with pytest.raises(JDivergenceError) as want:
+        jax_inf_row_fit.result()
+    fields = ("kind", "iter", "restored_it", "rollback")
+    events = [tuple(e[f] for f in fields) for e in got.value.recoveries]
+    assert events == [tuple(e[f] for f in fields)
+                      for e in want.value.recoveries]
+    assert len(events) == 3          # max_recoveries + the last straw

@@ -154,8 +154,12 @@ def test_invalid_queries_raise(served):
         te.predict(q[:, :3])
     with pytest.raises(ValueError, match="ascending"):
         tserve.ServeConfig(batch_sizes=(64, 64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.ServeConfig(refine=True)
+    # refinement is ported: its knobs are checked as the reference's
+    assert tserve.ServeConfig(refine=True).refine
+    with pytest.raises(ValueError, match="at least one refine_batch"):
+        tserve.ServeConfig(refine=True, refine_batch=512, refine_buffer=256)
+    with pytest.raises(ValueError, match="refine_decay"):
+        tserve.ServeConfig(refine=True, refine_decay=1.0)
 
 
 def test_swap_gates_on_model_health_and_flips_atomically(served, tmp_path):
