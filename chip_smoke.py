@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile TRACE.json]
+    python3 chip_smoke.py [--profile TRACE.json] [--mesh-only]
 
 Builds the port's twelve CUDA kernels from ``src/repro_torch/csrc`` and
 holds each against its plain PyTorch version on the card (phases
@@ -143,6 +143,23 @@ multinomial with 2 workers, bitwise; ms/iter against the single-process
 fit, bytes of partials a pass, seconds from spawn to READY, the peak
 device bytes of the coordinator and of each worker, and the launches of
 both sides (the workers report theirs with their results).
+``fit_mesh``: one fit over a device mesh (``DPMM(cfg, mesh=)``): the
+10^6 x 32 Gaussian on 1, 2 and 4 data shards, shard s on card s mod the
+cards present (logical shards on one card): G = 1 bitwise the ``fit``
+phase's chain; G = 2 and 4 twice each (bitwise, the chain's digest
+printed), their labels against G = 1 counted, NMI >= 0.9; ms/iter, peak
+bytes per card, the bytes a cross-shard reduction gathers a pass, each
+shard's launches of ``sweep_gauss``, ``suffstats_labels`` and
+``fold_partials``; then the tiled fit on 2 shards from an .npy in
+65,536-row tiles, bitwise the resident 2-shard chain.
+``fit_feature_shard``: the 10^6 x 128 multinomial on a (2 x 2) mesh
+with ``shard_features`` (each data shard's features in two slices: the
+plain route, ``moments_labels`` a slice) against the (2 x 1) mesh:
+labels differing counted, K, NMI >= 0.9, two (2 x 2) runs bitwise.
+Every phase but these two fits on one card, however many the machine
+holds. ``--mesh-only`` runs just the build, ``fit`` and these two phases
+(on several cards a G-shard chain's digest must equal the one-card
+run's), and prints no result line.
 ``kernel_check_dense`` holds the dense ``suffstats`` oracle (its entry
 point ``ops.suffstats``) against its plain version at the d = 32 and d =
 128 fits' final states, a ragged shape, d = 256 and the reference's §4.2
@@ -311,6 +328,9 @@ WORKER_COUNTS = (1, 2, 4)
 WORKER_CFG = dict(k_max=64, iters=16, burnout=10, log_every=10)
 WORKER_KILL_AT = 12
 WORKER_DEADLINE_S = 5.0
+# The mesh (fit_mesh): data shards of the 10^6 x 32 fit, shard s on card
+# s mod the cards present (logical shards on one card).
+MESH_SHARDS = (1, 2, 4)
 WINDOW_CASES = (("k8193", 20_000, 3, 8193), ("k16384", 20_000, 3, 16_384),
                 ("d300", 20_000, 300, 5), ("d384", 20_000, 384, 5),
                 ("fold_k10000", 50_176, K_LARGE_D, 10_000),
@@ -1539,6 +1559,151 @@ def fit_workers(DPMM, DPMMConfig, HostTiledSource, x_np, y_np, xm_np,
     return report, total
 
 
+def chain_digest(res) -> str:
+    """sha256 of a fit's labels, histories and final stats and substats:
+    equal digests, the same chain."""
+    import hashlib
+    h = hashlib.sha256(np.ascontiguousarray(res.labels).tobytes())
+    for key in sorted(res.history):
+        h.update(np.ascontiguousarray(res.history[key]).tobytes())
+    for group in ("stats", "substats"):
+        st = getattr(res.state, group)
+        for f in st.__dataclass_fields__:
+            h.update(getattr(st, f).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def mesh_fit(DPMM, cfg, mesh, src, y_np, total: dict) -> tuple:
+    """``DPMM(cfg, mesh=mesh).fit(src)`` with the launch counts set to 0
+    just before and read just after (added to ``total``): the result and
+    its report."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = DPMM(cfg, mesh=mesh).fit(src)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    m = res.mesh
+    per_pass = m["reduce_bytes"] / m["reductions"] if m["reductions"] else 0
+    return res, {
+        "mode": res.mode, "wall_s": wall, "k_found": res.k,
+        "nmi": res.nmi(y_np),
+        "ms_per_iter": 1e3 * float(np.mean(res.iter_times_s)),
+        "steady_ms_per_iter": steady_ms(res, cfg),
+        "peak_bytes_per_card": m.get("peak_bytes"),
+        "start_bytes": res.start_bytes, "reductions": m["reductions"],
+        "reduce_bytes": m["reduce_bytes"],
+        "reduce_bytes_per_pass": per_pass, "n_local": m["n_local"],
+        "devices": m["devices"],
+        "shard_launches": [{k: v for k, v in sl.items() if v}
+                           for sl in m["shard_launches"]],
+        "launches": {k: v for k, v in launches.items() if v},
+        "digest": chain_digest(res)}
+
+
+def fit_mesh(DPMM, DPMMConfig, Mesh, HostTiledSource, x_np, y_np, whole,
+             tmp: Path, gpu) -> tuple:
+    """The 10^6 x 32 Gaussian fit (FIT_CFG) over a data mesh of 1, 2 and 4
+    shards, shard s on card s mod count (``fit_mesh``): G = 1 bitwise the
+    ``fit`` phase's chain ``whole``; G = 2 and 4 run twice (bitwise, the
+    digest printed), their labels against G = 1 counted, NMI >= 0.9; then
+    the tiled fit on 2 shards from an .npy in TILE-row tiles, bitwise the
+    resident 2-shard chain. Returns the report and the launches summed
+    over the fits."""
+    cards = torch.cuda.device_count()
+    total: dict = {}
+    report: dict = {"cfg": FIT_CFG, "cards": cards, "shards": {}}
+    problems = []
+    cfg = DPMMConfig(**FIT_CFG)
+    mesh = lambda g: Mesh([f"cuda:{s % cards}" for s in range(g)])
+    one, rep = mesh_fit(DPMM, cfg, mesh(1), x_np, y_np, total)
+    rep["bitwise_fit"] = same_chain(one, whole)
+    rep["state_bitwise_fit"] = state_bits(one.state, whole.state)
+    if not (all(rep["bitwise_fit"].values()) and rep["state_bitwise_fit"]):
+        problems.append("G = 1 is not the fit phase's chain")
+    report["shards"]["1"] = rep
+    fits = {1: one}
+    for g in MESH_SHARDS[1:]:
+        a, rep = mesh_fit(DPMM, cfg, mesh(g), x_np, y_np, total)
+        b, rep2 = mesh_fit(DPMM, cfg, mesh(g), x_np, y_np, total)
+        rep["second_run"] = {k: rep2[k] for k in (
+            "steady_ms_per_iter", "ms_per_iter", "wall_s", "digest")}
+        rep["bitwise_second_run"] = same_chain(a, b)
+        rep["labels_differing_from_g1"] = int((a.labels != one.labels).sum())
+        rep["k_history_equal_g1"] = bool(np.array_equal(
+            a.history["k"], one.history["k"]))
+        rep["score_max_rel_diff_g1"] = float(np.max(
+            np.abs(a.history["score"] - one.history["score"])
+            / np.maximum(np.abs(one.history["score"]), 1.0)))
+        if not (all(rep["bitwise_second_run"].values())
+                and state_bits(a.state, b.state)):
+            problems.append(f"G = {g}: two runs differ")
+        if rep["nmi"] < 0.9:
+            problems.append(f"G = {g}: NMI {rep['nmi']:.4f} < 0.9")
+        for name in GAUSS_PATH[:2]:
+            if not all(sl.get(name) for sl in rep["shard_launches"]):
+                problems.append(f"G = {g}: a shard never launched {name}")
+        if not rep["launches"].get("fold_partials"):
+            problems.append(f"G = {g}: fold_partials never launched")
+        report["shards"][str(g)] = rep
+        fits[g] = a
+    path = tmp / "xmesh.npy"
+    np.save(path, x_np)
+    tiled, rep = mesh_fit(DPMM, DPMMConfig(tile_size=TILE, **FIT_CFG),
+                          mesh(2), HostTiledSource.from_npy(path), y_np,
+                          total)
+    rep["bitwise_resident"] = same_chain(tiled, fits[2])
+    rep["copy_wait_s"], rep["read_s"] = tiled.copy_wait_s, tiled.read_s
+    if not all(rep["bitwise_resident"].values()):
+        problems.append("tiled 2-shard chain is not the resident one")
+    report["tiled_2"] = rep
+    report["problems"] = problems
+    report["nvidia_smi"] = gpu
+    return report, total
+
+
+def fit_feature_shard(DPMM, DPMMConfig, Mesh, synthetic, gpu) -> tuple:
+    """The 10^6 x 128 multinomial (FIT_CFG) on a (2 x 2) mesh with
+    ``shard_features`` (each data shard's features in two slices: the
+    plain route and ``moments_labels`` a slice) against the (2 x 1) mesh
+    (``fit_feature_shard``): labels differing counted, K, NMI >= 0.9, two
+    (2 x 2) runs bitwise. Cards as in ``fit_mesh``."""
+    cards = torch.cuda.device_count()
+    x_np, y_np = synthetic.generate_mnmm(1_000_000, 128, FIT_K, seed=0)
+    total: dict = {}
+    problems = []
+    devs = [f"cuda:{s % cards}" for s in range(4)]
+    cfg = dict(FIT_CFG, component="multinomial")
+    data, rep21 = mesh_fit(DPMM, DPMMConfig(**cfg), Mesh(devs[:2]), x_np,
+                           y_np, total)
+    mesh22 = Mesh(np.array(devs, dtype=object).reshape(2, 2),
+                  ("data", "model"))
+    fcfg = DPMMConfig(shard_features=True, **cfg)
+    a, rep22 = mesh_fit(DPMM, fcfg, mesh22, x_np, y_np, total)
+    b, rep2 = mesh_fit(DPMM, fcfg, mesh22, x_np, y_np, total)
+    rep22["second_run"] = {k: rep2[k] for k in (
+        "steady_ms_per_iter", "ms_per_iter", "wall_s", "digest")}
+    rep22["bitwise_second_run"] = same_chain(a, b)
+    rep22["labels_differing_from_2x1"] = int((a.labels != data.labels).sum())
+    rep22["k_history_equal_2x1"] = bool(np.array_equal(
+        a.history["k"], data.history["k"]))
+    if not (all(rep22["bitwise_second_run"].values())
+            and state_bits(a.state, b.state)):
+        problems.append("(2 x 2): two runs differ")
+    for r, name in ((rep21, "(2 x 1)"), (rep22, "(2 x 2)")):
+        if r["nmi"] < 0.9:
+            problems.append(f"{name}: NMI {r['nmi']:.4f} < 0.9")
+    if not all(sl.get("moments_labels") for sl in rep22["shard_launches"]):
+        problems.append("(2 x 2): a shard never launched moments_labels")
+    if not all(sl.get("sweep_linear") for sl in rep21["shard_launches"]):
+        problems.append("(2 x 1): a shard never launched sweep_linear")
+    return {"cfg": cfg, "cards": cards, "mesh_2x1": rep21,
+            "mesh_2x2": rep22, "problems": problems,
+            "nvidia_smi": gpu}, total
+
+
 def time_serve_kernels(engines, xq, assign, loglik, matmul, dev) -> dict:
     """Kernel, plain and library times of the four serving kernels on the
     engines' compact operands at one SERVE_B-row step, with the bound of
@@ -1700,7 +1865,7 @@ def profile_fit(x_np, cfg, trace: str) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = DPMM(cfg).fit(x_np)
+        res = DPMM(cfg, device="cuda").fit(x_np)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     prof.export_chrome_trace(trace)
@@ -2531,8 +2696,8 @@ def fit_resilience(DPMM, DPMMConfig, checkpoint, synthetic, sources, cfg,
                 os.kill(os.getpid(), signal.SIGKILL)
             return p
         checkpoint.save_checkpoint = dying_save
-        DPMM(DPMMConfig(**{dataclasses.asdict(kcfg)!r})).fit(
-            np.load({str(x2_path)!r}))
+        DPMM(DPMMConfig(**{dataclasses.asdict(kcfg)!r}),
+             device="cuda").fit(np.load({str(x2_path)!r}))
         raise SystemExit("the fit survived its SIGKILL")
     """)
     t0 = time.perf_counter()
@@ -2762,10 +2927,38 @@ def fit_k_auto(DPMM, DPMMConfig, x_np, y_np, gpu) -> dict:
     return out
 
 
+def mesh_phases(DPMM, DPMMConfig, HostTiledSource, synthetic, x_np, y_np,
+                whole, gpu) -> dict:
+    """``fit_mesh`` (against the ``fit`` phase's chain ``whole`` on x_np)
+    and ``fit_feature_shard``, each emitted; raises on a problem. Returns
+    each phase's launches."""
+    import tempfile
+    from repro_torch.core.distributed import Mesh
+    launched_by = {}
+    for phase, run in (
+            ("fit_mesh", lambda tmp: fit_mesh(
+                DPMM, DPMMConfig, Mesh, HostTiledSource, x_np, y_np, whole,
+                Path(tmp), gpu)),
+            ("fit_feature_shard", lambda tmp: fit_feature_shard(
+                DPMM, DPMMConfig, Mesh, synthetic, gpu))):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            report, launched = run(tmp)
+        emit(phase, seconds=time.perf_counter() - t0, **report)
+        if report["problems"]:
+            fail(f"{phase}: {'; '.join(report['problems'])}")
+        launched_by[phase] = launched
+    return launched_by
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="TRACE", default="",
                     help="also profile a second fit; Chrome trace path")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="only the build, the fit phase and the mesh "
+                         "phases (fit_mesh, fit_feature_shard), on the "
+                         "cards present")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -2775,7 +2968,7 @@ def main() -> None:
     from repro_torch.configs import DPMMConfig
     from repro_torch.core import checkpoint, gibbs, niw, sampler
     from repro_torch.core.family import get_family
-    from repro_torch.core.sampler import DPMM
+    from repro_torch.core.sampler import DPMM as MeshDPMM
     from repro_torch.data import synthetic
     from repro_torch.data.faults import FaultInjectingSource
     from repro_torch.data.source import HostTiledSource
@@ -2784,6 +2977,15 @@ def main() -> None:
                                      suffstats, sweep)
 
     dev = torch.device("cuda")
+
+    def DPMM(cfg, mesh=None):
+        """Every phase but fit_mesh and fit_feature_shard fits on one card,
+        however many the machine holds (``DPMM(cfg)`` alone takes them
+        all)."""
+        if mesh is not None:
+            return MeshDPMM(cfg, mesh=mesh)
+        return MeshDPMM(cfg, device=dev)
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gpu = card()
@@ -2797,6 +2999,15 @@ def main() -> None:
          ptxas={n: [ln for ln in (build.ptxas_report(n) or "").splitlines()
                     if "registers" in ln or "spill" in ln]
                 for n in build.SOURCES})
+
+    if opts.mesh_only:
+        x_np, y_np = generate_gmm(FIT_N, FIT_D, FIT_K, seed=0)
+        res, _ = run_fit(DPMM, DPMMConfig(**FIT_CFG), x_np, y_np,
+                         GAUSS_PATH, gpu, "fit")
+        mesh_phases(DPMM, DPMMConfig, HostTiledSource, synthetic, x_np,
+                    y_np, res, gpu)
+        print(gpu)
+        return
 
     # (3) each kernel against its plain version at the fit's widths:
     # sweep at the compact K_c = 32 slots, suffstats at the split/merge
@@ -3246,6 +3457,10 @@ def main() -> None:
     if workers_rep["problems"]:
         fail(f"fit_workers: {'; '.join(workers_rep['problems'])}")
 
+    # one fit over a device mesh: data shards, then feature shards
+    mesh_launch = mesh_phases(DPMM, DPMMConfig, HostTiledSource, synthetic,
+                              x_np, y_np, res, gpu)
+
     # (4) time each kernel at the fit's shapes (its final state, all N)
     x = torch.as_tensor(x_np, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -3495,13 +3710,18 @@ def main() -> None:
         "library_ms": dx["library_ms"], "device_ms": dx["device_ms"],
         "host_ms": dx["host_ms"],
         "library_device_ms": dx["library_device_ms"]})
-    # the launches of serve_refine's and fit_workers' main paths
+    # the launches of serve_refine's, fit_workers', fit_mesh's and
+    # fit_feature_shard's main paths
     for r in rows:
         r["launches_serve_refine"] = sum(v[r["name"]]
                                          for v in refine_launch.values())
         r["launches_fit_workers"] = workers_launch.get(r["name"], 0)
+        for phase, launched in mesh_launch.items():
+            r[f"launches_{phase}"] = launched.get(r["name"], 0)
         r["launches"] += (r["launches_serve_refine"]
-                          + r["launches_fit_workers"])
+                          + r["launches_fit_workers"]
+                          + sum(launched.get(r["name"], 0)
+                                for launched in mesh_launch.values()))
     emit("matmul_crossover", nvidia_smi=gpu,
          paper_crossover_dn=640_000, **matmul_crossover(matmul, dev))
     torch.cuda.synchronize()

@@ -7,7 +7,9 @@ multinomial, poisson), ``k_max='auto'``, auto-checkpointing and the
 guardrails included. There is no ``use_pallas``: on the card the
 hand-written kernels are the path. ``workers`` runs the fit on a
 coordinator and that many worker processes (``repro_torch.dist``), with
-the reference's deadline, heartbeat and respawn knobs.
+the reference's deadline, heartbeat and respawn knobs; ``shard_features``
+splits the features over a mesh's ``model`` axis
+(``core/distributed.py``).
 """
 from __future__ import annotations
 
@@ -50,6 +52,10 @@ class DPMMConfig:
     # clusters (O(K_active) per-point work instead of O(k_max))
     compact: bool = True
     k_block: int = 8                  # least compact slab size
+    # on a mesh with a 'model' axis, split x's features over it (the
+    # feature-separable families: multinomial, poisson, diag_gaussian; a
+    # gaussian keeps its features whole)
+    shard_features: bool = False
     # data plane: None = resident (points on the device for the whole
     # fit); an int streams the points from the DataSource in tiles of about
     # this many rows (rounded up to STATS_BLOCK): device memory is
@@ -143,6 +149,11 @@ class DPMMConfig:
                     "DPMMConfig.workers requires a fixed integer k_max: "
                     "the growable slab re-plans shapes mid-fit, which the "
                     "worker protocol does not ship")
+            if self.shard_features:
+                raise ValueError(
+                    "DPMMConfig.workers does not compose with "
+                    "shard_features yet: worker shards split rows, not "
+                    "columns")
         if self.worker_deadline_s <= 0 or self.worker_heartbeat_s <= 0:
             raise ValueError(
                 "DPMMConfig.worker_deadline_s/worker_heartbeat_s must be "

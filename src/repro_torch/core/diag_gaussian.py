@@ -109,6 +109,12 @@ def assign_pack(x: torch.Tensor, params: DiagParams):
     return (features(x),) + _pack_linear(params, x.shape[-1])
 
 
+def slice_params(params: DiagParams, start: int, n: int) -> DiagParams:
+    """Features ``start .. start + n`` of the params (feature sharding)."""
+    sl = lambda t: t[..., start:start + n]
+    return DiagParams(mu=sl(params.mu), log_prec=sl(params.log_prec))
+
+
 def sweep_pack(x: torch.Tensor, params: DiagParams, subparams: DiagParams):
     """The fused sweep's operands (feats, w, const, subw, subconst): the
     [x, x^2] block is built once, here in PyTorch, and shared by steps

@@ -51,7 +51,19 @@ through this interface:
   ``ops.matmul`` (the blocked kernel at every size: cuBLAS's rows change
   with the batch size, the kernel's do not, and a served point's answer
   must not depend on the request it came in);
-- ``cluster_means``: the first-moment field over the counts.
+- ``cluster_means``: the first-moment field over the counts;
+- feature sharding (``DPMMConfig.shard_features`` on a mesh with a
+  ``model`` axis), for the families the reference marks
+  ``feature_shardable`` (multinomial, poisson, diag_gaussian: likelihood
+  and stats are sums over features): given x as ``FeatureShards``,
+  ``sweep`` takes the plain route, as the reference keeps its kernels off
+  under a feature axis: step (e) sums the slices' partial log-likelihoods
+  (``loglik`` of ``slice_params`` on each slice, ``torch.matmul``) in
+  model shard order, then adds the Gumbel noise and takes the first max
+  (``loglik_sharded``), step (f) the same over the own cluster's two
+  sub-clusters, and ``stats_from_labels`` folds each slice's stats on its
+  device (``moments_labels``); ``gather_feature_stats`` joins the slices'
+  ``feature_stat_fields`` along features.
 """
 from __future__ import annotations
 
@@ -61,10 +73,12 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from repro_torch.core import diag_gaussian, multinomial, niw, poisson
+from repro_torch.core.distributed import FeatureShards, to_device
 from repro_torch.core.labelstats import cat_partials, fold_stats, window_rows
 from repro_torch.kernels import ops
 from repro_torch.kernels.sweep import MAX_D as SWEEP_GAUSS_MAX_D
 from repro_torch.kernels.sweep import MAX_K as SWEEP_MAX_K
+from repro_torch.kernels.sweep import pick_cluster, pick_subcluster
 
 
 def fold_blocked(family: "ComponentFamily", k_max: int, body,
@@ -194,6 +208,12 @@ class ComponentFamily:
     mean_field: str = "sx"
     # widest d the fused sweep takes (None: every d); wider runs sweep_ref
     fused_max_d: Optional[int] = None
+    # feature sharding: likelihood and stats are sums over features; the
+    # stats fields sliced along features; (params, start, n) -> the params
+    # of features start .. start + n
+    feature_shardable: bool = False
+    feature_stat_fields: Tuple[str, ...] = ()
+    slice_params: Optional[Callable[[Any, int, int], Any]] = None
 
     def sweep(self, x, valid, params, subparams, logw, sublogw, active,
               gidx, key_z, key_zb, k_max: int, acc, slots=None):
@@ -206,6 +226,10 @@ class ComponentFamily:
         ``(labels, sublabels, acc')`` with labels in the slab's
         positions; with ``acc=None`` the third item is the per-block
         partials of every window, unfolded."""
+        if isinstance(x, FeatureShards):
+            return self.sweep_sharded(x, valid, params, subparams, logw,
+                                      sublogw, active, gidx, key_z, key_zb,
+                                      k_max, acc, slots=slots)
         if ((self.fused_max_d is not None and x.shape[1] > self.fused_max_d)
                 or logw.shape[0] > SWEEP_MAX_K):
             return self.sweep_ref(x, valid, params, subparams, logw,
@@ -244,11 +268,73 @@ class ComponentFamily:
 
         return fold_blocked(self, k_max, body, x, valid, (gidx,), acc)
 
+    def sweep_sharded(self, x: FeatureShards, valid, params, subparams,
+                      logw, sublogw, active, gidx, key_z, key_zb,
+                      k_max: int, acc, slots=None):
+        """``sweep`` with x's features split over the model axis, on the
+        plain route (the reference's ``sweep_ref`` under ``feat_axis``):
+        step (e) from ``loglik_sharded``, step (f) from the slices' summed
+        own-cluster log-likelihoods, then each slice's stat fold;
+        ``acc`` is the list of the slices' accumulators."""
+        self._require_shardable()
+        if slots is None:
+            slots = torch.arange(k_max, device=x.device)
+
+        def body(xb, vb, gb):
+            lab = pick_cluster(self.loglik_sharded(xb, params), logw,
+                               active, gb, key_z, slots)
+            own = xb.psum(lambda xs, a, b, lb: _own_linear_loglik(
+                self.module, xs, to_device(
+                    self.slice_params(subparams, a, b - a), xs.device), lb),
+                lab.long())
+            return lab, pick_subcluster(own, sublogw[lab.long()], gb,
+                                        key_zb)
+
+        return fold_blocked(self, k_max, body, x, valid, (gidx,), acc)
+
+    def loglik_sharded(self, x: FeatureShards, params) -> torch.Tensor:
+        """(N, K) log-likelihoods of feature-sharded points: each slice's
+        ``loglik`` under its slice of the params (``slice_params``),
+        summed in model shard order (the reference's psum over
+        ``model``)."""
+        self._require_shardable()
+        return x.psum(lambda xs, a, b: self.module.loglik(xs, to_device(
+            self.slice_params(params, a, b - a), xs.device)))
+
+    def gather_feature_stats(self, parts, device):
+        """One stats object from the slices' ``parts`` (in model shard
+        order) on ``device``: the feature-sliced fields joined along
+        features, the rest (the counts) taken from the first slice."""
+        self._require_shardable()
+        out = {}
+        for f in dataclasses.fields(parts[0]):
+            vals = [to_device(getattr(p, f.name), device) for p in parts]
+            out[f.name] = (torch.cat(vals, dim=-1)
+                           if f.name in self.feature_stat_fields else vals[0])
+        return type(parts[0])(**out)
+
+    def _require_shardable(self) -> None:
+        if not self.feature_shardable:
+            raise ValueError(
+                f"component family {self.name!r} is not feature-separable "
+                "(the full-covariance Gaussian's Mahalanobis term couples "
+                "the features), so shard_features does not apply to it; "
+                f"the shardable ones: {', '.join(shardable_families())}")
+
     def stats_from_labels(self, x, valid, labels, sublabels, k_max: int,
                           acc=None):
         """(k_max, 2) sub-cluster stats straight from int labels, added to
         ``acc`` (zeros by default) block by block in point order, the
-        partials made and folded window by window (``window_rows``)."""
+        partials made and folded window by window (``window_rows``). For
+        ``FeatureShards`` every slice's stats on its device: ``acc`` and
+        the result are the slices' list."""
+        if isinstance(x, FeatureShards):
+            if acc is None:
+                acc = [None] * len(x.slices)
+            return [self.stats_from_labels(
+                xs, *[to_device(t, xs.device)
+                      for t in (valid, labels, sublabels)], k_max, acc=a)
+                for xs, a in zip(x.slices, acc)]
         if acc is None:
             acc = self.empty_stats((k_max, 2), x.shape[1], x.device)
         for a, b in self.windows(x, k_max):
@@ -297,6 +383,14 @@ class ComponentFamily:
         return first / torch.clamp(stats.n[..., None], min=1.0)
 
 
+def _own_linear_loglik(mod, x, subparams, labels) -> torch.Tensor:
+    """(N, 2) log-likelihoods of each point under its own cluster's two
+    sub-clusters, from the family's linear pack (``assign_pack``)."""
+    feats, w, const = mod.assign_pack(x, subparams)
+    return torch.stack([(feats * w[labels, s]).sum(dim=-1)
+                        for s in (0, 1)], dim=1) + const[labels]
+
+
 def _module_family(mod, name: str, params_cls, stats_cls,
                    **kw) -> ComponentFamily:
     return ComponentFamily(
@@ -326,14 +420,21 @@ GAUSSIAN = _module_family(niw, "gaussian", niw.GaussParams, niw.GaussStats,
                           fused_max_d=SWEEP_GAUSS_MAX_D)
 MULTINOMIAL = _linear_family(multinomial, "multinomial",
                              multinomial.MultParams, multinomial.MultStats,
-                             mean_field="counts")
+                             mean_field="counts", feature_shardable=True,
+                             feature_stat_fields=("counts",),
+                             slice_params=multinomial.slice_params)
 POISSON = _linear_family(poisson, "poisson", poisson.PoisParams,
-                         poisson.PoisStats, mean_field="sx")
+                         poisson.PoisStats, mean_field="sx",
+                         feature_shardable=True, feature_stat_fields=("sx",),
+                         slice_params=poisson.slice_params)
 DIAG_GAUSSIAN = _linear_family(diag_gaussian, "diag_gaussian",
                                diag_gaussian.DiagParams,
                                diag_gaussian.DiagStats, mean_field="sx",
                                loglik_fn=_diag_loglik,
-                               slot_floats=lambda d: 1 + 2 * d)
+                               slot_floats=lambda d: 1 + 2 * d,
+                               feature_shardable=True,
+                               feature_stat_fields=("sx", "sxx"),
+                               slice_params=diag_gaussian.slice_params)
 
 _REGISTRY = {f.name: f for f in (GAUSSIAN, MULTINOMIAL, POISSON,
                                  DIAG_GAUSSIAN)}
@@ -341,6 +442,11 @@ _REGISTRY = {f.name: f for f in (GAUSSIAN, MULTINOMIAL, POISSON,
 
 def available_families() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
+
+
+def shardable_families() -> Tuple[str, ...]:
+    return tuple(sorted(n for n, f in _REGISTRY.items()
+                        if f.feature_shardable))
 
 
 def get_family(name: str) -> ComponentFamily:

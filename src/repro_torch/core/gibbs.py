@@ -9,10 +9,11 @@ Port of ``repro.core.gibbs`` for one process and one chain:
   passes (``ComponentFamily.sweep_ref``: ``assign``, ``sub_assign``, the
   label-stat fold), the reference's parity oracle: both give the same
   labels and stats;
-- ``sweep``: both, with the active-set compaction around the tile. A
-  streamed (tiled) fit runs its halves itself: ``sweep_begin`` (the key
-  words and steps (a)-(d)), ``sweep_compaction``, then ``sweep_tile`` on
-  every tile with a running accumulator, then ``sweep_end``;
+- a fit (``sampler._step_models``, both planes, every data shard of a
+  mesh) runs them in halves: ``sweep_begin`` (the key words and steps
+  (a)-(d)), ``sweep_compaction``, then ``sweep_tile`` on every tile of
+  every shard with a running accumulator, the shards' reduction, then
+  ``sweep_end``;
 - ``refine_sweep``: the serving layer's online refinement
   (``serve/dpmm.py``): steps (a)-(d) on the model, then ``refine_tile``,
   one ``sweep_tile`` over a batch of fresh points on the dense slab whose
@@ -43,7 +44,10 @@ from repro_torch.kernels.sweep import NEG_INF
 
 def global_indices(n: int, device, offset: int = 0) -> torch.Tensor:
     """(n,) int64 global point indices of the points ``offset`` to
-    ``offset + n`` (a tile's; all the resident points from 0)."""
+    ``offset + n``: over a mesh, ``offset`` is the data shard's base
+    ``s * n_local`` (``distributed.shard_points``' padded layout) plus
+    the tile's offset in the shard, as the reference's ``global_indices``
+    adds ``axis_index * n_local``."""
     return torch.arange(offset, offset + n, dtype=torch.int64, device=device)
 
 
@@ -125,12 +129,6 @@ def empty_substats(family, k_max: int, d: int, device):
 def finalize_substats(substats):
     """Cluster stats are the fold of the sub-cluster stats over l/r."""
     return tree_map(lambda a: a.sum(dim=1), substats), substats
-
-
-def compute_stats(family, x, valid, labels, sublabels, k_max: int):
-    """(stats, substats) of a labelling, through ``suffstats_labels``."""
-    return finalize_substats(family.stats_from_labels(
-        x, valid, labels, sublabels, k_max))
 
 
 # ---------------------------------------------------------------------------
@@ -240,21 +238,6 @@ def sweep_end(model: ModelState, acc, plan: Optional[CompactionPlan]
         stats = compact_scatter(plan, k_max, stats)
         substats = compact_scatter(plan, k_max, substats)
     return model.replace(stats=stats, substats=substats)
-
-
-def sweep(model: ModelState, point: PointState, x: torch.Tensor, prior,
-          family, alpha: float, *, k_compact: Optional[int] = None
-          ) -> Tuple[ModelState, PointState]:
-    """One restricted Gibbs sweep (steps a-f) over the resident points, on
-    the compact slab of ``k_compact`` rows when the live clusters fit in
-    it (``sweep_compaction``)."""
-    model, key_z, key_zb = sweep_begin(model, prior, family, alpha)
-    plan = sweep_compaction(model, k_compact)
-    acc = sweep_acc(model, family, plan, x.shape[1])
-    point, acc = sweep_tile(model, x, point,
-                            global_indices(x.shape[0], x.device), acc,
-                            family, key_z, key_zb, plan=plan)
-    return sweep_end(model, acc, plan), point
 
 
 def refine_tile(model: ModelState, x: torch.Tensor, valid: torch.Tensor,

@@ -82,6 +82,11 @@ def assign_pack(x: torch.Tensor, params: MultParams):
         params.logtheta.shape[:-1])
 
 
+def slice_params(params: MultParams, start: int, n: int) -> MultParams:
+    """Features ``start .. start + n`` of the params (feature sharding)."""
+    return MultParams(logtheta=params.logtheta[..., start:start + n])
+
+
 def sweep_pack(x: torch.Tensor, params: MultParams, subparams: MultParams):
     """The fused sweep's operands: x is both the feature block and the
     stat feature map. Returns (feats, w, const, subw, subconst)."""

@@ -81,6 +81,11 @@ def assign_pack(x: torch.Tensor, params: PoisParams):
             -torch.exp(params.log_rate).sum(dim=-1))
 
 
+def slice_params(params: PoisParams, start: int, n: int) -> PoisParams:
+    """Features ``start .. start + n`` of the params (feature sharding)."""
+    return PoisParams(log_rate=params.log_rate[..., start:start + n])
+
+
 def sweep_pack(x: torch.Tensor, params: PoisParams, subparams: PoisParams):
     """The fused sweep's operands (feats, w, const, subw, subconst); the
     ``-sum exp(log rate)`` constants are computed here, outside the

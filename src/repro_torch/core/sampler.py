@@ -6,8 +6,9 @@ with ``cfg.workers`` the elastic multi-process driver
 model, worker processes stream row ranges of x, and the chain is the
 tiled plane's bit for bit). Per iteration (paper §4.1):
 
-    restricted Gibbs sweep (gibbs.sweep)  ->  after ``burnout``:
-    split/merge plan + apply + consistency stat fold (_split_merge)
+    restricted Gibbs sweep (gibbs.sweep_begin .. sweep_end)  ->  after
+    ``burnout``: split/merge plan + apply + consistency stat fold
+    (_split_merge_begin .. _split_merge_end), in ``_step_models``
 
 ``fit`` takes an (N, d) array, a tensor or a ``DataSource``
 (``data/source.py``). Without ``cfg.tile_size`` and with the points in
@@ -26,7 +27,27 @@ from ``source.column_mean()``, the reference's float64 pass.
 On a CUDA device the sweep and every stat fold run through the
 hand-written kernels (``kernels/ops.py``); on the CPU through their plain
 versions. ``DPMM`` runs on the card unless the caller passes
-``device="cpu"``.
+``device="cpu"`` (or a mesh of CPU devices).
+
+**The mesh** (``core/distributed.py``; the reference's ``shard_map``): a
+fit runs over ``DPMM.mesh``, by default every visible card. x is padded
+to a multiple of the G data shards (zero rows, ``valid = 0``) and shard s
+holds rows ``[s n_local, (s + 1) n_local)``, resident on its device or
+streamed from the source in its own tiles; the global point index of a
+row, and so its draws, is its row in that layout. The model side runs
+once, on the mesh's first (lead) device: steps (a)-(d), the split/merge
+plan, the keys, the compaction checks. Each pass copies what the tile
+bodies read to every other device (``to_device``), runs each shard's
+bodies on its device with an accumulator of its own, and ends in one
+reduction: the shards' (K, 2, T) sums copied to the lead and folded there
+in shard order from zero (``reduce_stats``, one ``fold_partials``
+launch). At G = 1 there is no reduction: the fit is the one-device fit
+bit for bit. A G-shard chain's bits depend on G, not on the cards that
+hold the shards, and per mesh the tiled chain is the resident one. With
+``cfg.shard_features`` and a ``model`` axis the feature-separable
+families also split x's features (``FeatureShards``, the plain route of
+``ComponentFamily.sweep_sharded``). Both planes run their passes through
+the same ``_step_models`` (``ResidentPasses``, ``StreamPasses``).
 
 All randomness derives from ``(state.key, state.it)`` as the reference
 derives it: the sweep's six keys ``split(fold_in(key, it), 6)``
@@ -63,10 +84,10 @@ boundaries; tiled: after each iteration), and at the end;
 **Multi-chain fits** (``fit(n_chains=C)``): one loop per chain, no
 batching across chains (the reference rejects vmap-style batching: it
 reassociates the float sums). Chain c starts from key ``fold_in(key, c)``.
-The resident plane holds x on the device once and a ``PointState`` a
-chain, and runs each iteration chain after chain; the tiled plane reads
-and uploads each tile once a pass for all chains (``TileStream`` with (C,
-n) host labels), each chain folding its own accumulator left to right.
+The resident plane holds x on the device(s) once and every chain's labels,
+and runs each pass chain after chain; the tiled plane reads and uploads
+each tile once a pass for all chains (``TileStream`` with (C, n) host
+labels), each chain folding its own accumulator left to right.
 Each chain sizes its compact slab from its own live count, unlike the
 reference's maximum over chains: the slab is part of the chain (the
 Threefry top bin), and the per-chain rule is what keeps chain c bit for bit
@@ -86,8 +107,11 @@ Example::
 
     >>> from repro_torch.configs import DPMMConfig
     >>> from repro_torch.core.sampler import DPMM
-    >>> result = DPMM(DPMMConfig(iters=100)).fit(x)   # on "cuda"
+    >>> result = DPMM(DPMMConfig(iters=100)).fit(x)   # every card
     >>> result.k, result.nmi(true_labels)
+    >>> from repro_torch.core.distributed import Mesh
+    >>> mesh = Mesh(["cuda:0"] * 2)                    # two logical shards
+    >>> DPMM(DPMMConfig(iters=100), mesh=mesh).fit(x).mesh["reductions"]
 """
 from __future__ import annotations
 
@@ -101,7 +125,11 @@ import torch
 
 from repro_torch.configs.base import DPMMConfig
 from repro_torch.core import checkpoint, gibbs, splitmerge
-from repro_torch.core.distributed import tile_plan
+from repro_torch.core.distributed import (FeatureShards, Mesh, Shard,
+                                          feature_cols, make_data_mesh,
+                                          reduce_counts, reduce_stats,
+                                          replicated, shard_points,
+                                          tile_plan)
 from repro_torch.core.family import ComponentFamily, get_family
 from repro_torch.core.metrics import ari, nmi
 from repro_torch.core.resilience import (DivergenceError, RetryPolicy,
@@ -109,9 +137,9 @@ from repro_torch.core.resilience import (DivergenceError, RetryPolicy,
 from repro_torch.core.state import (ModelState, PointState, chain_of,
                                     clone_model, grow_model, stack_chains,
                                     tree_map)
-from repro_torch.core.stream import TileStream
+from repro_torch.core.stream import TileStream, run_streams
 from repro_torch.data.source import DataSource, as_source
-from repro_torch.kernels import prng
+from repro_torch.kernels import ops, prng
 
 _HIST_KEYS = ("k", "max_cluster", "min_cluster", "score")
 
@@ -131,6 +159,27 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
+
+
+def resolve_mesh(mesh: Mesh) -> Mesh:
+    """``mesh`` with every device resolved (``resolve_device``; a card
+    named by its index). A device that is not there raises: no shard
+    falls back to another device."""
+    devs = []
+    for dev in mesh.devices.reshape(-1):
+        dev = resolve_device(dev)
+        if dev.type == "cuda":
+            idx = (torch.cuda.current_device() if dev.index is None
+                   else dev.index)
+            if idx >= torch.cuda.device_count():
+                raise ValueError(f"the mesh names {dev}, but "
+                                 f"{torch.cuda.device_count()} CUDA "
+                                 "device(s) are visible")
+            dev = torch.device("cuda", idx)
+        devs.append(dev)
+    arr = np.empty(len(devs), dtype=object)
+    arr[:] = devs
+    return Mesh(arr.reshape(mesh.devices.shape), mesh.axis_names)
 
 
 def chain_score(model: ModelState, prior, family, alpha: float
@@ -198,22 +247,37 @@ def _init_vecs(key, k_max: int, d: int, device) -> torch.Tensor:
         prng.generator(prng.fold_in(key, 1), device), k_max, d, device)
 
 
+def _init_models(passes, keys: List[torch.Tensor], prior, family, cfg,
+                 d: int) -> List[ModelState]:
+    """The initial states over the passes' points (slab ``passes.k_max``),
+    in two passes: round-robin labels and their stats (the same for every
+    chain, folded once), then each chain's hyperplane sub-labels around
+    the initial cluster means, and their stats."""
+    dev, k_max = passes.lead, passes.k_max
+    (acc,) = passes.run("init1", [()],
+                        [gibbs.empty_substats(family, k_max, d, dev)], False)
+    stats0, _ = gibbs.finalize_substats(acc)
+    means0 = family.cluster_means(stats0)
+    accs = passes.run("init2", [(means0, _init_vecs(key, k_max, d, dev))
+                                for key in keys],
+                      [gibbs.empty_substats(family, k_max, d, dev)
+                       for _ in keys], True)
+    return [_init_model(key, *gibbs.finalize_substats(acc), prior=prior,
+                        family=family, cfg=cfg, k_max=k_max)
+            for key, acc in zip(keys, accs)]
+
+
 def _init_local(key, x, valid, *, prior, family, cfg,
                 k_max: int) -> Tuple[ModelState, PointState]:
-    """Initial state: round-robin labels, then hyperplane sub-labels
-    around the initial cluster means."""
-    gidx = gibbs.global_indices(x.shape[0], x.device)
-    labels = _init_labels(gidx, cfg.init_clusters)
-    stats0, _ = gibbs.compute_stats(family, x, valid, labels,
-                                    torch.zeros_like(labels), k_max)
-    means0 = family.cluster_means(stats0)
-    v0 = _init_vecs(key, k_max, x.shape[1], x.device)
-    sublabels = splitmerge.hyperplane_bits(x, labels, means0, v0)
-    stats, substats = gibbs.compute_stats(family, x, valid, labels,
-                                          sublabels, k_max)
-    return (_init_model(key, stats, substats, prior=prior, family=family,
-                        cfg=cfg, k_max=k_max),
-            PointState(labels=labels, sublabels=sublabels, valid=valid))
+    """Initial state of one chain over the points ``x`` on ``x.device``
+    (one shard): round-robin labels, then hyperplane sub-labels around
+    the initial cluster means."""
+    passes = ResidentPasses(
+        family, cfg, x.device,
+        [Shard(x=x, valid=valid, base=0, labels=[None], sublabels=[None])],
+        n_chains=1, k_max=k_max, n=x.shape[0])
+    (model,) = _init_models(passes, [key], prior, family, cfg, x.shape[1])
+    return model, passes.point(0)
 
 
 def _split_merge_begin(model: ModelState, d: int, *, prior, family, cfg,
@@ -248,30 +312,34 @@ def _split_merge_end(model: ModelState, plan, comp, acc,
                          stats=stats, substats=substats)
 
 
-def _split_merge(model: ModelState, point: PointState, x, *, prior, family,
-                 cfg, k_max: int, k_compact=None
-                 ) -> Tuple[ModelState, PointState]:
-    """Plan (O(K)), apply to the points, fold the consistency stats, on
-    the slab ``_split_merge_begin`` sizes from ``k_compact``."""
-    plan, comp, acc = _split_merge_begin(
-        model, x.shape[1], prior=prior, family=family, cfg=cfg,
-        k_max=k_max, k_compact=k_compact)
-    point, acc = splitmerge.split_merge_tile(plan, x, point, acc, family,
-                                             compaction=comp)
-    return _split_merge_end(model, plan, comp, acc, k_max), point
-
-
-def dpmm_step(model: ModelState, point: PointState, x, *, prior, family,
-              cfg, k_max: int, k_compact=None
-              ) -> Tuple[ModelState, PointState]:
-    """One full iteration."""
-    model, point = gibbs.sweep(model, point, x, prior, family, cfg.alpha,
-                               k_compact=k_compact)
-    if model.it >= cfg.burnout:
-        model, point = _split_merge(model, point, x, prior=prior,
-                                    family=family, cfg=cfg, k_max=k_max,
-                                    k_compact=k_compact)
-    return model.replace(it=model.it + 1), point
+def _step_models(models: List[ModelState], passes,
+                 slabs: List[Optional[int]], prior, family, cfg,
+                 d: int) -> List[ModelState]:
+    """One iteration of every chain (both planes): steps (a)-(d) on the
+    lead device, the sweep pass, then after ``burnout`` the split/merge
+    plan and its pass (``passes.run``: every chain on every shard, each
+    pass ending in its reduction), on the slab ``passes.k_max`` and the
+    compact slabs ``slabs`` (``_slab``)."""
+    k_max = passes.k_max
+    begun = [gibbs.sweep_begin(m, prior, family, cfg.alpha) for m in models]
+    comps = [gibbs.sweep_compaction(m, k_c)
+             for (m, _, _), k_c in zip(begun, slabs)]
+    accs = passes.run(
+        "sweep", [(m, kz, kzb, comp)
+                  for (m, kz, kzb), comp in zip(begun, comps)],
+        [gibbs.sweep_acc(m, family, comp, d)
+         for (m, _, _), comp in zip(begun, comps)], False)
+    models = [gibbs.sweep_end(m, acc, comp)
+              for (m, _, _), acc, comp in zip(begun, accs, comps)]
+    if models[0].it >= cfg.burnout:
+        moves = [_split_merge_begin(m, d, prior=prior, family=family,
+                                    cfg=cfg, k_max=k_max, k_compact=k_c)
+                 for m, k_c in zip(models, slabs)]
+        accs = passes.run("sm", [(plan, comp) for plan, comp, _ in moves],
+                          [acc for _, _, acc in moves], True)
+        models = [_split_merge_end(m, plan, comp, acc, k_max)
+                  for m, (plan, comp, _), acc in zip(models, moves, accs)]
+    return [m.replace(it=m.it + 1) for m in models]
 
 
 def _resume_state(state: ModelState, family, dev: torch.device
@@ -399,6 +467,10 @@ class FitResult:
     # spawn-to-READY seconds, partial bytes a pass, workers' peak device
     # bytes and kernel launches (dist/coordinator.py)
     dist: Optional[dict] = None
+    # the mesh: data and model shards, their devices, rows a shard, the
+    # cross-shard reductions and the bytes they gathered, each shard's
+    # kernel launches and each card's peak device bytes
+    mesh: Optional[dict] = None
 
     def chain(self, c: int) -> "FitResult":
         """Chain ``c`` as a single-chain result (views, bit for bit)."""
@@ -501,18 +573,40 @@ def _history(tables: List[np.ndarray], n_chains: int,
 
 
 class DPMM:
-    """Sub-cluster split/merge DPMM sampler on one device."""
+    """Sub-cluster split/merge DPMM sampler over a mesh of devices.
 
-    def __init__(self, cfg: DPMMConfig, device=None):
+    ``mesh`` (``core/distributed.Mesh``): the data shards (and with
+    ``cfg.shard_features`` the model shards) of every fit; the model side
+    runs on its first device. ``device`` instead: a one-shard mesh on
+    it. Neither: ``make_data_mesh()``, every visible card, as the
+    reference's ``DPMM(cfg)`` takes every local device."""
+
+    def __init__(self, cfg: DPMMConfig, device=None,
+                 mesh: Optional[Mesh] = None):
+        if device is not None and mesh is not None:
+            raise ValueError("pass device or mesh, not both: a device is "
+                             "a one-shard mesh")
+        if mesh is None:
+            mesh = (make_data_mesh() if device is None
+                    else Mesh([resolve_device(device)]))
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = resolve_mesh(mesh)
+        self.device = self.mesh.lead
         self.family: ComponentFamily = get_family(cfg.component)
+
+    @property
+    def feature_sharded(self) -> bool:
+        """Whether fits split x's features over the mesh's ``model`` axis:
+        ``cfg.shard_features`` on a feature-separable family (a Gaussian
+        keeps its features whole, as the reference's does)."""
+        return (self.cfg.shard_features and self.family.feature_shardable
+                and "model" in self.mesh.axis_names)
 
     def fit(self, x, iters: Optional[int] = None, verbose: bool = False,
             *, n_chains: int = 1, key=None,
             init_state: Optional[ModelState] = None,
             resume: bool = False, dist_hooks=None) -> FitResult:
-        """Fit to ``x`` on ``self.device``: an (N, d) numpy array or
+        """Fit to ``x`` over ``self.mesh``: an (N, d) numpy array or
         tensor, or a ``DataSource``. It streams in tiles when
         ``cfg.tile_size`` is set or the source is not resident, as the
         reference's ``fit`` dispatches.
@@ -536,7 +630,9 @@ class DPMM:
         it_checkpoint`` iterations run. With no member yet it is a fresh
         fit. It refuses ``init_state``.
 
-        With ``cfg.workers`` the fit runs on the coordinator and worker
+        With ``cfg.workers`` the fit runs on the coordinator (on the
+        mesh's lead device; the mesh is otherwise ignored, as the
+        reference's ``_fit_distributed`` ignores its mesh) and worker
         processes (``repro_torch.dist``), one chain only; ``dist_hooks``
         (a ``repro_torch.dist.DistHooks``) injects worker faults or runs a
         hook each iteration."""
@@ -619,20 +715,38 @@ class DPMM:
 
     def _setup(self, source: DataSource):
         """The prior from the source's column mean and the device bytes at
-        the start."""
+        the start (on every card of the mesh, their peaks reset)."""
         cfg, dev = self.cfg, self.device
         col_mean = torch.from_numpy(source.column_mean()).to(dev)
         prior = self.family.build_prior(cfg, col_mean[None, :])
         start = None
         if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
+            for card in self._cards():
+                torch.cuda.reset_peak_memory_stats(card)
             start = int(torch.cuda.memory_allocated(dev))
+        self._reduce0 = reduce_counts()
         return prior, start
+
+    def _cards(self) -> List[torch.device]:
+        return list(dict.fromkeys(self.mesh.devices.reshape(-1)))
 
     def _peak(self) -> Optional[int]:
         if self.device.type != "cuda":
             return None
         return int(torch.cuda.max_memory_allocated(self.device))
+
+    def _mesh_report(self, passes) -> dict:
+        """``FitResult.mesh``: the shards, the reductions and bytes since
+        ``_setup``, each shard's launches and each card's peak bytes."""
+        now = reduce_counts()
+        out = dict(passes.shard_report(),
+                   reductions=now["reductions"] - self._reduce0["reductions"],
+                   reduce_bytes=now["bytes"] - self._reduce0["bytes"])
+        if self.device.type == "cuda":
+            out["peak_bytes"] = {
+                str(c): int(torch.cuda.max_memory_allocated(c))
+                for c in self._cards()}
+        return out
 
     def _result(self, models: List[ModelState], labels: np.ndarray,
                 history: Dict[str, np.ndarray], multi: bool,
@@ -655,13 +769,24 @@ class DPMM:
                          device=str(self.device), n_chains=len(models),
                          score=score, peak_bytes=self._peak(), **fields)
 
+    def _index_space(self, rows: int) -> None:
+        if rows >= 2 ** 32:
+            raise ValueError(
+                f"N padded to {rows} rows over the mesh exceeds the uint32 "
+                "global point-index space: the counter-based draws would "
+                "wrap and silently corrupt the chain")
+
     def _fit_resident(self, source: DataSource, iters: int, verbose: bool,
                       keys: List[torch.Tensor],
                       init_states: Optional[List[ModelState]]) -> FitResult:
-        cfg, family, dev = self.cfg, self.family, self.device
-        x = torch.from_numpy(np.ascontiguousarray(source.resident()))
-        x = x.to(device=dev, dtype=torch.float32)
-        n = x.shape[0]
+        """The resident plane: each data shard's rows on its device(s) for
+        the whole fit (``shard_points``), every pass of an iteration a
+        tile body on each shard, whole, and the pass's one reduction
+        (``ResidentPasses``); the history rows reach the host once a
+        ``log_every`` chunk."""
+        cfg, family = self.cfg, self.family
+        x_np = source.resident()
+        n, d = x_np.shape
         multi = len(keys) > 1
         auto = cfg.k_max == "auto"
         if init_states is not None:
@@ -672,23 +797,21 @@ class DPMM:
             k_slab = cfg.k_max
         k_cap = cfg.k_max_cap if auto else k_slab
         prior, start = self._setup(source)
-        valid = torch.ones((n,), dtype=torch.float32, device=dev)
-
-        def fresh_point() -> PointState:
-            # every sweep recomputes the labels from the model
-            zeros = torch.zeros((n,), dtype=torch.int32, device=dev)
-            return PointState(labels=zeros, sublabels=zeros.clone(),
-                              valid=valid)
-
+        xs, vs = shard_points(self.mesh, x_np, self.feature_sharded)
+        n_local = vs[0].shape[0]
+        self._index_space(len(vs) * n_local)
+        passes = ResidentPasses(
+            family, cfg, self.device,
+            [Shard(x=xt, valid=vt, base=s * n_local,
+                   labels=[None] * len(keys), sublabels=[None] * len(keys))
+             for s, (xt, vt) in enumerate(zip(xs, vs))],
+            n_chains=len(keys), k_max=k_slab, n=n)
+        del xs, vs
         if init_states is None:
-            pairs = [_init_local(k, x, valid, prior=prior, family=family,
-                                 cfg=cfg, k_max=k_slab) for k in keys]
-            models = [m for m, _ in pairs]
-            points = [p for _, p in pairs]
+            models = _init_models(passes, keys, prior, family, cfg, d)
             it_base, k0 = 0, cfg.init_clusters
         else:
-            models = init_states
-            points = [fresh_point() for _ in models]
+            models = init_states       # every sweep recomputes the labels
             it_base = int(models[0].it)
             k0 = max(int(m.k_hat) for m in models)
         rec = _Recovery(cfg, family.name, it_base, multi)
@@ -705,16 +828,16 @@ class DPMM:
                 while 2 * k0 > k_slab and k_slab < k_cap:
                     k_slab = min(k_cap, 2 * k_slab)
                 models = [grow_model(m, k_slab) for m in models]
-            step = dict(prior=prior, family=family, cfg=cfg, k_max=k_slab)
+            passes.k_max = k_slab
             t0 = time.perf_counter()
             rows: List[List[Dict[str, torch.Tensor]]] = [[] for _ in models]
             for _ in range(length):
-                for c, (m, p) in enumerate(zip(models, points)):
-                    models[c], points[c] = dpmm_step(
-                        m, p, x, k_compact=_slab(int(m.k_hat), cfg, k_slab),
-                        **step)
-                    rows[c].append(_summaries(models[c], prior, family,
-                                              cfg.alpha))
+                models = _step_models(
+                    models, passes,
+                    [_slab(int(m.k_hat), cfg, k_slab) for m in models],
+                    prior, family, cfg, d)
+                for c, m in enumerate(models):
+                    rows[c].append(_summaries(m, prior, family, cfg.alpha))
             table, healthy = _host_rows(                # one sync
                 rows, _verdict(models) if cfg.guardrails else None)
             dt = time.perf_counter() - t0
@@ -725,7 +848,6 @@ class DPMM:
                              "resident chunk")
                 models = [_recovery_rekey(clone_model(m), rec.n_rollbacks)
                           for m in snap]
-                points = [fresh_point() for _ in models]
                 done = snap_done
                 k0 = max(int(m.k_hat) for m in snap)
                 continue                   # the failed chunk leaves no rows
@@ -743,71 +865,23 @@ class DPMM:
                       f"K={ks if multi else ks[0]}  "
                       f"{dt / length * 1e3:.1f} ms/iter")
         rec.maybe_checkpoint(models, it_base + done, force=True)
-        labels = np.stack([p.labels.cpu().numpy() for p in points])
+        labels = passes.labels()
         return self._result(
             models, labels if multi else labels[0],
             _history(tables, len(models), multi), multi,
             iter_times_s=times, start_bytes=start, recoveries=rec.events,
-            slab_sizes=slabs)
-
-    def _tiled_step(self, models: List[ModelState], passes,
-                    slabs: List[Optional[int]], prior,
-                    d: int) -> List[ModelState]:
-        """One iteration of every chain over the tiles: the sweep pass,
-        then after ``burnout`` the split/merge pass (``passes.run``, one
-        pass over the rows for all chains)."""
-        cfg, family = self.cfg, self.family
-        k_max = cfg.k_max
-        begun = [gibbs.sweep_begin(m, prior, family, cfg.alpha)
-                 for m in models]
-        comps = [gibbs.sweep_compaction(m, k_c)
-                 for (m, _, _), k_c in zip(begun, slabs)]
-        accs = passes.run(
-            "sweep", [(m, kz, kzb, comp)
-                      for (m, kz, kzb), comp in zip(begun, comps)],
-            [gibbs.sweep_acc(m, family, comp, d)
-             for (m, _, _), comp in zip(begun, comps)], False)
-        models = [gibbs.sweep_end(m, acc, comp)
-                  for (m, _, _), acc, comp in zip(begun, accs, comps)]
-        if models[0].it >= cfg.burnout:
-            moves = [_split_merge_begin(m, d, prior=prior, family=family,
-                                        cfg=cfg, k_max=k_max, k_compact=k_c)
-                     for m, k_c in zip(models, slabs)]
-            accs = passes.run("sm", [(plan, comp) for plan, comp, _ in moves],
-                              [acc for _, _, acc in moves], True)
-            models = [_split_merge_end(m, plan, comp, acc, k_max)
-                      for m, (plan, comp, _), acc in zip(models, moves, accs)]
-        return [m.replace(it=m.it + 1) for m in models]
-
-    def _tiled_init(self, passes, keys: List[torch.Tensor], prior,
-                    d: int) -> List[ModelState]:
-        """The initial states over the tiles, in two passes: round-robin
-        labels and their stats (the same for every chain, folded once),
-        then each chain's hyperplane sub-labels around the initial cluster
-        means (``_init_local``'s, tile by tile)."""
-        cfg, family, dev = self.cfg, self.family, self.device
-        k_max = cfg.k_max
-        (acc,) = passes.run("init1", [()],
-                            [gibbs.empty_substats(family, k_max, d, dev)],
-                            False)
-        stats0, _ = gibbs.finalize_substats(acc)
-        means0 = family.cluster_means(stats0)
-        accs = passes.run("init2", [(means0, _init_vecs(key, k_max, d, dev))
-                                    for key in keys],
-                          [gibbs.empty_substats(family, k_max, d, dev)
-                           for _ in keys], True)
-        return [_init_model(key, *gibbs.finalize_substats(acc), prior=prior,
-                            family=family, cfg=cfg, k_max=k_max)
-                for key, acc in zip(keys, accs)]
+            slab_sizes=slabs, mesh=self._mesh_report(passes))
 
     def _fit_tiled(self, source: DataSource, iters: int, verbose: bool,
                    keys: List[torch.Tensor],
                    init_states: Optional[List[ModelState]],
                    open_passes=None) -> FitResult:
-        """The streamed plane (``repro.core.sampler.DPMM._fit_tiled`` on
-        one device): two init passes, then per iteration a sweep pass and,
-        after ``burnout``, a split/merge pass over the rows
-        (``_tiled_step``), every chain on each tile read. The compact slabs
+        """The streamed plane (``repro.core.sampler.DPMM._fit_tiled``):
+        two init passes, then per iteration a sweep pass and, after
+        ``burnout``, a split/merge pass over the rows (``_step_models``),
+        every chain on each tile read, every data shard of the mesh
+        streaming tile t of its rows before tile t + 1 of any
+        (``StreamPasses``). The compact slabs
         follow the resident plane's rule (``_slab``: from the live count
         at each iteration's start, headroom 2, the count read with the
         previous iteration's history row), not the reference tiled plane's
@@ -823,26 +897,26 @@ class DPMM:
         driver (``repro_torch.dist.coordinator``) passes its workers'."""
         cfg, family, dev = self.cfg, self.family, self.device
         n, d = source.n, source.d
-        if n >= 2 ** 32:
-            raise ValueError(
-                f"N={n} exceeds the uint32 global point-index space: the "
-                "counter-based draws would wrap and silently corrupt the "
-                "chain")
         k_max = cfg.k_max
         multi = len(keys) > 1
         n_chains = len(keys)
+        if open_passes is None:
+            grid = self.mesh.grid()
+            self._index_space(grid.shape[0]
+                              * tile_plan(n, grid.shape[0], None)[0])
+            open_passes = lambda events: StreamPasses(
+                self, source, events, n_chains, grid, self.feature_sharded)
+        else:
+            self._index_space(n)
         prior, start = self._setup(source)
         rec = _Recovery(cfg, family.name, 0, multi)
-        if open_passes is None:
-            open_passes = lambda events: StreamPasses(self, source, events,
-                                                      n_chains)
         passes = open_passes(rec.events)
         tables: List[np.ndarray] = []
         times: List[float] = []
         it = 0
         try:
             if init_states is None:
-                models = self._tiled_init(passes, keys, prior, d)
+                models = _init_models(passes, keys, prior, family, cfg, d)
                 ks = [cfg.init_clusters] * n_chains
             else:
                 models = init_states   # every sweep recomputes the labels
@@ -857,9 +931,9 @@ class DPMM:
                       if cfg.guardrails else None)
             while it < iters:
                 t0 = time.perf_counter()
-                models = self._tiled_step(
+                models = _step_models(
                     models, passes, [_slab(k, cfg, k_max) for k in ks],
-                    prior, d)
+                    prior, family, cfg, d)
                 table, healthy = _host_rows(            # one sync
                     [[_summaries(m, prior, family, cfg.alpha)]
                      for m in models],
@@ -894,14 +968,20 @@ class DPMM:
             _history(tables, n_chains, multi), multi, iter_times_s=times,
             start_bytes=start, tile_size=passes.tile,
             est_peak_bytes=int(est_peak), recoveries=rec.events,
+            mesh=(self._mesh_report(passes)
+                  if isinstance(passes, StreamPasses) else None),
             **passes.report())
 
 
-def tile_body(phase: str, args: tuple, x: torch.Tensor, off: int,
+def tile_body(phase: str, args: tuple, x, off: int,
               valid: torch.Tensor, labels, sublabels, acc, family,
-              cfg: DPMMConfig):
-    """One chain's body of a tiled pass on rows ``off .. off + len(x)``:
-    ``(labels, sublabels, acc')``. The phases and their ``args``:
+              cfg: DPMMConfig, k_max: Optional[int] = None):
+    """One chain's body of a pass on the rows ``off .. off + len(x)`` of
+    the padded layout (a tile, or a resident shard whole: ``off`` is the
+    global index of its first row): ``(labels, sublabels, acc')``. ``x``
+    is a tensor, or a feature-sharded shard's ``FeatureShards`` (``acc``
+    then the list of its slices' accumulators). The phases and their
+    ``args``:
 
     - ``init1`` ``()``: round-robin labels, zero sub-labels;
     - ``init2`` ``(means0, v0)``: hyperplane sub-labels of ``labels``
@@ -912,10 +992,11 @@ def tile_body(phase: str, args: tuple, x: torch.Tensor, off: int,
     - ``sm`` ``(plan, comp)``: the planned move on ``labels`` /
       ``sublabels`` (``splitmerge.split_merge_tile``).
 
-    Each folds the tile's sub-cluster stats into ``acc``; ``acc=None``
-    returns the kernels' per-STATS_BLOCK partials unfolded instead (a
-    worker process ships them and its coordinator folds them in global
-    block order)."""
+    Each folds the rows' sub-cluster stats into ``acc`` (the init phases
+    on ``k_max`` slots, default ``cfg.k_max``); ``acc=None`` returns the
+    kernels' per-STATS_BLOCK partials unfolded instead (a worker process
+    ships them and its coordinator folds them in global block order)."""
+    k_max = cfg.k_max if k_max is None else k_max
     if phase == "sweep":
         model, key_z, key_zb, comp = args
         point = PointState(labels=None, sublabels=None, valid=valid)
@@ -940,64 +1021,216 @@ def tile_body(phase: str, args: tuple, x: torch.Tensor, off: int,
         raise ValueError(f"unknown tiled pass {phase!r}")
     if acc is None:
         return labels, sublabels, family.label_partials(
-            x, valid, labels, sublabels, cfg.k_max)
+            x, valid, labels, sublabels, k_max)
     return labels, sublabels, family.stats_from_labels(
-        x, valid, labels, sublabels, cfg.k_max, acc=acc)
+        x, valid, labels, sublabels, k_max, acc=acc)
 
 
-class StreamPasses:
-    """The tiled plane's passes in this process: ``TileStream`` reads and
-    uploads each tile once a pass, and every chain's ``tile_body`` runs
-    on it. The host label arrays are (C, n)."""
+class _ShardPasses:
+    """What both in-process planes share. A pass runs every chain's
+    ``tile_body`` on each data shard, the model side's arguments copied to
+    each shard's device once (``distributed.replicated``; a shard on the
+    lead device uses the lead's tensors), each shard folding an
+    accumulator of its own from zero; the pass ends in its one ordered
+    reduction (``distributed.reduce_stats``) on the lead device. Each
+    shard's kernel launches are counted apart (``ops.launch_counts``
+    around its bodies)."""
 
-    def __init__(self, dpmm: DPMM, source: DataSource, events: List[dict],
-                 n_chains: int):
-        cfg = dpmm.cfg
-        self.cfg, self.family, self.n = cfg, dpmm.family, source.n
-        n_local, tiles = tile_plan(source.n, cfg.tile_size)
-        self.tile, self.d, self.chains = tiles[0][1], source.d, n_chains
-        self.stream = TileStream(
-            source, tiles, dpmm.device,
-            RetryPolicy(max_retries=cfg.io_retries,
-                        backoff_s=cfg.io_backoff_s,
-                        guard_nonfinite=cfg.guard_tiles),
-            events.append, chains=n_chains)
-        self.labels_h = np.zeros((n_chains, n_local), np.int32)
-        self.sublabels_h = np.zeros((n_chains, n_local), np.int32)
-        self.ones = torch.ones((self.tile,), dtype=torch.float32,
-                               device=dpmm.device)
+    def __init__(self, family, cfg: DPMMConfig, lead: torch.device,
+                 n_chains: int, k_max: int, n: int, n_shards: int):
+        self.family, self.cfg, self.lead = family, cfg, lead
+        self.chains, self.k_max, self.n = n_chains, k_max, n
+        self.launches = [dict.fromkeys(ops.launch_counts(), 0)
+                         for _ in range(n_shards)]
+
+    def _zeros(self, acc, devs, cols):
+        """A shard's zero accumulator of ``acc``'s slab on its device
+        ``devs[0]``, or with feature columns ``cols`` one a slice, on the
+        slice's device."""
+        k = acc.n.shape[0]
+        if cols is None:
+            return gibbs.empty_substats(self.family, k, self.d, devs[0])
+        return [gibbs.empty_substats(self.family, k, b - a, dev)
+                for dev, (a, b) in zip(devs, cols)]
+
+    def _counted(self, s: int, body):
+        before = ops.launch_counts()
+        out = body()
+        for k, v in ops.launch_counts().items():
+            self.launches[s][k] += v - before[k]
+        return out
+
+    def _reduce(self, per_shard: List[Any]) -> Any:
+        return reduce_stats(self.family, per_shard, self.lead)
+
+
+def _placement(x) -> Tuple[List[torch.device], Optional[list]]:
+    """A resident shard's devices and feature columns (None: whole)."""
+    if isinstance(x, FeatureShards):
+        return [xs.device for xs in x.slices], x.cols
+    return [x.device], None
+
+
+class ResidentPasses(_ShardPasses):
+    """The resident plane's passes: ``shards`` (``distributed.Shard``)
+    hold their rows on their devices for the whole fit and every chain's
+    labels; a pass runs each shard whole as one tile."""
+
+    def __init__(self, family, cfg: DPMMConfig, lead: torch.device,
+                 shards: List[Shard], n_chains: int, k_max: int, n: int):
+        super().__init__(family, cfg, lead, n_chains, k_max, n, len(shards))
+        self.shards = shards
+        self.d = shards[0].x.shape[1]
 
     def run(self, phase: str, chain_args: List[tuple], accs: list,
             labels_in: bool) -> list:
-        """One pass of ``phase`` over every tile: chain c's ``tile_body``
-        with ``chain_args[c]`` folding into ``accs[c]``; one entry for all
-        chains (``init1``) labels every chain alike. Returns the accs."""
-        def pass_fn(t, accs):
-            outs, new = [], []
-            for c, (args, acc) in enumerate(zip(chain_args, accs)):
-                lab, sub, acc = tile_body(
-                    phase, args, t.x, t.off, self.ones[:t.length],
-                    t.labels[c] if labels_in else None,
-                    t.sublabels[c] if labels_in else None, acc,
-                    self.family, self.cfg)
-                outs.append((lab, sub))
-                new.append(acc)
-            return outs * (self.chains // len(outs)), new
+        """One pass of ``phase``: chain c's body with ``chain_args[c]`` on
+        every shard, then the reduction; one entry for all chains
+        (``init1``) labels every chain alike. ``accs`` give the slabs.
+        Returns the reduced accs."""
+        reps = replicated([sh.device for sh in self.shards], chain_args)
+        out = []
+        for c, acc in enumerate(accs):
+            per_shard = []
+            for s, sh in enumerate(self.shards):
+                lab, sub, sacc = self._counted(s, lambda: tile_body(
+                    phase, reps[sh.device][c], sh.x, sh.base, sh.valid,
+                    sh.labels[c] if labels_in else None,
+                    sh.sublabels[c] if labels_in else None,
+                    self._zeros(acc, *_placement(sh.x)), self.family,
+                    self.cfg, k_max=self.k_max))
+                for cc in (range(self.chains) if len(accs) == 1 else (c,)):
+                    sh.labels[cc], sh.sublabels[cc] = lab, sub
+                per_shard.append(sacc)
+            out.append(self._reduce(per_shard))
+        return out
 
-        return self.stream.run(pass_fn, accs, self.labels_h,
-                               self.sublabels_h, labels_in)
+    def point(self, c: int) -> PointState:
+        """Chain c's point state of a one-shard plane."""
+        (sh,) = self.shards
+        return PointState(labels=sh.labels[c], sublabels=sh.sublabels[c],
+                          valid=sh.valid)
+
+    def labels(self) -> np.ndarray:
+        """(C, N) labels on the host, the padding cut off."""
+        rows = [np.concatenate([
+            (np.zeros(sh.valid.shape[0], np.int32) if sh.labels[c] is None
+             else sh.labels[c].cpu().numpy()) for sh in self.shards])
+            for c in range(self.chains)]
+        return np.stack(rows)[:, :self.n]
+
+    def shard_report(self) -> dict:
+        devs = [[str(xs.device) for xs in sh.x.slices]
+                if isinstance(sh.x, FeatureShards) else [str(sh.device)]
+                for sh in self.shards]
+        return dict(data_shards=len(self.shards), model_shards=len(devs[0]),
+                    devices=devs, n_local=int(self.shards[0].valid.shape[0]),
+                    shard_launches=self.launches)
+
+
+class StreamPasses(_ShardPasses):
+    """The tiled plane's passes in this process: one ``TileStream`` a data
+    shard of ``grid`` (``Mesh.grid``), on its first device, reading its
+    rows ``[s n_local, (s + 1) n_local)`` of the padded layout (rows past
+    N read as zeros, ``valid = 0``), the shards' streams walked in
+    lockstep (``run_streams``); each tile is read and uploaded once a pass
+    for every chain. With ``feature_sharded`` a tile's features are cut
+    into the model shards' slices on the shard's devices. The host label
+    arrays are (C, G n_local)."""
+
+    def __init__(self, dpmm: DPMM, source: DataSource, events: List[dict],
+                 n_chains: int, grid: np.ndarray, feature_sharded: bool):
+        cfg = dpmm.cfg
+        n_local, tiles = tile_plan(source.n, grid.shape[0], cfg.tile_size)
+        super().__init__(dpmm.family, cfg, dpmm.device, n_chains, cfg.k_max,
+                         source.n, grid.shape[0])
+        self.grid = grid if feature_sharded else grid[:, :1]
+        self.feature_sharded = feature_sharded
+        self.tile, self.d, self.n_local = tiles[0][1], source.d, n_local
+        policy = RetryPolicy(max_retries=cfg.io_retries,
+                             backoff_s=cfg.io_backoff_s,
+                             guard_nonfinite=cfg.guard_tiles)
+        self.streams = [
+            TileStream(source, [(s * n_local + off, length)
+                                for off, length in tiles],
+                       devs[0], policy, events.append, chains=n_chains)
+            for s, devs in enumerate(self.grid)]
+        rows = grid.shape[0] * n_local
+        self.labels_h = np.zeros((n_chains, rows), np.int32)
+        self.sublabels_h = np.zeros((n_chains, rows), np.int32)
+        self.ones = {dev: torch.ones((self.tile,), dtype=torch.float32,
+                                     device=dev)
+                     for dev in dict.fromkeys(self.grid[:, 0])}
+
+    def _valid(self, t, dev) -> torch.Tensor:
+        """The tile's mask: 1 on the rows of x, 0 on the padding."""
+        if t.off + t.length <= self.n:
+            return self.ones[dev][:t.length]
+        rows = torch.arange(t.off, t.off + t.length, device=dev)
+        return (rows < self.n).to(torch.float32)
+
+    def run(self, phase: str, chain_args: List[tuple], accs: list,
+            labels_in: bool) -> list:
+        """One pass of ``phase`` over every tile of every shard: chain c's
+        ``tile_body`` with ``chain_args[c]`` folding into the shard's
+        accumulator of ``accs[c]``'s slab, then the reduction; one entry
+        for all chains (``init1``) labels every chain alike. Returns the
+        reduced accs."""
+        reps = replicated(self.grid[:, 0], chain_args)
+
+        def shard_fn(s):
+            devs = self.grid[s]
+
+            def pass_fn(t, shard_accs):
+                x = (FeatureShards.split(t.x, devs) if self.feature_sharded
+                     else t.x)
+                valid = self._valid(t, devs[0])
+                outs, new = [], []
+                for c, (args, acc) in enumerate(zip(reps[devs[0]],
+                                                    shard_accs)):
+                    lab, sub, acc = self._counted(s, lambda: tile_body(
+                        phase, args, x, t.off, valid,
+                        t.labels[c] if labels_in else None,
+                        t.sublabels[c] if labels_in else None, acc,
+                        self.family, self.cfg, k_max=self.k_max))
+                    outs.append((lab, sub))
+                    new.append(acc)
+                return outs * (self.chains // len(outs)), new
+            return pass_fn
+
+        g = len(self.streams)
+        cols = (feature_cols(self.d, self.grid.shape[1])
+                if self.feature_sharded else None)
+        zeros = [[self._zeros(acc, self.grid[s], cols) for acc in accs]
+                 for s in range(g)]
+        per_shard = run_streams(self.streams, [shard_fn(s) for s in range(g)],
+                                zeros, self.labels_h, self.sublabels_h,
+                                labels_in)
+        return [self._reduce([per_shard[s][c] for s in range(g)])
+                for c in range(len(accs))]
 
     def buffer_bytes(self, acc_bytes: int) -> int:
-        """The reference's estimate of the two tile buffers' bytes."""
-        return 2 * self.tile * (4 * self.d + 8 * self.chains)
+        """The reference's estimate of the two tile buffers' bytes, every
+        shard's."""
+        return (2 * len(self.streams) * self.tile
+                * (4 * self.d + 8 * self.chains))
 
     def labels(self) -> np.ndarray:
         return self.labels_h[:, :self.n].copy()
 
     def report(self) -> dict:
-        s = self.stream
-        return dict(mode="tiled", copy_wait_s=s.wait_s if s.cuda else None,
-                    read_s=s.read_s)
+        cuda = self.streams[0].cuda
+        return dict(mode="tiled",
+                    copy_wait_s=(sum(st.wait_s for st in self.streams)
+                                 if cuda else None),
+                    read_s=sum(st.read_s for st in self.streams))
+
+    def shard_report(self) -> dict:
+        return dict(data_shards=len(self.streams),
+                    model_shards=self.grid.shape[1],
+                    devices=[[str(d) for d in devs] for devs in self.grid],
+                    n_local=self.n_local, shard_launches=self.launches)
 
     def close(self) -> None:
         pass
+

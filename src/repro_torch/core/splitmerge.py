@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.distributed import FeatureShards, to_device
 from repro_torch.core.family import fold_blocked
 from repro_torch.core.state import PointState, tree_map, tree_map2
 from repro_torch.kernels import prng
@@ -226,9 +227,17 @@ def hyperplane_vecs(generator: Optional[torch.Generator], k_max: int, d: int,
 
 
 def hyperplane_bits(x, labels, means, v) -> torch.Tensor:
-    """Sub-label init by a random hyperplane through each cluster mean."""
+    """Sub-label init by a random hyperplane through each cluster mean.
+    For feature-sharded x (``FeatureShards``) each slice projects on its
+    slice of ``means`` and ``v`` and the projections are summed in model
+    shard order (the reference's psum over ``model``)."""
     lab = labels.long()
-    proj = ((x - means[lab]) * v[lab]).sum(dim=-1)
+    if isinstance(x, FeatureShards):
+        proj = x.psum(lambda xs, a, b, lb: (
+            (xs - to_device(means[:, a:b], xs.device)[lb])
+            * to_device(v[:, a:b], xs.device)[lb]).sum(dim=-1), lab)
+    else:
+        proj = ((x - means[lab]) * v[lab]).sum(dim=-1)
     return (proj > 0).to(torch.int32)
 
 

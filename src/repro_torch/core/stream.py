@@ -2,8 +2,11 @@
 
 The port's counterpart of the reference tiled fit's double-buffered
 ``jax.device_put`` (``repro.core.sampler.DPMM._fit_tiled``: ``stream``,
-``put_x_tile``, ``write_back``). ``TileStream.run`` walks a tile plan
-once, calling a pass function on each tile on the device, and keeps the
+``put_x_tile``, ``write_back``). A ``TileStream`` streams one data
+shard's tile plan to its device; ``run_streams`` walks the streams of
+every shard of a mesh once, in lockstep (tile i of every shard, in shard
+order, before tile i + 1 of any, so the shards' devices work side by
+side), calling a pass function on each tile on its device, and keeps the
 host's label arrays up to date. A fit of C chains (``chains``) reads and
 uploads each tile once a pass for all of them: the host label arrays are
 (C, n), a tile carries (C, length) labels, and the pass function returns
@@ -26,6 +29,8 @@ Three hazards, each guarded by an event per buffer slot:
 Each slot's pinned and device label buffers hold all C chains' labels and
 sub-labels of a tile (2 C rows, laid out per tile), and each event covers
 all of them: a slot is refilled only after every chain's copy has landed.
+
+Each stream has its own buffers, side stream and events on its device.
 
 ``wait_s`` sums the device time the compute stream stood waiting for a
 tile's copy (CUDA events around the wait); ``read_s`` the host time in
@@ -154,52 +159,42 @@ class TileStream:
             lab, sub = rows[:c], rows[c:]
         return Tile(off, length, self._dev_x[s][:length], lab, sub), (w0, w1)
 
-    def run(self, pass_fn: PassFn, acc, labels_h: np.ndarray,
-            sublabels_h: np.ndarray, labels_in: bool):
-        """One pass over every tile: ``pass_fn(tile, acc)`` on each in
-        order, the tile's labels uploaded when ``labels_in``, the labels it
-        returns written back into ``labels_h`` / ``sublabels_h`` ((C, n)
-        arrays). Returns the final ``acc``."""
-        lab_src = (labels_h, sublabels_h) if labels_in else (None, None)
-        if not self.cuda:
-            for i in range(len(self.tiles)):
-                tile = self._load(i, *lab_src)
-                out, acc = pass_fn(tile, acc)
-                if out is not None:
-                    sl = slice(tile.off, tile.off + tile.length)
-                    for c, (lab, sub) in enumerate(out):
-                        labels_h[c, sl] = lab.numpy()
-                        sublabels_h[c, sl] = sub.numpy()
-            return acc
+    def _step(self, i: int, pass_fn: PassFn, acc, lab_src, labels_h,
+              sublabels_h, labels_in: bool):
+        """Tile i of a CUDA pass: wait for its copy, run ``pass_fn``, copy
+        its labels out, start tile i + 1's copy, then write back tile
+        i - 1's labels. Returns the acc."""
+        off, length = self.tiles[i]
+        s = i % 2
         main = torch.cuda.current_stream(self.device)
-        waits: List[tuple] = []
-        pending = None                  # (slot, off, length) to write back
-        self._load(0, *lab_src)
-        for i, (off, length) in enumerate(self.tiles):
-            s = i % 2
-            tile, w = self._take(i, labels_in)
-            waits.append(w)
-            out, acc = pass_fn(tile, acc)
-            if out is not None:
-                c = self.chains
-                rows = self._host_out[s][:2 * c * length].view(2 * c, length)
-                for j, (lab, sub) in enumerate(out):
-                    rows[j].copy_(lab, non_blocking=True)
-                    rows[c + j].copy_(sub, non_blocking=True)
-                self._returned[s].record(main)
-            # after the copies out: a chain's returned labels may be a view
-            # of the tile's uploaded ones
-            self._freed[s].record(main)
-            if i + 1 < len(self.tiles):
-                self._load(i + 1, *lab_src)   # overlaps tile i's kernels
-            if pending is not None:
-                self._write_back(pending, labels_h, sublabels_h)
-            pending = (s, off, length) if out is not None else None
-        if pending is not None:
-            self._write_back(pending, labels_h, sublabels_h)
-        waits[-1][1].synchronize()
-        self.wait_s += 1e-3 * sum(a.elapsed_time(b) for a, b in waits)
+        tile, w = self._take(i, labels_in)
+        self._waits.append(w)
+        out, acc = pass_fn(tile, acc)
+        if out is not None:
+            c = self.chains
+            rows = self._host_out[s][:2 * c * length].view(2 * c, length)
+            for j, (lab, sub) in enumerate(out):
+                rows[j].copy_(lab, non_blocking=True)
+                rows[c + j].copy_(sub, non_blocking=True)
+            self._returned[s].record(main)
+        # after the copies out: a chain's returned labels may be a view
+        # of the tile's uploaded ones
+        self._freed[s].record(main)
+        if i + 1 < len(self.tiles):
+            self._load(i + 1, *lab_src)   # overlaps tile i's kernels
+        if self._pending is not None:
+            self._write_back(self._pending, labels_h, sublabels_h)
+        self._pending = (s, off, length) if out is not None else None
         return acc
+
+    def _finish(self, labels_h, sublabels_h) -> None:
+        """The last tile's write-back and the pass's copy-wait time."""
+        if self._pending is not None:
+            self._write_back(self._pending, labels_h, sublabels_h)
+            self._pending = None
+        self._waits[-1][1].synchronize()
+        self.wait_s += 1e-3 * sum(a.elapsed_time(b) for a, b in self._waits)
+        self._waits = []
 
     def _write_back(self, pending, labels_h, sublabels_h) -> None:
         s, off, length = pending
@@ -209,3 +204,38 @@ class TileStream:
                                                                  length)
         labels_h[:, off:off + length] = out[:c]
         sublabels_h[:, off:off + length] = out[c:]
+
+
+def run_streams(streams: Sequence[TileStream], pass_fns: Sequence[PassFn],
+                accs: list, labels_h: np.ndarray, sublabels_h: np.ndarray,
+                labels_in: bool) -> list:
+    """One pass over the tiles of several streams (a data shard's each,
+    the same number of tiles, disjoint rows of the same (C, n) host label
+    arrays) in lockstep: tile i of every stream, in stream order, before
+    tile i + 1 of any, so the shards' devices work side by side.
+    ``pass_fns[j](tile, accs[j])`` runs on stream j's tiles. Returns the
+    accs."""
+    lab_src = (labels_h, sublabels_h) if labels_in else (None, None)
+    accs = list(accs)
+    n_tiles = len(streams[0].tiles)
+    if not streams[0].cuda:
+        for i in range(n_tiles):
+            for j, st in enumerate(streams):
+                tile = st._load(i, *lab_src)
+                out, accs[j] = pass_fns[j](tile, accs[j])
+                if out is not None:
+                    sl = slice(tile.off, tile.off + tile.length)
+                    for c, (lab, sub) in enumerate(out):
+                        labels_h[c, sl] = lab.numpy()
+                        sublabels_h[c, sl] = sub.numpy()
+        return accs
+    for st in streams:
+        st._waits, st._pending = [], None
+        st._load(0, *lab_src)
+    for i in range(n_tiles):
+        for j, st in enumerate(streams):
+            accs[j] = st._step(i, pass_fns[j], accs[j], lab_src, labels_h,
+                               sublabels_h, labels_in)
+    for st in streams:
+        st._finish(labels_h, sublabels_h)
+    return accs

@@ -506,7 +506,8 @@ class WorkerPasses:
         cfg, family, dev = dpmm.cfg, dpmm.family, dpmm.device
         n, d, k_max = source.n, source.d, cfg.k_max
         self.family, self.dev, self.events, self.n = family, dev, events, n
-        self.tile = tile_plan(n, cfg.tile_size)[1][0][1]
+        self.lead, self.k_max = dev, k_max       # what _init_models reads
+        self.tile = tile_plan(n, 1, cfg.tile_size)[1][0][1]
         # work items: the tiles, cut further to the stat windows of the
         # dense slab (the widest accumulator of any pass), so that no
         # item's partials pass labelstats.WINDOW_BYTES, nor its RESULT

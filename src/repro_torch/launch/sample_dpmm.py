@@ -3,13 +3,17 @@
     PYTHONPATH=src python -m repro_torch.launch.sample_dpmm \
         --n 100000 --d 2 --k 10 --alpha 10 --iters 100 \
         [--data-path x.npy] [--tile-size 65536] [--result-path out.json] \
-        [--device cuda] [--checkpoint-path model.npz] [--params-path p.json] \
+        [--device cuda:0] [--checkpoint-path model.npz] \
+        [--params-path p.json] \
         [--n-chains 4] [--checkpoint-every 10] [--resume] [--workers 2]
 
-Runs on the card (``--device cuda``, the default) unless ``--device cpu``
-is given. ``--prior-type`` takes any family of the registry (gaussian,
-diag_gaussian, multinomial, poisson) or the reference CLI's aliases
-(Gaussian, DiagGaussian, Multinomial, Poisson); without ``--data-path`` the
+Runs on every visible card by default, one data shard each
+(``core/distributed.make_data_mesh``, as the reference's CLI fits
+``DPMM(cfg)`` over every local device); ``--device cuda:0`` runs one card
+and ``--device cpu`` the plain path. ``--prior-type`` takes any family
+of the registry (gaussian, diag_gaussian, multinomial, poisson) or the
+reference CLI's aliases (Gaussian, DiagGaussian, Multinomial, Poisson);
+without ``--data-path`` the
 data comes from the family's generator (``generate_gmm`` for the two
 Gaussian families, ``generate_pmm``, ``generate_mnmm``). ``--tile-size``
 streams the points in tiles of that many rows (the out-of-core plane:
@@ -85,8 +89,10 @@ def main(argv=None):
                          "(out-of-core data plane; device memory becomes "
                          "O(k_max + tile_size)). Default: resident")
     ap.add_argument("--result-path", "--result_path", default="")
-    ap.add_argument("--device", default="cuda",
-                    help="'cuda' (kernels, default) or 'cpu' (plain path)")
+    ap.add_argument("--device", default=None,
+                    help="one device: 'cuda[:i]' (kernels) or 'cpu' (plain "
+                         "path); default every visible card, one data "
+                         "shard each (core/distributed.make_data_mesh)")
     ap.add_argument("--params-path", "--params_path", default="",
                     help="JSON config overrides: alpha, iters, k_max "
                          "(an int or \"auto\"), burnout, log_every, "
@@ -152,7 +158,7 @@ def main(argv=None):
     source = as_source(x)
     print(f"DPMM fit: N={source.n} d={source.d} component="
           f"{cfg.component} alpha={cfg.alpha} iters={cfg.iters} "
-          f"device={args.device}")
+          f"device={args.device or 'every card'}")
     t0 = time.time()
     result = DPMM(cfg, device=args.device).fit(
         source, verbose=args.verbose, n_chains=args.n_chains,

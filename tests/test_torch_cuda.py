@@ -17,7 +17,12 @@ order). The three-pass sweep runs the one-read sweep's device code for
 steps (e), (f) and the fold, so on the card the two give the same bits
 (the linear families: one tile, ``csrc/linear_tile.cuh``, with a switch
 for each step). A chain resumed from a saved state is the uninterrupted
-chain bit for bit.
+chain bit for bit. Every fit names its card (``device=dev``): one shard
+however many cards the machine holds. The mesh's twins: 2 logical shards
+on one card hold the cross-mesh contract against 1 (labels and every
+history but score equal) and repeat bitwise, tiled is resident on a
+2-shard mesh, a (2 x 2) multinomial with ``shard_features`` repeats
+bitwise, and on two cards a 2-shard chain is the one-card chain.
 ``fold_partials`` is bitwise its plain loop of adds (the same IEEE adds in
 the same order); the dense ``suffstats`` kernel sums in another order than
 its plain version (rtol 1e-4 of each array's scale, counts within it too:
@@ -363,7 +368,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
 def test_fit_on_the_card_runs_through_both_kernels(dev):
     x, y = generate_gmm(20_000, 4, 4, seed=0)
     ops.reset_launch_counts()
-    r = DPMM(DPMMConfig(iters=25, burnout=5)).fit(x)
+    r = DPMM(DPMMConfig(iters=25, burnout=5), device=dev).fit(x)
     counts = ops.launch_counts()
     assert counts["sweep_gauss"] == 25 and counts["suffstats_labels"] > 0
     assert r.device.startswith("cuda") and r.peak_bytes > 0
@@ -391,7 +396,7 @@ def test_multinomial_fit_on_the_card_runs_through_both_kernels(dev):
     x, y = generate_mnmm(20_000, 32, 4, seed=0)
     ops.reset_launch_counts()
     r = DPMM(DPMMConfig(component="multinomial", iters=25,
-                        burnout=5)).fit(x)
+                        burnout=5), device=dev).fit(x)
     counts = ops.launch_counts()
     assert counts["sweep_linear"] == 25 * sweep.LINEAR_LAUNCHES
     assert counts["moments_labels"] > 0
@@ -722,12 +727,12 @@ def test_resume_on_the_card_is_the_uninterrupted_chain(dev, tmp_path,
     x, _ = gen(20_000, 8, 4, seed=5)
     cfg = DPMMConfig(component=component, iters=12, burnout=4, log_every=4,
                      tile_size=4096 if tiled else None)
-    whole = DPMM(cfg).fit(x)
-    first = DPMM(cfg).fit(x, 5)
+    whole = DPMM(cfg, device=dev).fit(x)
+    first = DPMM(cfg, device=dev).fit(x, 5)
     path = checkpoint.save_model(str(tmp_path / "model.npz"), first.state,
                                  component)
     state, _ = checkpoint.load_model(path)
-    rest = DPMM(cfg).fit(x, 7, init_state=state)
+    rest = DPMM(cfg, device=dev).fit(x, 7, init_state=state)
     assert rest.mode == ("tiled" if tiled else "resident")
     assert rest.state.it == whole.state.it == 12
     np.testing.assert_array_equal(rest.labels, whole.labels)
@@ -754,7 +759,8 @@ def test_three_pass_sweep_tile_is_the_one_read_tile_on_the_card(
     ``sweep_ref``, and the three-pass sub-labels are held against the
     plain step (f) on the tile's own labels instead (near-ties only)."""
     x_np, _ = gen(12_000, d, 4, seed=3)
-    r = DPMM(DPMMConfig(component=component, iters=12, burnout=4)).fit(x_np)
+    r = DPMM(DPMMConfig(component=component, iters=12, burnout=4),
+             device=dev).fit(x_np)
     model, fam = r.state, get_family(component)
     x = torch.as_tensor(x_np, device=dev)
     n = x.shape[0]
@@ -813,7 +819,7 @@ def test_gaussian_fit_past_d128_runs_the_three_pass_kernels(dev):
     # cluster (tools/split_evidence.py)
     x, y = generate_gmm(40_000, 160, 4, seed=0)
     ops.reset_launch_counts()
-    r = DPMM(DPMMConfig(iters=30, burnout=5)).fit(x)
+    r = DPMM(DPMMConfig(iters=30, burnout=5), device=dev).fit(x)
     counts = ops.launch_counts()
     assert counts["sweep_gauss"] == 0
     assert counts["assign_gauss"] == 30
@@ -955,9 +961,10 @@ def test_matmul_rows_do_not_depend_on_the_batch(dev, kd, n):
 def test_tiled_fit_on_the_card_is_the_resident_fit(dev, component, gen, d):
     x, y = gen(20_000, d, 4, seed=0)
     cfg = dict(component=component, iters=25, burnout=5)
-    res = DPMM(DPMMConfig(**cfg)).fit(x)
+    res = DPMM(DPMMConfig(**cfg), device=dev).fit(x)
     ops.reset_launch_counts()
-    tiled = DPMM(DPMMConfig(tile_size=4096, **cfg)).fit(HostTiledSource(x))
+    tiled = DPMM(DPMMConfig(tile_size=4096, **cfg), device=dev).fit(
+        HostTiledSource(x))
     assert ops.launch_counts()["fold_partials"] > 0
     assert tiled.mode == "tiled" and tiled.copy_wait_s >= 0.0
     np.testing.assert_array_equal(tiled.labels, res.labels)
@@ -1138,7 +1145,7 @@ def test_fit_past_the_one_read_slab_runs_sweep_ref(dev):
     x, y = generate_gmm(100_000, 16, 16, seed=0)
     ops.reset_launch_counts()
     r = DPMM(DPMMConfig(k_max=4096, compact=False, iters=40, burnout=10,
-                        log_every=10)).fit(x)
+                        log_every=10), device=dev).fit(x)
     counts = ops.launch_counts()
     assert counts["sweep_gauss"] == 0 and counts["assign_gauss"] == 40
     assert counts["sub_assign_gauss"] == 40 * assign.SUB_LAUNCHES
@@ -1156,9 +1163,9 @@ def test_rotation_resume_on_the_card_is_the_uninterrupted_chain(dev,
               tile_size=4096 if tiled else None)
     rot = DPMMConfig(checkpoint_path=str(tmp_path / "ck"),
                      checkpoint_every=4, **kw)
-    DPMM(rot).fit(x, 6)
-    rest = DPMM(rot).fit(x, resume=True)
-    whole = DPMM(DPMMConfig(**kw)).fit(x)
+    DPMM(rot, device=dev).fit(x, 6)
+    rest = DPMM(rot, device=dev).fit(x, resume=True)
+    whole = DPMM(DPMMConfig(**kw), device=dev).fit(x)
     np.testing.assert_array_equal(rest.labels, whole.labels)
     for group in ("params", "subparams", "stats", "substats"):
         a, b = getattr(rest.state, group), getattr(whole.state, group)
@@ -1172,10 +1179,10 @@ def test_chain_c_on_the_card_is_the_single_chain_fit(dev, tiled):
     x, _ = generate_gmm(20_000, 8, 4, seed=5)
     cfg = DPMMConfig(iters=10, burnout=4, log_every=5,
                      tile_size=4096 if tiled else None)
-    multi = DPMM(cfg).fit(x, n_chains=3)
+    multi = DPMM(cfg, device=dev).fit(x, n_chains=3)
     for c in range(3):
-        single = DPMM(DPMMConfig(iters=10, burnout=4, log_every=5)).fit(
-            x, key=prng.fold_in((0, 0), c))
+        single = DPMM(DPMMConfig(iters=10, burnout=4, log_every=5),
+                      device=dev).fit(x, key=prng.fold_in((0, 0), c))
         np.testing.assert_array_equal(multi.labels[c], single.labels)
         assert torch.equal(multi.state.stats.sx[c], single.state.stats.sx)
 
@@ -1187,10 +1194,10 @@ def test_divergence_on_the_card_raises_and_the_next_fit_runs(dev):
     bad[5] = np.inf
     with pytest.raises(DivergenceError) as e:
         DPMM(DPMMConfig(iters=8, burnout=2, log_every=4,
-                        max_recoveries=1)).fit(bad)
+                        max_recoveries=1), device=dev).fit(bad)
     assert len(e.value.recoveries) == 2
     torch.cuda.synchronize()
-    r = DPMM(DPMMConfig(iters=20, burnout=5, log_every=5)).fit(x)
+    r = DPMM(DPMMConfig(iters=20, burnout=5, log_every=5), device=dev).fit(x)
     assert r.nmi(y) > 0.9
 
 
@@ -1198,7 +1205,7 @@ def test_auto_slab_on_the_card_grows_and_repeats(dev):
     x, y = generate_gmm(20_000, 4, 6, seed=0, sep=10.0)
     cfg = DPMMConfig(alpha=10.0, iters=16, k_max="auto", k_max_cap=64,
                      burnout=5, log_every=4)
-    a, b = DPMM(cfg).fit(x), DPMM(cfg).fit(x)
+    a, b = DPMM(cfg, device=dev).fit(x), DPMM(cfg, device=dev).fit(x)
     assert a.slab_sizes[0] == 8 and a.state.active.shape[0] > 8
     assert a.nmi(y) > 0.9 and a.slab_sizes == b.slab_sizes
     np.testing.assert_array_equal(a.labels, b.labels)
@@ -1214,9 +1221,10 @@ def test_two_worker_fit_on_the_card_is_the_tiled_fit(dev, component, gen,
     sweep kernels and the coordinator the fold."""
     x, y = gen(20_000, d, 4, seed=0)
     cfg = dict(component=component, iters=14, burnout=5, tile_size=4096)
-    single = DPMM(DPMMConfig(**cfg)).fit(HostTiledSource(x))
+    single = DPMM(DPMMConfig(**cfg), device=dev).fit(HostTiledSource(x))
     ops.reset_launch_counts()
-    dist = DPMM(DPMMConfig(workers=2, **cfg)).fit(HostTiledSource(x))
+    dist = DPMM(DPMMConfig(workers=2, **cfg), device=dev).fit(
+        HostTiledSource(x))
     assert ops.launch_counts()["fold_partials"] > 0
     lw = dist.dist["worker_launches"]
     sweep_k = "sweep_gauss" if component == "gaussian" else "sweep_linear"
@@ -1246,7 +1254,8 @@ def test_refine_sweep_on_the_card_matches_its_plain_path(dev, component,
     from repro_torch.core import niw
     from repro_torch.serve.dpmm import DPMMEngine, ServeConfig
     x, _ = gen(20_000, d, 4, seed=0)
-    res = DPMM(DPMMConfig(component=component, iters=20, burnout=5)).fit(x)
+    res = DPMM(DPMMConfig(component=component, iters=20, burnout=5),
+               device=dev).fit(x)
     fam = get_family(component)
     eng = DPMMEngine(res.state, component,
                      ServeConfig(refine=True, refine_batch=1024))
@@ -1300,3 +1309,95 @@ def test_refine_sweep_on_the_card_matches_its_plain_path(dev, component,
         again = eng.query(q)
         np.testing.assert_array_equal(again.logprobs, held.logprobs)
     assert eng.refine(x=q)["published"] == 1
+
+
+def _same_fit(a, b):
+    np.testing.assert_array_equal(a.labels, b.labels)
+    for key in a.history:
+        np.testing.assert_array_equal(a.history[key], b.history[key])
+    for group in ("stats", "substats"):
+        sa, sb = getattr(a.state, group), getattr(b.state, group)
+        for name in sa.__dataclass_fields__:
+            assert torch.equal(getattr(sa, name).cpu(),
+                               getattr(sb, name).cpu()), (group, name)
+
+
+def _card_mesh(devices, model: int = 1):
+    from repro_torch.core.distributed import Mesh
+    if model == 1:
+        return Mesh(list(devices), ("data",))
+    return Mesh(np.array(list(devices), dtype=object).reshape(-1, model),
+                ("data", "model"))
+
+
+def test_two_logical_shards_hold_the_cross_mesh_contract(dev):
+    """2 data shards on one card against 1 (the reference's cross-mesh
+    contract: labels and every history but score equal, score within
+    rtol 1e-3 / atol 1.0), at a ragged N; two runs of the 2-shard chain
+    are bitwise, each shard launched its kernels, and a reduction a pass
+    gathered G K 2 T 4 bytes."""
+    x, y = generate_gmm(20_001, 8, 6, seed=2, sep=10.0)
+    cfg = DPMMConfig(k_max=16, iters=25, burnout=5, compact=False)
+    one = DPMM(cfg, mesh=_card_mesh([dev])).fit(x)
+    two = DPMM(cfg, mesh=_card_mesh([dev, dev])).fit(x)
+    again = DPMM(cfg, mesh=_card_mesh([dev, dev])).fit(x)
+    _same_fit(two, again)
+    np.testing.assert_array_equal(one.labels, two.labels)
+    for key in one.history:
+        if key == "score":
+            np.testing.assert_allclose(one.history[key], two.history[key],
+                                       rtol=1e-3, atol=1.0)
+        else:
+            np.testing.assert_array_equal(one.history[key],
+                                          two.history[key])
+    assert two.nmi(y) > 0.9
+    for launches in two.mesh["shard_launches"]:
+        assert launches["sweep_gauss"] > 0
+        assert launches["suffstats_labels"] > 0
+    assert two.mesh["reduce_bytes"] == (two.mesh["reductions"] * 2 * 16 * 2
+                                        * (1 + 8 + 64) * 4)
+    assert one.mesh["reductions"] == 0
+
+
+def test_tiled_is_the_resident_chain_on_a_two_shard_mesh(dev):
+    x, _ = generate_gmm(30_000, 4, 5, seed=3)
+    mesh = _card_mesh([dev, dev])
+    cfg = dict(k_max=16, iters=20, burnout=5)
+    resident = DPMM(DPMMConfig(**cfg), mesh=mesh).fit(x)
+    tiled = DPMM(DPMMConfig(tile_size=4096, **cfg), mesh=mesh).fit(
+        HostTiledSource(x))
+    _same_fit(resident, tiled)
+    assert tiled.mesh["data_shards"] == 2
+
+
+def test_feature_sharded_multinomial_on_the_card(dev):
+    """(2 x 2): the features of each data shard in two slices, the plain
+    route and ``moments_labels`` on each slice; the (2 x 1) fit runs the
+    kernels. The two routes' log-likelihood sums round differently, so at
+    most 2 of the 20,000 labels may differ (``chip_smoke.py``
+    ``fit_feature_shard`` counts them at 10^6 points); two (2 x 2) runs
+    bitwise."""
+    x, y = generate_mnmm(20_000, 64, 5, seed=1)
+    cfg = dict(component="multinomial", k_max=16, iters=20, burnout=5)
+    plain = DPMM(DPMMConfig(**cfg), mesh=_card_mesh([dev] * 2)).fit(x)
+    fs = DPMMConfig(shard_features=True, **cfg)
+    a = DPMM(fs, mesh=_card_mesh([dev] * 4, model=2)).fit(x)
+    b = DPMM(fs, mesh=_card_mesh([dev] * 4, model=2)).fit(x)
+    _same_fit(a, b)
+    assert a.mesh["model_shards"] == 2
+    assert all(launches["moments_labels"] > 0
+               for launches in a.mesh["shard_launches"])
+    assert int((a.labels != plain.labels).sum()) <= 2
+    assert a.nmi(y) > 0.9
+
+
+def test_two_cards_give_the_one_card_mesh_bits(dev):
+    """A G-shard chain's bits depend on G, not on the cards that hold the
+    shards: shards on cuda:0 and cuda:1 against both on cuda:0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    x, _ = generate_gmm(20_000, 8, 6, seed=2, sep=10.0)
+    cfg = DPMMConfig(k_max=16, iters=20, burnout=5)
+    logical = DPMM(cfg, mesh=_card_mesh(["cuda:0", "cuda:0"])).fit(x)
+    cards = DPMM(cfg, mesh=_card_mesh(["cuda:0", "cuda:1"])).fit(x)
+    _same_fit(logical, cards)

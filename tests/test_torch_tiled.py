@@ -68,7 +68,7 @@ DATA = {"gaussian": lambda: generate_gmm(N, 2, 4, seed=0),
                                     (2048, 1024), (1000, 4096), (70_000, None),
                                     (5, 1), (4097, 2048)])
 def test_tile_plan_is_the_references(n, tile):
-    n_local, tiles = tile_plan(n, tile)
+    n_local, tiles = tile_plan(n, 1, tile)
     ref_n, ref_tiles = jdist.tile_plan(n, 1, tile)
     assert (n_local, tiles) == (ref_n, list(ref_tiles))
     assert all(off % STATS_BLOCK == 0 for off, _ in tiles)
