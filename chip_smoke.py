@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile TRACE.json] [--mesh-only]
+    python3 chip_smoke.py [--profile TRACE.json] [--mesh-only | --lm-only]
 
 Builds the port's twelve CUDA kernels from ``src/repro_torch/csrc`` and
 holds each against its plain PyTorch version on the card (phases
@@ -160,6 +160,18 @@ Every phase but these two fits on one card, however many the machine
 holds. ``--mesh-only`` runs just the build, ``fit`` and these two phases
 (on several cards a G-shard chain's digest must equal the one-card
 run's), and prints no result line.
+The LM zoo (no kernel of its own; plain PyTorch): ``lm_smoke`` runs the
+four dense-attention archs at smoke size, the card's logits against the
+port on the CPU (same weights, same tokens) within 1e-5, decode against
+forward and the sliding-window ring within 1e-4; ``serve_lm`` serves
+``gemma2-9b`` at full width and depth (random float32 weights drawn on the
+card, then a bfloat16 copy) on ``examples/serve_lm.py``'s request: decode
+against one forward within 1e-4 at float32, a greedy rerun identical, ms a
+step (event and host clocks) beside the bytes bound, tokens/s, peak
+bytes; ``lm_embed_cluster`` runs ``examples/cluster_embeddings.py`` at
+its own sizes, the card's embeddings against the CPU's within 1e-5, then
+the DPGMM fit on the card (K and NMI printed). ``--lm-only`` runs just
+the build and these three phases, and prints no result line.
 ``kernel_check_dense`` holds the dense ``suffstats`` oracle (its entry
 point ``ops.suffstats``) against its plain version at the d = 32 and d =
 128 fits' final states, a ragged shape, d = 256 and the reference's §4.2
@@ -181,7 +193,9 @@ any failed check raises, so the script exits non-zero. The last line is
 ``--profile TRACE.json`` adds two phases: after the Gaussian fit and after
 the multinomial fit, the same fit again under ``torch.profiler``, reported
 as device-busy time, idle share and the heaviest device-side events, with
-the Chrome traces written to TRACE.json and TRACE_multinomial.json.
+the Chrome traces written to TRACE.json and TRACE_multinomial.json; and
+in ``serve_lm`` each dtype's decode step split by kind of op
+(``torch.profiler``) and each weight product of the step timed alone.
 
 Needs a CUDA device and the repository's ``src/`` beside this file; it
 exits non-zero without either. It imports nothing of the JAX package.
@@ -331,6 +345,29 @@ WORKER_DEADLINE_S = 5.0
 # The mesh (fit_mesh): data shards of the 10^6 x 32 fit, shard s on card
 # s mod the cards present (logical shards on one card).
 MESH_SHARDS = (1, 2, 4)
+# The LM zoo (lm_smoke, serve_lm, lm_embed_cluster): the dense-attention
+# archs, the card's logits against the CPU's on the same weights (float32
+# sums in another order) and decode against forward (test_zoo.py's bound).
+LM_DENSE = ("granite-8b", "starcoder2-7b", "gemma2-9b", "mistral-large-123b")
+LM_RTOL, LM_DECODE_RTOL = 1e-5, 1e-4
+# serve_lm: gemma2-9b at full width and depth, examples/serve_lm.py's
+# request (batch, prompt, steps, cache length); decode against one forward
+# over the answer at float32 (TF32 off)
+SERVE_LM_ARCH = "gemma2-9b"
+SERVE_LM_BATCH, SERVE_LM_PROMPT, SERVE_LM_STEPS = 4, 8, 48
+SERVE_LM_CACHE = 256
+SERVE_LM_RTOL = 1e-4
+# --profile: decode steps of the served model under torch.profiler
+SERVE_LM_PROFILE_STEPS = 8
+# lm_embed_cluster: examples/cluster_embeddings.py's sizes. The card's
+# mean-pooled embeddings are held against the port's on the CPU (same
+# weights, same tokens) at LM_RTOL; K and NMI are readings, not gates: the
+# reference example's own CPU result is K = 1, NMI = 0.000 (120 points a
+# domain at d = 256 are too few for the NIW evidence to split), so its
+# floor would gate nothing. The fit's sweeps all take sweep_ref at d = 256.
+EMBED_DOMAINS, EMBED_DOCS, EMBED_SEQ, EMBED_BATCH = 6, 120, 64, 32
+EMBED_PATH = ("assign_gauss", "sub_assign_gauss", "suffstats_labels",
+              "fold_partials")
 WINDOW_CASES = (("k8193", 20_000, 3, 8193), ("k16384", 20_000, 3, 16_384),
                 ("d300", 20_000, 300, 5), ("d384", 20_000, 384, 5),
                 ("fold_k10000", 50_176, K_LARGE_D, 10_000),
@@ -2951,6 +2988,389 @@ def mesh_phases(DPMM, DPMMConfig, HostTiledSource, synthetic, x_np, y_np,
     return launched_by
 
 
+def lm_rel(got, want) -> float:
+    """max |got - want| / max |want| (tests/test_zoo.py's measure)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def lm_decode(decode, model, tokens, cache_len: int):
+    """Teacher-forced decode of every token: (B, S, V) float32 logits."""
+    cache = decode.init_cache(model.cfg, tokens.shape[0], cache_len,
+                              model.embed.tok.dtype,
+                              device=tokens.device)
+    out = []
+    for t in range(tokens.shape[1]):
+        lg, cache = decode.decode_step(model, cache, tokens[:, t:t + 1],
+                                       cache_len=cache_len)
+        out.append(lg[:, 0])
+    return torch.stack(out, dim=1)
+
+
+def lm_smoke(dev) -> dict:
+    """The four dense archs at smoke size: the card's logits against the
+    port on the CPU (same params, same tokens), the card's decode against
+    its forward, and the sliding-window ring (window 8, 20 steps)."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import decode, transformer
+    report, problems = {}, []
+    for arch in LM_DENSE:
+        cfg = smoke_config(arch)
+        model = transformer.init_params(0, cfg, device="cpu")
+        toks = torch.randint(0, cfg.vocab_size, (2, 16),
+                             generator=torch.Generator().manual_seed(1))
+        cpu_logits, _ = transformer.forward(model, toks)
+        card = copy.deepcopy(model).to(dev)
+        logits, _ = transformer.forward(card, toks.to(dev))
+        dec = lm_decode(decode, card, toks[:, :10].to(dev), 10)
+        full10, _ = transformer.forward(card, toks[:, :10].to(dev))
+        r = {"card_vs_cpu": lm_rel(logits, cpu_logits),
+             "decode_vs_forward": lm_rel(dec, full10),
+             "finite": bool(torch.isfinite(logits).all())}
+        if not r["finite"] or r["card_vs_cpu"] > LM_RTOL:
+            problems.append(f"{arch}: card logits against the CPU "
+                            f"{r['card_vs_cpu']:.3g} > {LM_RTOL}")
+        if r["decode_vs_forward"] > LM_DECODE_RTOL:
+            problems.append(f"{arch}: decode against forward "
+                            f"{r['decode_vs_forward']:.3g}")
+        report[arch] = r
+    cfg = dataclasses.replace(smoke_config("gemma2-9b"), sliding_window=8)
+    model = transformer.init_params(0, cfg, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (1, 20), device=dev,
+                         generator=torch.Generator(dev).manual_seed(1))
+    full, _ = transformer.forward(model, toks)
+    report["ring"] = {"window": 8, "steps": 20,
+                      "decode_vs_forward": lm_rel(
+                          lm_decode(decode, model, toks, 20), full)}
+    if report["ring"]["decode_vs_forward"] > LM_DECODE_RTOL:
+        problems.append(f"ring: {report['ring']['decode_vs_forward']:.3g}")
+    report["problems"] = problems
+    return report
+
+
+def serve_lm_dtype(decode, engine, transformer, model, cfg, shape, prompts,
+                   dtype) -> dict:
+    """``Generator.generate`` at one dtype: a warm-up request, a timed one
+    (a CUDA event pair around each serve step), a greedy rerun, then the
+    teacher-forced decode of the answer against one full forward."""
+    gen = engine.Generator(cfg, shape, model, dtype=dtype,
+                           device=prompts.device)
+    step, marks, host = gen.step, [], []
+
+    def timed(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        e0.record()
+        out = step(*a, **kw)
+        e1.record()
+        host.append(time.perf_counter() - h0)
+        marks.append((e0, e1))
+        return out
+
+    gen.generate(prompts, steps=SERVE_LM_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen.step = timed
+    t0 = time.perf_counter()
+    out = gen.generate(prompts, steps=SERVE_LM_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gen.step = step
+    ms = np.array([a.elapsed_time(b) for a, b in marks])
+    again = gen.generate(prompts, steps=SERVE_LM_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    dec = lm_decode(decode, model, out, SERVE_LM_CACHE)
+    full, _ = transformer.forward(model, out)
+    b = prompts.shape[0]
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    kv_bytes = sum(2 * b * c * cfg.num_kv_heads * cfg.resolved_head_dim
+                   * torch.empty((), dtype=dtype).element_size()
+                   for c in (decode._attn_cache_len(
+                       k, cfg, SERVE_LM_CACHE, gen.window_override)
+                       for k in transformer.layer_kinds(cfg)))
+    rep = {"dtype": str(dtype).replace("torch.", ""),
+           "steps_timed": int(ms.size),
+           "p50_ms": float(np.percentile(ms, 50)),
+           "p99_ms": float(np.percentile(ms, 99)),
+           "mean_ms": float(ms.mean()),
+           "host_p50_ms": float(np.percentile(host, 50)) * 1e3,
+           "tokens_per_s_decode": b * 1e3 / float(np.percentile(ms, 50)),
+           "tokens_per_s_wall": b * SERVE_LM_STEPS / wall,
+           "generate_wall_s": wall, "peak_bytes": int(peak),
+           "param_bytes": int(param_bytes), "kv_cache_bytes": int(kv_bytes),
+           "bound_ms": (param_bytes + kv_bytes) / PEAK_BYTES_S * 1e3,
+           "bound_by": "bytes",
+           "decode_vs_forward": lm_rel(dec, full),
+           "greedy_rerun_identical": bool(torch.equal(out, again)),
+           "finite": bool(torch.isfinite(full).all()),
+           "out_shape": list(out.shape)}
+    rep["bound_share"] = rep["bound_ms"] / rep["p50_ms"]
+    return rep, out
+
+
+def lm_op_kind(name: str) -> str:
+    """The kind of a device kernel of the decode step, by its name."""
+    n = name.lower()
+    if any(s in n for s in ("gemm", "gemv", "cublas", "cutlass", "sm90_",
+                             "splitk", "xmma", "nvjet")):
+        return "matmul"
+    if "softmax" in n:
+        return "attention_softmax"
+    if any(s in n for s in ("reduce", "mean", "norm")):
+        return "reductions"
+    if any(s in n for s in ("copy", "cat", "index", "scatter", "fill")):
+        return "copies_and_indexing"
+    return "elementwise"
+
+
+def serve_lm_profile(decode, model, cfg, dev) -> dict:
+    """``--profile``: SERVE_LM_PROFILE_STEPS decode steps of the served
+    model (a full cache, token 0) under ``torch.profiler``: the step's
+    host-clock ms, its device ms and device ops, both split by kind of op,
+    and the heaviest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    steps = SERVE_LM_PROFILE_STEPS
+    cache = decode.init_cache(cfg, SERVE_LM_BATCH, SERVE_LM_CACHE,
+                              model.embed.tok.dtype, device=dev)
+    tok = torch.zeros((SERVE_LM_BATCH, 1), dtype=torch.long, device=dev)
+    for _ in range(4):                                  # warm-up
+        decode.decode_step(model, cache, tok, cache_len=SERVE_LM_CACHE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        decode.decode_step(model, cache, tok, cache_len=SERVE_LM_CACHE)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            decode.decode_step(model, cache, tok, cache_len=SERVE_LM_CACHE)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    ms, ops = {}, {}
+    for e in events:
+        kind = lm_op_kind(e.key)
+        ms[kind] = ms.get(kind, 0.0) + _device_us(e) * 1e-3 / steps
+        ops[kind] = ops.get(kind, 0) + e.count / steps
+    heavy = sorted(events, key=_device_us, reverse=True)[:10]
+    return {"steps": steps, "host_ms_a_step": host_ms,
+            "device_ms_a_step": sum(ms.values()),
+            "device_ops_a_step": sum(ops.values()),
+            "by_kind_ms_a_step": dict(sorted(ms.items())),
+            "by_kind_ops_a_step": dict(sorted(ops.items())),
+            "top": [{"name": e.key[:100], "calls_a_step": e.count / steps,
+                     "ms_a_step": _device_us(e) * 1e-3 / steps}
+                    for e in heavy]}
+
+
+def lm_product_ms(cfg, dev) -> list:
+    """``--profile``: each weight product of a decode step (SERVE_LM_BATCH
+    rows against each projection's shape, the port's layout) timed alone
+    (``cuda_ms``): float32, bfloat16 with a float32 output and bfloat16,
+    each beside the bytes bound of reading its weight once."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    shapes = {"wq": (d, cfg.num_heads * hd),
+              "wk_wv": (d, cfg.num_kv_heads * hd),
+              "wo": (cfg.num_heads * hd, d), "up_gate": (d, cfg.d_ff),
+              "down": (cfg.d_ff, d), "unembed_tied": (d, cfg.vocab_size)}
+    g = torch.Generator(dev).manual_seed(0)
+    out = []
+    for name, (k, n) in shapes.items():
+        x = torch.randn((SERVE_LM_BATCH, k), device=dev, generator=g)
+        if name == "unembed_tied":          # x @ tok.T
+            w = torch.randn((n, k), device=dev, generator=g).T
+        else:
+            w = torch.randn((k, n), device=dev, generator=g)
+        xb, wb = x.bfloat16(), w.bfloat16()
+        out.append({
+            "product": name, "rows": SERVE_LM_BATCH, "k": k, "n": n,
+            "f32_ms": cuda_ms(lambda: x @ w, 20),
+            "f32_bound_ms": k * n * 4 / PEAK_BYTES_S * 1e3,
+            "bf16_out_f32_ms": cuda_ms(
+                lambda: torch.mm(xb, wb, out_dtype=torch.float32), 20),
+            "bf16_ms": cuda_ms(lambda: xb @ wb, 20),
+            "bf16_bound_ms": k * n * 2 / PEAK_BYTES_S * 1e3})
+        del x, w, xb, wb
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_lm(dev, gpu, profile: bool) -> dict:
+    """gemma2-9b at full width and depth, random float32 weights drawn on
+    the card, served as examples/serve_lm.py serves its smoke model
+    (batch 4, prompt 8, 48 steps, cache 256); then a bfloat16 copy. With
+    ``profile`` each dtype's decode step is also split by kind of op
+    (``serve_lm_profile``) and each weight product timed alone
+    (``lm_product_ms``)."""
+    import dataclasses
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.models import decode, transformer
+    from repro_torch.serve import engine
+    cfg = get_config(SERVE_LM_ARCH)
+    shape = dataclasses.replace(INPUT_SHAPES["decode_32k"],
+                                seq_len=SERVE_LM_CACHE,
+                                global_batch=SERVE_LM_BATCH)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = transformer.init_params(torch.Generator(dev).manual_seed(0),
+                                    cfg, torch.float32, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.randint(0, cfg.vocab_size,
+                            (SERVE_LM_BATCH, SERVE_LM_PROMPT), device=dev,
+                            generator=torch.Generator(dev).manual_seed(1))
+    report = {"arch": cfg.name, "layers": cfg.num_layers,
+              "d_model": cfg.d_model, "heads": cfg.num_heads,
+              "kv_heads": cfg.num_kv_heads,
+              "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+              "vocab": cfg.vocab_size,
+              "kinds": sorted(set(transformer.layer_kinds(cfg))),
+              "params": sum(p.numel() for p in model.parameters()),
+              "batch": SERVE_LM_BATCH, "prompt": SERVE_LM_PROMPT,
+              "steps": SERVE_LM_STEPS, "cache_len": SERVE_LM_CACHE,
+              "init_s": init_s, "bytes_before": before,
+              "nvidia_smi": gpu, "tf32": torch.backends.cuda.matmul.allow_tf32}
+    problems = []
+    f32, out32 = serve_lm_dtype(decode, engine, transformer, model, cfg,
+                                shape, prompts, torch.float32)
+    if profile:
+        f32["profile"] = serve_lm_profile(decode, model, cfg, dev)
+    model.to(torch.bfloat16)
+    torch.cuda.empty_cache()
+    bf16, out16 = serve_lm_dtype(decode, engine, transformer, model, cfg,
+                                 shape, prompts, torch.bfloat16)
+    if profile:
+        bf16["profile"] = serve_lm_profile(decode, model, cfg, dev)
+    bf16["greedy_ids_equal_f32"] = float(
+        (out16 == out32).float().mean().item())
+    del model
+    torch.cuda.empty_cache()
+    if profile:
+        report["products"] = lm_product_ms(cfg, dev)
+    for r in (f32, bf16):
+        if not (r["greedy_rerun_identical"] and r["finite"]):
+            problems.append(f"{r['dtype']}: greedy rerun differs or "
+                            "non-finite logits")
+        if r["out_shape"] != [SERVE_LM_BATCH,
+                              SERVE_LM_PROMPT + SERVE_LM_STEPS]:
+            problems.append(f"{r['dtype']}: output shape {r['out_shape']}")
+    if f32["decode_vs_forward"] > SERVE_LM_RTOL:
+        problems.append(f"float32 decode against forward "
+                        f"{f32['decode_vs_forward']:.3g} > {SERVE_LM_RTOL}")
+    report.update(float32=f32, bfloat16=bf16, problems=problems)
+    return report
+
+
+def domain_corpus(TokenPipeline, vocab, n_domains, docs_per_domain, seq,
+                  seed=0):
+    """examples/cluster_embeddings.py's corpus: documents from K Markov
+    sources, one a domain, shuffled."""
+    docs, labels = [], []
+    for k in range(n_domains):
+        pipe = TokenPipeline(vocab, seed=seed + 1000 * k)
+        for _ in range(docs_per_domain):
+            docs.append(pipe.sample(seq))
+            labels.append(k)
+    order = np.random.default_rng(seed).permutation(len(docs))
+    return (np.stack(docs)[order],
+            np.asarray(labels, np.int32)[order])
+
+
+def lm_embed_cluster(DPMM, DPMMConfig, dev, gpu) -> tuple:
+    """examples/cluster_embeddings.py on the card at its own sizes: a
+    smoke-size granite-8b embeds 6 domains x 120 documents of 64 tokens
+    (hidden_forward, mean-pooled) and is held against the port on the CPU,
+    the embeddings are standardised and the DPGMM fits them (d = 256:
+    every sweep through sweep_ref). Returns the report and the fit's
+    launches."""
+    import copy
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    cfg = smoke_config("granite-8b")
+    t0 = time.perf_counter()
+    toks, gt = domain_corpus(TokenPipeline, cfg.vocab_size, EMBED_DOMAINS,
+                             EMBED_DOCS, EMBED_SEQ)
+    corpus_s = time.perf_counter() - t0
+    cpu_model = transformer.init_params(0, cfg, device="cpu")
+    model = copy.deepcopy(cpu_model).to(dev)
+
+    def embed(m, device):
+        out = []
+        for i in range(0, toks.shape[0], EMBED_BATCH):
+            batch = torch.as_tensor(toks[i:i + EMBED_BATCH],
+                                    device=device).long()
+            hidden, _ = transformer.hidden_forward(m, batch)
+            out.append(hidden.mean(dim=1).cpu())
+        return torch.cat(out)
+
+    t0 = time.perf_counter()
+    card = embed(model, dev)
+    embed_s = time.perf_counter() - t0
+    card_vs_cpu = lm_rel(card, embed(cpu_model, "cpu"))
+    x = card.numpy()
+    x = (x - x.mean(0)) / (x.std(0) + 1e-6)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = DPMM(DPMMConfig(alpha=10.0, iters=80, k_max=32, burnout=5,
+                          niw_psi=0.3)).fit(x)
+    fit_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    nmi = res.nmi(gt)
+    report = {"docs": int(toks.shape[0]), "seq": EMBED_SEQ,
+              "embedding_shape": list(x.shape),
+              "embeddings_card_vs_cpu": card_vs_cpu, "rtol": LM_RTOL,
+              "k_found": res.k, "k_true": EMBED_DOMAINS, "nmi": nmi,
+              "reference_example_cpu": {"k": 1, "nmi": 0.0},
+              "corpus_s": corpus_s, "embed_s": embed_s, "fit_s": fit_s,
+              "launches": launches, "nvidia_smi": gpu}
+    problems = []
+    if not np.isfinite(x).all() or x.shape != (EMBED_DOMAINS * EMBED_DOCS,
+                                               cfg.d_model):
+        problems.append(f"embeddings {x.shape} not finite or misshapen")
+    if res.labels.shape != (x.shape[0],) or res.k < 1:
+        problems.append("fit output misshapen")
+    if not card_vs_cpu <= LM_RTOL:
+        problems.append(f"card embeddings against the CPU {card_vs_cpu:.3g}"
+                        f" > {LM_RTOL}")
+    for name in EMBED_PATH:
+        if launches[name] == 0:
+            problems.append(f"kernel {name} was never launched by the fit")
+    report["problems"] = problems
+    return report, launches
+
+
+def lm_phases(DPMM, DPMMConfig, dev, gpu, profile: bool) -> dict:
+    """``lm_smoke``, ``serve_lm`` and ``lm_embed_cluster``, each emitted
+    and each one's tensors freed before the next; raises on a problem.
+    Returns the launches of lm_embed_cluster's fit."""
+    import gc
+    launched = {}
+    for phase in ("lm_smoke", "serve_lm", "lm_embed_cluster"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        if phase == "lm_smoke":
+            report = lm_smoke(dev)
+        elif phase == "serve_lm":
+            report = serve_lm(dev, gpu, profile)
+        else:
+            report, launched = lm_embed_cluster(DPMM, DPMMConfig, dev, gpu)
+        emit(phase, seconds=time.perf_counter() - t0, **report)
+        if report["problems"]:
+            fail(f"{phase}: {'; '.join(report['problems'])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="TRACE", default="",
@@ -2959,6 +3379,9 @@ def main() -> None:
                     help="only the build, the fit phase and the mesh "
                          "phases (fit_mesh, fit_feature_shard), on the "
                          "cards present")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="only the build and the LM phases (lm_smoke, "
+                         "serve_lm, lm_embed_cluster)")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -2999,6 +3422,11 @@ def main() -> None:
          ptxas={n: [ln for ln in (build.ptxas_report(n) or "").splitlines()
                     if "registers" in ln or "spill" in ln]
                 for n in build.SOURCES})
+
+    if opts.lm_only:
+        lm_phases(DPMM, DPMMConfig, dev, gpu, bool(opts.profile))
+        print(gpu)
+        return
 
     if opts.mesh_only:
         x_np, y_np = generate_gmm(FIT_N, FIT_D, FIT_K, seed=0)
@@ -3724,6 +4152,12 @@ def main() -> None:
                                 for launched in mesh_launch.values()))
     emit("matmul_crossover", nvidia_smi=gpu,
          paper_crossover_dn=640_000, **matmul_crossover(matmul, dev))
+    # the LM zoo (no kernel of its own; lm_embed_cluster's fit launches the
+    # Gaussian three-pass kernels)
+    lm_launch = lm_phases(DPMM, DPMMConfig, dev, gpu, bool(opts.profile))
+    for r in rows:
+        r["launches_lm_embed_cluster"] = lm_launch.get(r["name"], 0)
+        r["launches"] += r["launches_lm_embed_cluster"]
     torch.cuda.synchronize()
     print(json.dumps({"kernels": rows}))
     print(gpu)

@@ -1,4 +1,10 @@
-"""Configuration of the port's DPMM sampler.
+"""Configuration of the port: the LM zoo's architectures and input shapes,
+and the DPMM sampler.
+
+``ModelConfig`` and ``InputShape`` are copies of the reference's
+(``repro.configs.base``), field for field, so a config compares equal to
+the reference's under ``dataclasses.asdict``. ``TrainConfig`` comes with
+the training slice.
 
 The port's own copy of the fields of ``repro.configs.base.DPMMConfig`` that
 the resident and tiled fits read, with the same names, defaults and
@@ -15,7 +21,145 @@ from __future__ import annotations
 
 import dataclasses
 import numbers
-from typing import Optional
+from typing import Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# Layer-pattern vocabulary (per-layer block kinds, see models/transformer.py)
+# ---------------------------------------------------------------------------
+ATTN = "attn"            # global self-attention block
+LOCAL_ATTN = "local"     # sliding-window self-attention block
+CROSS = "cross"          # self-attention + cross-attention block (VLM/enc-dec)
+SSM = "ssm"              # Mamba-1 selective-SSM block
+RGLRU = "rglru"          # RG-LRU (Griffin) recurrent block
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts sub-config (None on dense archs)."""
+    num_experts: int                 # routed experts
+    num_shared_experts: int          # always-on shared experts
+    top_k: int
+    d_expert: int                    # per-expert FFN hidden dim
+    d_shared: int                    # shared-expert FFN hidden dim (total)
+    capacity_factor: float = 1.25
+    router_aux_loss: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2) sub-config."""
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0             # 0 => full-rank q projection
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-1 sub-config."""
+    state_dim: int = 16
+    conv_kernel: int = 4
+    expand: int = 2
+    dt_rank: int = 0                 # 0 => ceil(d_model / 16)
+
+
+@dataclasses.dataclass(frozen=True)
+class RGLRUConfig:
+    """RG-LRU (RecurrentGemma) sub-config."""
+    lru_width: int = 0               # 0 => d_model
+    conv_kernel: int = 4
+    block_width: int = 0             # reserved
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """One assigned architecture. Defaults describe a vanilla dense LM."""
+    name: str
+    arch_type: str                   # dense | moe | ssm | hybrid | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                # 0 => d_model // num_heads
+    # Layer pattern: repeated `pattern` then `remainder`; len(pattern) *
+    # repeats + len(remainder) == num_layers.  Empty pattern => all ATTN.
+    pattern: Tuple[str, ...] = ()
+    remainder: Tuple[str, ...] = ()
+    # Attention details
+    rope_theta: float = 10000.0
+    sliding_window: int = 4096       # used by LOCAL_ATTN blocks
+    logit_softcap: float = 0.0       # gemma2-style attn logit soft-capping
+    final_softcap: float = 0.0       # gemma2-style final-logit soft-capping
+    qk_norm: bool = False
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-6
+    act: str = "silu"                # silu | gelu
+    gated_mlp: bool = True           # SwiGLU-style gate (False: plain 2-mat)
+    # Sub-configs (None when not applicable)
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
+    # Encoder-decoder (audio) / vision frontends.
+    encoder_layers: int = 0          # >0 => enc-dec (whisper)
+    encoder_seq: int = 0             # stubbed frontend output length
+    vision_tokens: int = 0           # stubbed VLM patch-embedding count
+    # Serving
+    long_context: str = "none"       # none | sliding_window | native
+    # Reference / provenance
+    source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Fully expanded per-layer kind list (length == num_layers)."""
+        if not self.pattern:
+            kinds: Tuple[str, ...] = (ATTN,) * self.num_layers
+        else:
+            reps = (self.num_layers - len(self.remainder)) // len(self.pattern)
+            kinds = tuple(self.pattern) * reps + tuple(self.remainder)
+        assert len(kinds) == self.num_layers, (
+            f"{self.name}: pattern does not tile num_layers "
+            f"({len(kinds)} != {self.num_layers})")
+        return kinds
+
+    @property
+    def pattern_repeats(self) -> int:
+        if not self.pattern:
+            return self.num_layers
+        return (self.num_layers - len(self.remainder)) // len(self.pattern)
+
+    def validate(self) -> None:
+        assert self.d_model % self.num_heads == 0 or self.head_dim, self.name
+        assert self.num_heads % self.num_kv_heads == 0 or self.mla, self.name
+        _ = self.layer_kinds
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One assigned (seq_len, global_batch) workload."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = InputShape("train_4k", 4_096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32_768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524_288, 1, "decode")
+
+INPUT_SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 
 @dataclasses.dataclass(frozen=True)

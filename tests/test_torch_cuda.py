@@ -26,7 +26,9 @@ bitwise, and on two cards a 2-shard chain is the one-card chain.
 ``fold_partials`` is bitwise its plain loop of adds (the same IEEE adds in
 the same order); the dense ``suffstats`` kernel sums in another order than
 its plain version (rtol 1e-4 of each array's scale, counts within it too:
-the responsibilities are fractions).
+the responsibilities are fractions). The LM zoo's dense-attention archs at
+smoke size: the card's forward and decode logits are the CPU's within 1e-5
+of the logits' scale (TF32 off), and greedy generation gives the CPU's ids.
 """
 import numpy as np
 import pytest
@@ -1401,3 +1403,66 @@ def test_two_cards_give_the_one_card_mesh_bits(dev):
     logical = DPMM(cfg, mesh=_card_mesh(["cuda:0", "cuda:0"])).fit(x)
     cards = DPMM(cfg, mesh=_card_mesh(["cuda:0", "cuda:1"])).fit(x)
     _same_fit(logical, cards)
+
+
+LM_DENSE = ("granite-8b", "starcoder2-7b", "gemma2-9b", "mistral-large-123b")
+
+
+def _lm_rel(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("arch", LM_DENSE)
+def test_lm_logits_on_the_card_are_the_cpus(dev, arch):
+    """The dense-attention archs at smoke size: the card's forward and
+    teacher-forced decode logits against the CPU's on the same weights and
+    tokens (float32 sums in another order; TF32 off), within 1e-5 of the
+    logits' scale."""
+    import copy
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import decode, transformer
+    cfg = smoke_config(arch)
+    model = transformer.init_params(0, cfg, device="cpu")
+    card = copy.deepcopy(model).to(dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16),
+                         generator=torch.Generator().manual_seed(1))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want, _ = transformer.forward(model, toks)
+        got, _ = transformer.forward(card, toks.to(dev))
+        assert _lm_rel(got, want) <= 1e-5
+        outs = []
+        for m, t in ((model, toks), (card, toks.to(dev))):
+            cache = decode.init_cache(cfg, 2, 10, torch.float32,
+                                      device=t.device)
+            steps = []
+            for i in range(10):
+                lg, cache = decode.decode_step(m, cache, t[:, i:i + 1],
+                                               cache_len=10)
+                steps.append(lg[:, 0])
+            outs.append(torch.stack(steps, dim=1))
+        assert _lm_rel(outs[1], outs[0]) <= 1e-5
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_lm_greedy_generator_on_the_card_is_the_cpus(dev):
+    """gemma2-9b at smoke size: greedy ids from the card's Generator equal
+    the CPU's."""
+    import dataclasses
+    from repro_torch.configs import INPUT_SHAPES, smoke_config
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import Generator
+    cfg = smoke_config("gemma2-9b")
+    shape = dataclasses.replace(INPUT_SHAPES["decode_32k"], seq_len=64,
+                                global_batch=2)
+    prompts = np.arange(16).reshape(2, 8) % cfg.vocab_size
+    cpu = Generator(cfg, shape,
+                    transformer.init_params(0, cfg, device="cpu"),
+                    device="cpu").generate(prompts, steps=16)
+    card = Generator(cfg, shape,
+                     transformer.init_params(0, cfg, device="cpu"),
+                     device=dev).generate(prompts, steps=16)
+    assert torch.equal(card.cpu(), cpu)

@@ -29,6 +29,7 @@ import zlib
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from repro.dist import proto as jproto
 from repro_torch.configs import DPMMConfig
@@ -51,7 +52,8 @@ def _one_torch_thread():
     passes its count on): the suite runs several test processes."""
     old = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api="blas"):
+        yield
     torch.set_num_threads(old)
 
 

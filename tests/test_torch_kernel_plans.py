@@ -185,20 +185,15 @@ def test_stats_plan_covers_every_segment_row_and_column(d):
                     p.edge == 8) * 8
             else:
                 assert p.edge == 128 and p.tiles == -(-d // 128)
-            seen = {}
-            for ta in range(p.tiles):
-                for tb in range(p.tiles):
-                    for ty in range(tw):
-                        for tx in range(tw):
-                            for i in range(8):
-                                for j in range(8):
-                                    a = ta * p.edge + 4 * ty + i % 4 + (
-                                        i // 4) * (p.edge // 2)
-                                    b = tb * p.edge + 4 * tx + j % 4 + (
-                                        j // 4) * (p.edge // 2)
-                                    if a < d and b < d:
-                                        seen[a, b] = seen.get((a, b), 0) + 1
-            assert len(seen) == d * d and set(seen.values()) == {1}
+            ta, tb, ty, tx, i, j = np.meshgrid(
+                *map(np.arange, (p.tiles, p.tiles, tw, tw, 8, 8)),
+                indexing="ij")
+            a = ta * p.edge + 4 * ty + i % 4 + (i // 4) * (p.edge // 2)
+            b = tb * p.edge + 4 * tx + j % 4 + (j // 4) * (p.edge // 2)
+            inside = (a < d) & (b < d)
+            seen = np.zeros((d, d), int)
+            np.add.at(seen, (a[inside], b[inside]), 1)
+            assert (seen == 1).all()
             # the blocks sharing a STATS_BLOCK take its (segment, tile)
             # items part mod splits, their teams in turn: each item once
             assert 1 <= p.splits <= STATS_SPLITS
@@ -623,14 +618,15 @@ def test_linear_plan_gives_every_point_slot_and_feature_one_owner(n):
             if n >= 11_314:
                 assert p.grid_e >= 132
             owners = np.zeros((p.bm, na), int)
+            t, i, j = np.meshgrid(np.arange(LE_THREADS),
+                                  np.arange(p.bm // 32), np.arange(8),
+                                  indexing="ij")
+            tx, ty = t % 8, t // 8
             for a0 in range(0, na, LE_BK):
                 nac = min(LE_BK, na - a0)
-                for t in range(LE_THREADS):
-                    tx, ty = t % 8, t // 8
-                    for i in range(p.bm // 32):
-                        for j in range(8):
-                            if tx + 8 * j < nac:
-                                owners[ty + 32 * i, a0 + tx + 8 * j] += 1
+                mine = tx + 8 * j < nac
+                np.add.at(owners, ((ty + 32 * i)[mine],
+                                   (a0 + tx + 8 * j)[mine]), 1)
             assert (owners == 1).all()
             assert p.nsb == -(-n // STATS_BLOCK)
             # the fold's feature chunks: chunk c owns [c fc, (c + 1) fc)

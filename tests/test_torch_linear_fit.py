@@ -15,6 +15,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from repro.configs.base import DPMMConfig as JaxConfig
 from repro.core.sampler import DPMM as JaxDPMM
@@ -29,10 +30,12 @@ CFG = dict(iters=30, burnout=10)
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes."""
+    """One intra-op thread, torch's and numpy's BLAS's: the suite runs
+    several test processes."""
     old = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api="blas"):
+        yield
     torch.set_num_threads(old)
 
 

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from repro.core import checkpoint as jckpt
 from repro.core import niw as jniw
@@ -44,10 +45,12 @@ FIT = dict(k_max=16, iters=10, burnout=3, log_every=4, k_block=2)
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes."""
+    """One intra-op thread, torch's and numpy's BLAS's: the suite runs
+    several test processes."""
     old = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api="blas"):
+        yield
     torch.set_num_threads(old)
 
 

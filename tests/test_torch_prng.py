@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from repro.kernels import prng as jprng
 from repro_torch.kernels import prng
@@ -18,10 +19,12 @@ from repro_torch.kernels import prng
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes."""
+    """One intra-op thread, torch's and numpy's BLAS's: the suite runs
+    several test processes."""
     old = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api="blas"):
+        yield
     torch.set_num_threads(old)
 
 

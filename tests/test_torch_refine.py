@@ -20,12 +20,14 @@ served answers bitwise as they were, the traffic buffer is bounded, and a
 ``refine_cfg`` of another family is refused with the reference's message.
 """
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from repro.configs import DPMMConfig as JConfig
 from repro.core import checkpoint as jcheckpoint
@@ -44,15 +46,18 @@ from repro_torch.serve import dpmm as tserve
 
 FITS = {"gaussian": ("generate_gmm", 3), "multinomial": ("generate_mnmm", 8)}
 B, DECAY, ALPHA = 256, 0.9, 10.0
+USED = B - 56                  # the parity batch: 56 padded rows
 TIE_RTOL = 1e-4
 
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes."""
+    """One intra-op thread, torch's and numpy's BLAS's: the suite runs
+    several test processes."""
     old = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api="blas"):
+        yield
     torch.set_num_threads(old)
 
 
@@ -80,14 +85,27 @@ def _batch(q, used):
     return x, valid
 
 
+@pytest.fixture(autouse=True, scope="module")
+def jax_refines(fitted):
+    """family -> a future of (the JAX package's engine on the checkpoint,
+    refining in batches of B rows; its refine step on the short batch,
+    ``_jax_refine``). Built on two threads from the module's start: the
+    JAX compiles (once per family) run two at a time, and while the
+    port-only tests do; the tests that need them come last."""
+    def build(family):
+        path, q = fitted[family]
+        jeng = jserve.DPMMEngine.from_checkpoint(
+            path, jserve.ServeConfig(batch_sizes=(B,), refine=True,
+                                     refine_batch=B))
+        return jeng, _jax_refine(jeng, *_batch(q, USED))
+    with ThreadPoolExecutor(2) as pool:
+        yield {family: pool.submit(build, family) for family in FITS}
+
+
 @pytest.fixture(scope="module")
-def jax_engines(fitted):
-    """family -> the JAX package's engine on the checkpoint, refining in
-    batches of B rows (its refine step compiles once per family)."""
-    return {family: jserve.DPMMEngine.from_checkpoint(
-        path, jserve.ServeConfig(batch_sizes=(B,), refine=True,
-                                 refine_batch=B))
-        for family, (path, _) in fitted.items()}
+def jax_engines(jax_refines):
+    """family -> the JAX package's engine (``jax_refines``), waited for."""
+    return {family: f.result()[0] for family, f in jax_refines.items()}
 
 
 def _jax_refine(jeng, x, valid):
@@ -140,44 +158,6 @@ def _near_ties(fam, post, x, rows, a, b) -> None:
     gap = np.abs(ta - tb) / np.maximum(1.0, np.maximum(np.abs(ta),
                                                        np.abs(tb)))
     assert (gap <= TIE_RTOL).all(), gap
-
-
-@pytest.mark.parametrize("family", list(FITS))
-def test_refine_tile_matches_the_jax_refine_sweep(fitted, jax_engines,
-                                                 family):
-    path, q = fitted[family]
-    used = B - 56                       # a short batch: 56 padded rows
-    x, valid = _batch(q, used)
-    jm, jpost, post_np, jm2, lab_j = _jax_refine(jax_engines[family], x,
-                                                 valid)
-    fam = get_family(family)
-    post = state.model_state_from_numpy(post_np, "cpu", fam)
-    m2, lab_t = gibbs.refine_tile(post, torch.as_tensor(x),
-                                  torch.as_tensor(valid), fam, DECAY)
-    assert m2.it == int(jm.it) + 1 == int(jm2.it)
-    assert torch.equal(m2.active, post.active)
-    lab_t = lab_t.numpy()
-    bad = np.flatnonzero(lab_t[:used] != lab_j[:used])
-    assert bad.size <= 0.01 * used
-    if bad.size:
-        _near_ties(fam, post, x, bad, lab_t, lab_j)
-        # the blend of the JAX labelling's stats, from the port's fold
-        k_max = post.active.shape[0]
-        sub_j = _jax_sublabels(family, jpost, x, valid)
-        batch = gibbs.finalize_substats(fam.stats_from_labels(
-            torch.as_tensor(x), torch.as_tensor(valid),
-            torch.as_tensor(lab_j), torch.as_tensor(sub_j), k_max))
-        blend = lambda o, b: tree_map2(lambda u, v: DECAY * u + v, o, b)
-        m2 = m2.replace(stats=blend(post.stats, batch[0]),
-                        substats=blend(post.substats, batch[1]))
-    for got, want in ((m2.stats, jm2.stats), (m2.substats, jm2.substats)):
-        for name, t in _fields(got).items():
-            w = np.asarray(getattr(want, name))
-            if name == "n":
-                np.testing.assert_allclose(t.numpy(), w, rtol=1e-6)
-            else:
-                np.testing.assert_allclose(t.numpy(), w, rtol=1e-5,
-                                           atol=1e-3)
 
 
 @pytest.mark.parametrize("family", list(FITS))
@@ -328,3 +308,40 @@ def test_refine_cfg_of_another_family_is_refused(fitted):
                   refine_cfg=DPMMConfig(component="multinomial"))
     with pytest.raises(ValueError, match="does not match the served"):
         eng.refine(x=q[:64])
+
+
+@pytest.mark.parametrize("family", list(FITS))
+def test_refine_tile_matches_the_jax_refine_sweep(fitted, jax_refines,
+                                                 family):
+    path, q = fitted[family]
+    used = USED                         # a short batch: 56 padded rows
+    x, valid = _batch(q, used)
+    _, (jm, jpost, post_np, jm2, lab_j) = jax_refines[family].result()
+    fam = get_family(family)
+    post = state.model_state_from_numpy(post_np, "cpu", fam)
+    m2, lab_t = gibbs.refine_tile(post, torch.as_tensor(x),
+                                  torch.as_tensor(valid), fam, DECAY)
+    assert m2.it == int(jm.it) + 1 == int(jm2.it)
+    assert torch.equal(m2.active, post.active)
+    lab_t = lab_t.numpy()
+    bad = np.flatnonzero(lab_t[:used] != lab_j[:used])
+    assert bad.size <= 0.01 * used
+    if bad.size:
+        _near_ties(fam, post, x, bad, lab_t, lab_j)
+        # the blend of the JAX labelling's stats, from the port's fold
+        k_max = post.active.shape[0]
+        sub_j = _jax_sublabels(family, jpost, x, valid)
+        batch = gibbs.finalize_substats(fam.stats_from_labels(
+            torch.as_tensor(x), torch.as_tensor(valid),
+            torch.as_tensor(lab_j), torch.as_tensor(sub_j), k_max))
+        blend = lambda o, b: tree_map2(lambda u, v: DECAY * u + v, o, b)
+        m2 = m2.replace(stats=blend(post.stats, batch[0]),
+                        substats=blend(post.substats, batch[1]))
+    for got, want in ((m2.stats, jm2.stats), (m2.substats, jm2.substats)):
+        for name, t in _fields(got).items():
+            w = np.asarray(getattr(want, name))
+            if name == "n":
+                np.testing.assert_allclose(t.numpy(), w, rtol=1e-6)
+            else:
+                np.testing.assert_allclose(t.numpy(), w, rtol=1e-5,
+                                           atol=1e-3)

@@ -30,6 +30,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from repro.configs import DPMMConfig as JConfig
 from repro.core import checkpoint as jckpt
@@ -52,10 +53,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes."""
+    """One intra-op thread, torch's and numpy's BLAS's: the suite runs
+    several test processes."""
     old = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api="blas"):
+        yield
     torch.set_num_threads(old)
 
 

@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from repro_torch.configs import DPMMConfig
 from repro_torch.core import checkpoint, gibbs
@@ -27,10 +28,12 @@ TILE = 1024
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes."""
+    """One intra-op thread, torch's and numpy's BLAS's: the suite runs
+    several test processes."""
     old = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api="blas"):
+        yield
     torch.set_num_threads(old)
 
 

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from repro.configs import DPMMConfig as JDPMMConfig
 from repro.core import niw as jniw
@@ -31,10 +32,13 @@ _TOOL = Path(__file__).resolve().parents[1] / "tools" / "split_evidence.py"
 def _one_torch_thread():
     """One intra-op thread: the suite runs several test processes, and
     float64 ``slogdet`` can hang in MKL once another module has changed
-    the thread count."""
+    the thread count. numpy's BLAS too (the float64 Gram matrices of
+    both sides): a thread a core in each test process oversubscribes the
+    machine."""
     old = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1, user_api="blas"):
+        yield
     torch.set_num_threads(old)
 
 

@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from repro.core import niw as jniw
 from repro.core.family import get_family as jget_family
@@ -44,6 +45,17 @@ from repro_torch.kernels.suffstats import (MAX_K, SMEM_LIMIT, STATS_BLOCK,
 from repro_torch.kernels.sweep import MAX_K as SWEEP_MAX_K
 
 TIE_RTOL = 1e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, torch's and numpy's BLAS's: the suite runs
+    several test processes."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1, user_api="blas"):
+        yield
+    torch.set_num_threads(old)
 
 
 @pytest.mark.parametrize("n,k,floats", [
